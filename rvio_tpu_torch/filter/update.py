@@ -1,0 +1,343 @@
+"""Batched inverse-depth MSCKF update — the filter back-end.
+
+Port of rvio_tpu/filter/update.py (reference: Updater::update,
+src/rvio/Updater.cc:72-628), following the JAX package's oracle (CPU)
+branches.  The feature axis F is an explicit batch dimension:
+
+1. window-relative pose chains — one composition over the clone window and
+   plain per-feature indexing (Updater.cc:118-141);
+2. inverse-depth LM triangulation — kernel K2 (ops/lm_triangulate.py);
+3. residual/Jacobians + 3-reflection Householder nullspace projection —
+   kernel K3 (ops/jac_project.py), emitting absolute clone columns;
+4. Mahalanobis gating against chi2(0.95, DOF) — kernel K4
+   (ops/spd_solve.py) for D = r^T S^-1 r (Updater.cc:404-454);
+5. measurement compression of the stacked system (Updater.cc:460-536):
+   Cholesky of the information matrix (default) or one thin QR;
+6. EKF update with multiplicative quaternion retraction and Joseph-form
+   covariance (Updater.cc:538-619).
+
+Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs its
+plain version on a CPU tensor.  Gates are ``torch.where`` on device
+tensors (never Python branches), so a frame reads nothing back to the
+host; rejected lanes are selected away (never multiplied by a mask) so
+NaNs from degenerate geometry cannot leak, and a NaN Mahalanobis distance
+rejects (NaN < thr is False).  Library linear algebra (the compression and
+EKF Cholesky factorizations) uses ``cholesky_ex`` with the JAX package's
+NaN-on-failure semantics.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from rvio_tpu_torch.core.chi2 import chi2_gate_thresholds, chi2_truncated_means
+from rvio_tpu_torch.core.quaternion import (quat_mul, quat_to_rot,
+                                            small_quat_from_dtheta)
+from rvio_tpu_torch.ops.jac_project import jac_project
+from rvio_tpu_torch.ops.lm_triangulate import (EPS_DEPTH, lm_triangulate,
+                                               unit_from_angles)
+from rvio_tpu_torch.ops.spd_solve import batched_quadform
+from rvio_tpu_torch.state.filter_state import FilterState
+
+
+@dataclass
+class UpdateBatch:
+    """Fixed-shape batch of update features (the tracker's output).
+
+    Mirrors mvFeatTypesForUpdate / mvlFeatMeasForUpdate
+    (reference: Tracker.h:65-74) with static shapes: F feature lanes, each
+    with up to L undistorted-normalized measurements ordered oldest first.
+    """
+
+    meas: torch.Tensor       # (F, L, 2) normalized image points
+    track_len: torch.Tensor  # (F,) int — measurements in lane (0 if unused)
+    is_type2: torch.Tensor   # (F,) bool — reached-max-length feature ('2')
+    valid: torch.Tensor      # (F,) bool — lane holds a real feature
+
+
+@lru_cache(maxsize=16)
+def _gate_tables(m: int, dtype: torch.dtype, device: torch.device):
+    """chi2(0.95, dof) thresholds and truncated means for dof = 1..m, on the
+    device (built once, so a frame copies nothing from the host)."""
+    thr = torch.as_tensor(chi2_gate_thresholds(m, np.float64), device=device)
+    etr = torch.as_tensor(chi2_truncated_means(m, np.float64), device=device)
+    return thr.to(dtype), etr.to(dtype)
+
+
+def _cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, all-NaN where the factorization fails (the
+    JAX package's semantics; torch.linalg.cholesky would raise, and on CUDA
+    read the status back to the host)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
+
+
+def window_pose_chain(clones: torch.Tensor, parallel: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefix-compose the clone window into first-window-frame-relative poses.
+
+    Returns (Rw, tw) of shape (M+1, 3, 3)/(M+1, 3): pose transform taking
+    window-frame-0 coordinates into window-frame i (x_i = Rw_i x_0 + tw_i).
+    Clone c stores the frame c -> c+1 transition (q, p) with
+    x_{c+1} = R(q)(x_c - p) (Updater.cc:125-132).  Slots >= n_clones are
+    identity transitions and extend the chain with its last value.
+
+    ``parallel`` composes the affine maps A_c: x -> R_c x + t_c
+    (t_c = -R_c p_c) as a log-depth doubling scan, (R_l, t_l)∘(R_e, t_e) =
+    (R_l R_e, R_l t_e + t_l): the same math in another fp order.
+    """
+    M = clones.shape[0]
+    Rc = quat_to_rot(clones[:, :4])
+    pc = clones[:, 4:7]
+    if parallel:
+        Rs = Rc
+        ts = -(Rc @ pc[:, :, None])[..., 0]
+        step = 1
+        while step < M:
+            Rl, tl = Rs[step:], ts[step:]
+            Re, te = Rs[:-step], ts[:-step]
+            Rs = torch.cat([Rs[:step], Rl @ Re])
+            ts = torch.cat([ts[:step], (Rl @ te[:, :, None])[..., 0] + tl])
+            step *= 2
+    else:
+        Rw = torch.eye(3, dtype=clones.dtype, device=clones.device)
+        tw = torch.zeros(3, dtype=clones.dtype, device=clones.device)
+        R_list, t_list = [], []
+        for c in range(M):
+            Rw = Rc[c] @ Rw
+            tw = Rc[c] @ (tw - pc[c])
+            R_list.append(Rw)
+            t_list.append(tw)
+        Rs, ts = torch.stack(R_list), torch.stack(t_list)
+    eye = torch.eye(3, dtype=clones.dtype, device=clones.device)[None]
+    zero = torch.zeros(1, 3, dtype=clones.dtype, device=clones.device)
+    return torch.cat([eye, Rs]), torch.cat([zero, ts])
+
+
+def feature_chains(Rw, tw, c0, L: int):
+    """Per-feature chains: pose of measurement frame m relative to frame 0.
+
+    Measurement frame m of feature f is window frame c0[f] + m.  Returns
+    (Rrel, trel) of shape (F, L, 3, 3)/(F, L, 3); entry 0 is identity,
+    entry m equals the reference's mRelPosesToFirst[m-1] (Updater.cc:125-132).
+    """
+    idx = torch.clamp(c0[:, None] + torch.arange(L, device=c0.device), 0,
+                      Rw.shape[0] - 1)
+    R_m = Rw[idx]              # (F, L, 3, 3) window-frame-0 -> frame c0+m
+    t_m = tw[idx]
+    Rrel = R_m @ R_m[:, :1].transpose(-1, -2)
+    trel = t_m - (Rrel @ t_m[:, :1, :, None])[..., 0]
+    return Rrel, trel
+
+
+def _camera_chains(Rw, tw, c0, L, R_bc, t_bc):
+    """(Rrel, trel, Rc, tc): body chains and camera-frame chains
+    (Updater.cc:135-141) of every feature."""
+    R_cb = R_bc.T
+    t_cb = -R_cb @ t_bc
+    Rrel, trel = feature_chains(Rw, tw, c0, L)
+    Rc = torch.einsum("ab,flbc,cd->flad", R_cb, Rrel, R_bc)
+    tc = (torch.einsum("ab,flbc,c->fla", R_cb, Rrel, t_bc)
+          + torch.einsum("ab,flb->fla", R_cb, trel) + t_cb)
+    return Rrel, trel, Rc.contiguous(), tc.contiguous()
+
+
+def msckf_update(state: FilterState, batch: UpdateBatch, *,
+                 R_bc, t_bc, sigma_im: float, min_clone_states: int,
+                 compression: str = "qr", parallel_chains: bool = False,
+                 fej: bool = False, adaptive_noise: bool = False,
+                 adaptive_alpha: float = 0.02, adaptive_rampup: int = 0,
+                 ekf_tail_fused: bool = False):
+    """Full measurement update; returns (new_state, diagnostics).
+
+    Equivalent to Updater::update (reference: Updater.cc:72-628) plus the
+    System-level gate that skips the update until the window has more than
+    ``min_clone_states`` clones (System.cc:266).
+
+    ``adaptive_noise``: innovation-based online calibration of the
+    image-noise variance (the running ratio of accepted Mahalanobis
+    distances to their truncated chi2 means drives a multiplicative EMA on
+    ``state.sigma2_scale``), with the mass-rejection escape.  ``fej``:
+    first-estimates Jacobians — Hf/Hx linearize the window chain at
+    ``state.clones_fej`` while residuals and triangulation use the current
+    clones.  Both as in the JAX package; ``fej=False`` and
+    ``adaptive_noise=False`` are strict reference parity.
+    """
+    if ekf_tail_fused:
+        raise NotImplementedError(
+            "tpu.ekf_tail_fused: the fused EKF-tail kernel is not ported yet")
+    dtype, dev = state.dtype, state.device
+    F, L, _ = batch.meas.shape
+    M = state.max_clones
+    D = state.err_dim
+    n = state.n_clones
+    R_bc = torch.as_tensor(R_bc, device=dev).to(dtype)
+    t_bc = torch.as_tensor(t_bc, device=dev).to(dtype)
+    chi2, etrunc = _gate_tables(2 * L, dtype, dev)
+
+    if adaptive_noise:
+        scale = torch.clamp(state.sigma2_scale, 0.01, 25.0)
+    else:
+        scale = torch.ones((), dtype=dtype, device=dev)
+    sig2_eff = (sigma_im ** 2) * scale
+
+    # ---- window chains (shared across features) ----
+    tlen = batch.track_len.long()
+    c0 = torch.where(batch.is_type2, torch.zeros_like(tlen), n - (tlen - 1))
+    c0 = torch.clamp(c0, 0, M)
+    Rw, tw = window_pose_chain(state.clones, parallel=parallel_chains)
+    Rrel_a, trel_a, Rc_a, tc_a = _camera_chains(Rw, tw, c0, L, R_bc, t_bc)
+    if fej:
+        Rw_j, tw_j = window_pose_chain(state.clones_fej,
+                                       parallel=parallel_chains)
+        Rrel_j, trel_j, Rc_j, tc_j = _camera_chains(Rw_j, tw_j, c0, L,
+                                                    R_bc, t_bc)
+    else:
+        Rrel_j, trel_j, Rc_j, tc_j = Rrel_a, trel_a, Rc_a, tc_a
+
+    meas = batch.meas.to(dtype).contiguous()
+    phi, psi, rho, ok_lm = lm_triangulate(meas, Rc_a, tc_a, tlen,
+                                          sigma_im=sigma_im)
+
+    # Type-2 truncation: only the first half of the track updates
+    # (Updater.cc:271-275; Tracker.cc:317-334).
+    t_eff = torch.where(batch.is_type2, (tlen + 1) // 2, tlen)
+    r_all, Hx_all, hfn = jac_project(
+        meas, Rc_j, tc_j, Rrel_j.contiguous(), trel_j.contiguous(), Rc_a,
+        tc_a, phi, psi, rho, t_eff, c0, R_bc, t_bc, M)
+    # rank check on the rho column (Updater.cc:374-378)
+    dof = 2 * t_eff - torch.where(hfn < 1e-4, 2, 3)
+
+    # Landmark estimate in the newest window frame (Updater.cc:431-447).
+    rho_safe = torch.clamp(rho, min=EPS_DEPTH)
+    pf1 = (unit_from_angles(phi, psi) / rho_safe[:, None]) @ R_bc.T + t_bc
+    last = torch.clamp(tlen - 1, 0, L - 1)
+    ar = torch.arange(F, device=dev)
+    pfk = (Rrel_a[ar, last] @ pf1[:, :, None])[..., 0] + trel_a[ar, last]
+
+    # ---- Mahalanobis gating (Updater.cc:404-454) ----
+    Pcl = state.P[24:, 24:]
+    S = Hx_all @ Pcl @ Hx_all.transpose(-1, -2)
+    S = S + sig2_eff * torch.eye(2 * L, dtype=dtype, device=dev)
+    S = 0.5 * (S + S.transpose(-1, -2))
+    D_all = torch.abs(batched_quadform(S, r_all))
+    thr = chi2[torch.clamp(dof - 1, 0, 2 * L - 1)]
+    # A track of length T spans T-1 transitions; they must all exist in the
+    # window (guards front-ends whose tracks predate filter init).
+    usable = (batch.valid & ok_lm & (tlen >= 2) & (dof > 0)
+              & (tlen - 1 <= n))
+    passed = usable & (D_all < thr)          # NaN D -> False -> rejected
+    n_good = torch.sum(passed)
+
+    # ---- stack + compression (Updater.cc:460-536) ----
+    Hw = torch.where(passed[:, None, None], Hx_all,
+                     torch.zeros_like(Hx_all)).reshape(F * 2 * L, 6 * M)
+    ro = torch.where(passed[:, None], r_all,
+                     torch.zeros_like(r_all)).reshape(F * 2 * L)
+    if compression == "cholesky":
+        # Information form: C = Hw^T Hw = L L^T, Hn = L^T, rn = L^-1 Hw^T ro;
+        # ridge-regularized on the (zero) invalid-clone diagonal.
+        C = Hw.T @ Hw
+        b = Hw.T @ ro
+        ridge = 1e-8 * torch.clamp(torch.trace(C), min=1.0)
+        C = C + ridge * torch.eye(6 * M, dtype=dtype, device=dev)
+        Lc = _cholesky(C)
+        Hn_cl = Lc.T
+        rn = torch.linalg.solve_triangular(Lc, b[:, None], upper=False)[:, 0]
+    elif compression == "qr":
+        # one thin QR of the masked stack; R's zero rows (rank deficiency)
+        # contribute nothing, like the reference's rank cut (Updater.cc:516)
+        Q1, Hn_cl = torch.linalg.qr(Hw, mode="reduced")
+        rn = Q1.T @ ro
+    else:
+        raise ValueError(f"unknown compression '{compression}'")
+    Hn = torch.cat([torch.zeros(Hn_cl.shape[0], 24, dtype=dtype, device=dev),
+                    Hn_cl], dim=1)                     # (6M, D)
+
+    # ---- EKF update (Updater.cc:538-619) ----
+    P = state.P
+    PHt = P @ Hn.T                                     # (D, 6M)
+    S = Hn @ PHt + sig2_eff * torch.eye(Hn.shape[0], dtype=dtype, device=dev)
+    S = 0.5 * (S + S.T)
+    K = torch.cholesky_solve(PHt.T, _cholesky(S)).T   # (D, 6M)
+    dx = K @ rn
+    I_KH = torch.eye(D, dtype=dtype, device=dev) - K @ Hn
+    P_new = I_KH @ P @ I_KH.T + sig2_eff * (K @ K.T)
+    P_new = 0.5 * (P_new + P_new.T)
+
+    # State retraction (Updater.cc:546-613).
+    q_G = quat_mul(small_quat_from_dtheta(dx[0:3]), state.q_G)
+    p_G = state.p_G + dx[3:6]
+    g = state.g + dx[6:9]
+    g = g / torch.linalg.vector_norm(g)
+    q_R = quat_mul(small_quat_from_dtheta(dx[9:12]), state.q_R)
+    p_R = state.p_R + dx[12:15]
+    v_R = state.v_R + dx[15:18]
+    bg = state.bg + dx[18:21]
+    ba = state.ba + dx[21:24]
+    dx_cl = dx[24:].reshape(M, 6)
+    q_cl = quat_mul(small_quat_from_dtheta(dx_cl[:, :3]), state.clones[:, :4])
+    p_cl = state.clones[:, 4:7] + dx_cl[:, 3:6]
+    clones = torch.cat([q_cl, p_cl], dim=1)
+
+    # Gates: >2 good features (Updater.cc:460) AND enough clones
+    # (System.cc:266).  Otherwise pass the propagated state through.
+    do_update = (n_good > 2) & (n > min_clone_states)
+
+    if adaptive_noise:
+        # whitening EMA: accepted D sums should match the 95 %-truncated
+        # chi2 means of their DOFs (core/chi2.py)
+        zero = torch.zeros_like(D_all)
+        sumD = torch.sum(torch.where(passed, D_all, zero))
+        denom = torch.sum(torch.where(
+            passed, etrunc[torch.clamp(dof - 1, 0, 2 * L - 1)], zero))
+        ratio = sumD / torch.clamp(denom, min=1e-6)
+        # mass rejection (assumed sigma far below reality): plenty of usable
+        # features but the gate passes almost none — walk the scale UP at
+        # full rate until features re-engage.  Disabled in warm-start
+        # configs (adaptive_rampup > 0), as in the JAX package.
+        if adaptive_rampup > 0:
+            mass_reject = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            mass_reject = (torch.sum(usable) >= 5) & (n_good <= 2)
+        ratio = torch.where(mass_reject, torch.full_like(ratio, 4.0), ratio)
+        alpha = torch.full((), adaptive_alpha, dtype=dtype, device=dev)
+        if adaptive_rampup > 0:
+            # warm-start regime: ramp DOWNWARD adaptation with frame age
+            ramp = torch.clamp(state.frame_idx.to(dtype) / adaptive_rampup,
+                               max=1.0)
+            alpha = torch.where(ratio < 1.0, alpha * ramp, alpha)
+        stepped = scale * torch.exp(alpha * torch.log(
+            torch.clamp(ratio, 1e-2, 1e2)))
+        can_adapt = (n > min_clone_states) & (do_update | mass_reject)
+        new_scale = torch.where(can_adapt, torch.clamp(stepped, 0.01, 25.0),
+                                state.sigma2_scale).to(dtype)
+    else:
+        new_scale = state.sigma2_scale
+
+    def sel(a, b):
+        return torch.where(do_update, a, b)
+
+    new_state = FilterState(
+        q_G=sel(q_G, state.q_G), p_G=sel(p_G, state.p_G), g=sel(g, state.g),
+        q_R=sel(q_R, state.q_R), p_R=sel(p_R, state.p_R),
+        v_R=sel(v_R, state.v_R), bg=sel(bg, state.bg), ba=sel(ba, state.ba),
+        clones=sel(clones, state.clones), P=sel(P_new, state.P),
+        n_clones=state.n_clones, frame_idx=state.frame_idx,
+        clones_fej=state.clones_fej,  # first estimates are never corrected
+        sigma2_scale=new_scale,
+    )
+    diagnostics = {
+        "n_good": n_good, "passed": passed, "mahalanobis": D_all,
+        "landmarks": pfk, "rho": rho, "did_update": do_update,
+        "n_usable": torch.sum(usable),
+        "tl_good_sum": torch.sum(torch.where(passed, tlen,
+                                             torch.zeros_like(tlen))),
+    }
+    return new_state, diagnostics

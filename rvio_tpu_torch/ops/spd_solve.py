@@ -1,0 +1,59 @@
+"""K4: batched SPD quadratic form D = r^T S^-1 r (the chi2 gate's distance).
+
+Replaces rvio_tpu/ops/spd_solve.py (``batched_quadform_pallas``,
+``_quadform_kernel``); CUDA source ``csrc/spd_solve.cu``.
+
+Bound on the H100 at the operating point (F=100, m=2L=30, f32): the call
+reads S and r once (F*m*(m+1)*4 B = 372 KB, about 0.11 us at 3.35 TB/s)
+and does about F*(m^3/3 + m^2) = 1 MFLOP (0.015 us at 67 TFLOP/s): both are
+far below a kernel launch, so it is launch- and latency-bound.  The design
+answers the latency: one launch for the whole batch, one block per feature
+with S in shared memory (no device-memory round trip between the m
+Cholesky steps), and the trailing update of each step spread over the
+block, so a step costs one barrier.  The TPU kernel's 128-lane packing and
+transposes are not carried over.
+
+NaN semantics (the gate relies on them): an indefinite or zero S gives a
+NaN D for that feature alone, so ``D < threshold`` rejects it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rvio_tpu_torch.ops import _lib
+
+_LIB = "spd_solve"
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+
+
+def batched_quadform_plain(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Plain version: Cholesky + solve, NaN where the factorization fails
+    (the NaN-on-failure semantics of the JAX cho_factor)."""
+    L, info = torch.linalg.cholesky_ex(S)
+    sol = torch.cholesky_solve(r[..., None], L)[..., 0]
+    D = torch.sum(r * sol, dim=-1)
+    return torch.where(info == 0, D, torch.full_like(D, float("nan")))
+
+
+def batched_quadform(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """D[f] = r[f]^T S[f]^-1 r[f] for S (F, m, m), r (F, m) -> (F,).
+
+    A CUDA tensor runs the kernel (f32 only); a CPU tensor the plain
+    version."""
+    if not _lib.uses_kernel(S, "batched_quadform"):
+        return batched_quadform_plain(S, r)
+    F, m = S.shape[0], S.shape[-1]
+    dev = S.device
+    _lib.check("batched_quadform", "S", S, (F, m, m), torch.float32, dev)
+    _lib.check("batched_quadform", "r", r, (F, m), torch.float32, dev)
+    D = torch.empty(F, dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_spd_quadform", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(S), _lib.ptr(r), _lib.ptr(D), F, m, device=dev)
+    batched_quadform.launches += 1
+    return D
+
+
+batched_quadform.launches = 0

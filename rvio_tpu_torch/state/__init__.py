@@ -1,0 +1,18 @@
+"""Fixed-shape robocentric filter state and its window operations."""
+
+from rvio_tpu_torch.state.filter_state import (
+    FilterState,
+    StateIndex,
+    clone_err_slice,
+    make_initial_state,
+    state_from_numpy,
+    state_to_numpy,
+    static_initialize,
+)
+from rvio_tpu_torch.state.window import augment_window, compose_state
+
+__all__ = [
+    "FilterState", "StateIndex", "clone_err_slice", "make_initial_state",
+    "state_from_numpy", "state_to_numpy", "static_initialize",
+    "augment_window", "compose_state",
+]

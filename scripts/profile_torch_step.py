@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the port's filter step spends its time on a CUDA card.
+
+    python3 scripts/profile_torch_step.py [--frames 200] [--trace PATH]
+
+Runs ``SequenceDriver`` (rvio_tpu_torch, f32, ``RVIOConfig()``) on the 60 s
+synthetic workload of bench.py: once whole, timed on the host clock (the
+driver's run ends in a readback), then a window of ``--frames`` frames
+under ``torch.profiler``.  Prints the card, the frames/s, the device busy
+share of the profiled window, the CUDA kernel launches per frame, and the
+device time per launch of the port's four kernels and of the other kernels
+by total time.  ``--trace`` writes the window's Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
+                "quadform_kernel")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--trace", default=None)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.ops import _lib
+    from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    _lib.build()
+    cfg = RVIOConfig()
+    sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,
+                            ramp_time=5.0, seed=7, n_landmarks=2000,
+                            motion_scale=0.8, meas_noise=0.001, imu_noise=True)
+    batches = batches_from_sim(sim)
+    imu = (sim.imu_t, sim.imu_w, sim.imu_a)
+    drv = SequenceDriver(cfg, dtype=torch.float32, device="cuda")
+    drv.run(*imu, sim.frame_t[:100], batches[:100])          # warm-up
+
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = drv.run(*imu, sim.frame_t, batches)
+        walls.append(time.perf_counter() - t0)
+    n = len(res.timestamps)
+    idx = np.searchsorted(sim.frame_t, res.timestamps)
+    print(f"whole run: {n} frames, best {min(walls):.3f} s = "
+          f"{n / min(walls):.1f} frames/s end to end; frame loop "
+          f"{res.backend_ms.sum() / n:.3f} ms/frame; ATE "
+          f"{ate_rmse(res.positions, sim.gt_p[idx]):.4f} m", flush=True)
+
+    # profiled window: the first frames after init, run as their own sequence
+    k_end = int(np.searchsorted(sim.frame_t, res.timestamps[a.frames - 1])) + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        win = drv.run(*imu, sim.frame_t[:k_end], batches[:k_end])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m = len(win.timestamps)
+    # device-side rows only (kernels, memcpy, memset); the aten rows carry
+    # their kernels' device time too and would count it twice
+    dev_us = {e.key: (e.device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.count}
+    busy = sum(t for k, (t, c) in dev_us.items())
+    launches = sum(c for k, (t, c) in dev_us.items()
+                   if not k.startswith(("Memcpy", "Memset")))
+    print(f"profiled window: {m} frames in {wall * 1e3:.1f} ms "
+          f"({wall * 1e3 / m:.3f} ms/frame under the profiler); device busy "
+          f"{busy / 1e3:.1f} ms = {busy / (wall * 1e6):.1%} of the window; "
+          f"{launches / m:.1f} kernel launches per frame", flush=True)
+    loop_ms = float(res.backend_ms.sum()) / n
+    print(f"device busy per frame {busy / 1e3 / m:.3f} ms = "
+          f"{busy / 1e3 / m / loop_ms:.1%} of the unprofiled frame loop "
+          f"({loop_ms:.3f} ms/frame)", flush=True)
+    for name in PORT_KERNELS:
+        hit = [(k, t, c) for k, (t, c) in dev_us.items() if name in k]
+        for k, t, c in hit:
+            print(f"  port kernel {name}: {c} launches, {t / c:.2f} us/launch "
+                  f"device, {t / busy:.1%} of device busy time")
+        if not hit:
+            print(f"  port kernel {name}: not seen by the profiler")
+    print("  top device rows by total time:")
+    for k, (t, c) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"    {t / 1e3:8.2f} ms  {c:6d} x {t / c:7.2f} us  {k[:90]}")
+    if a.trace:
+        Path(a.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(a.trace)
+        print(f"trace: {a.trace}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
