@@ -7,13 +7,19 @@ Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from ``rvio_tpu_torch/csrc`` (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
-version at the filter's operating point and times both, then drives the
-port's main path — ``SequenceDriver`` on the EuRoC operating point of
-``RVIOConfig()`` (200 feature slots, 15-frame tracks, 14 clones, 20 Hz
-camera, 200 Hz IMU, f32) over the 60 s synthetic workload of bench.py —
-and checks that every kernel ran once per filtered frame, that the
-trajectory's ATE is below 0.05 m, and that the first 100 frames agree with
-the port's plain path on the CPU.
+version at its main path's operating point and times both, then drives the
+port's two main paths over the 60 s synthetic workload of bench.py at the
+EuRoC operating point of ``RVIOConfig()`` (200 feature slots, 15-frame
+tracks, 14 clones, 20 Hz camera, 200 Hz IMU, f32):
+
+- the feature-level filter, ``SequenceDriver`` on the simulator's tracks:
+  every filter kernel runs once per filtered frame, ATE below 0.05 m, and
+  the first 100 frames agree with the port's plain path on the CPU;
+- images -> poses, ``run_rendered_sequence_scan`` on rendered 752 x 480
+  frames with the equalizer off: every kernel launches as often as the
+  path implies, ATE below 0.05 m, the front-end acceptance gates of
+  tests/test_flagship_image_ate.py hold, and the first 50 frames agree
+  with the CPU plain path.
 
 Output, in order: a device line, the build, one line per kernel check, the
 main-path lines, the card's name and power limit as nvidia-smi reports
@@ -44,6 +50,17 @@ CPU_FRAMES = 100
 # 80x that, so a fault at the main path's call sites shows.
 CPU_GAP_POS_M = 1e-4
 CPU_GAP_ROT_RAD = 1e-5
+# images -> poses: card kernel path vs CPU plain path over the first frames
+# (both f32, the same RANSAC draws).  An H100 run read 1.55e-6 m and every
+# slot-frame agreeing; the position limit is about 30x that reading.
+IMG_CPU_FRAMES = 50
+IMG_CPU_ACTIVE_AGREE = 0.99
+IMG_CPU_GAP_POS_M = 5e-5
+# front-end acceptance gates of tests/test_flagship_image_ate.py:49-53
+ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
+                "gate_reject_rate": ("<", 0.50),
+                "track_len_mean": (">", 4.0)}
+N_USABLE_MIN = 10.0
 
 
 def _events_ms(run, reps: int) -> float:
@@ -98,6 +115,98 @@ def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
     return float(torch.arcsin(torch.linalg.vector_norm(s, dim=-1).clamp(max=1.0)).max())
 
 
+FILTER_KERNELS = ("propagate_block", "lm_triangulate", "jac_project",
+                  "batched_quadform")
+
+
+def expected_launches(n: int) -> dict:
+    """Launches of each kernel when the image path runs its init frame and
+    n tracked frames: per frame K6 twice per pyramid level (4) plus once
+    for the refill's subpix tiles, K8 once per level, K9 and K13 once for
+    the refill detection, and every filter kernel once; the init frame's
+    detection adds one K6, K9 and K13."""
+    out = {name: n for name in FILTER_KERNELS}
+    out.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
+               shi_tomasi_nms=n + 1)
+    return out
+
+
+def image_phase(dev, sim, kernels, records) -> None:
+    """Images -> poses on the card, then its first frames on the CPU."""
+    import dataclasses
+
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.runtime import bundle_imu, run_rendered_sequence_scan
+    from rvio_tpu_torch.runtime.image_driver import _find_init_frame
+
+    cfg = RVIOConfig()
+    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, enable_equalizer=False))
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    _, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
+                             "cpu")
+    # warm-up: library handles and the allocator's pool
+    run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 9)
+    for kernel in kernels.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    res = run_rendered_sequence_scan(cfg, sim, device=dev, timing_split=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    for kernel, rec in records:
+        if rec["name"] not in FILTER_KERNELS:
+            rec["launches"] = kernel.launches
+    n = len(res.timestamps)
+    if n != len(sim.frame_t) - k0 - 1:
+        raise AssertionError("the image path skipped frames of the loop")
+    idx = np.searchsorted(sim.frame_t, res.timestamps)
+    ate = ate_rmse(res.positions, sim.gt_p[idx])
+    acc = res.acceptance_stats()
+    usable = float(res.diag["n_usable"].mean())
+    fe, be = float(res.frontend_ms.mean()), float(res.backend_ms.mean())
+    print(f"image path: {n} frames (init frame {k0}), {n / wall:.1f} frames/s "
+          f"images -> poses ({wall:.2f} s, host rendering included); "
+          f"front-end {fe:.3f} ms/frame, back-end {be:.3f} ms/frame on the "
+          f"card; ATE {ate:.4f} m (limit {ATE_LIMIT_M}); acceptance "
+          f"{json.dumps(acc)}, n_usable mean {usable:.1f}; wider ridge on "
+          f"{int(res.diag['ridge_fallback'].sum())} frames; launches "
+          f"{launches}", flush=True)
+    want = expected_launches(n)
+    if launches != want:
+        raise AssertionError(f"image path launches {launches}, expected {want}")
+    if not (np.isfinite(res.positions).all() and res.positions.shape == (n, 3)
+            and np.isfinite(res.quaternions).all()):
+        raise AssertionError("non-finite or misshapen image-path trajectory")
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"image-path ATE {ate:.4f} m over {ATE_LIMIT_M} m")
+    for key, (op, lim) in ACCEPT_GATES.items():
+        if not (acc[key] > lim if op == ">" else acc[key] < lim):
+            raise AssertionError(f"{key} {acc[key]:.3f} fails {op} {lim}")
+    if not usable > N_USABLE_MIN:
+        raise AssertionError(f"n_usable mean {usable:.1f} <= {N_USABLE_MIN}")
+
+    # the first frames again through the plain path on the CPU (f32, the
+    # same seed and so the same RANSAC draws)
+    t0 = time.perf_counter()
+    cpu = run_rendered_sequence_scan(cfg, sim, device="cpu",
+                                     max_frames=k0 + 1 + IMG_CPU_FRAMES)
+    m = len(cpu.timestamps)
+    if m != IMG_CPU_FRAMES or not np.array_equal(cpu.timestamps,
+                                                 res.timestamps[:m]):
+        raise AssertionError("the CPU image run filtered other frames")
+    agree = float((cpu.active_slots == res.active_slots[:m]).mean())
+    dp = float(np.abs(cpu.positions - res.positions[:m]).max())
+    print(f"image path, cpu plain path, first {m} frames "
+          f"({time.perf_counter() - t0:.1f} s): active slots agree on "
+          f"{agree:.4%} of slot-frames (limit {IMG_CPU_ACTIVE_AGREE:.0%}), "
+          f"max position gap {dp:.3e} m (limit {IMG_CPU_GAP_POS_M})",
+          flush=True)
+    if not (agree >= IMG_CPU_ACTIVE_AGREE and dp < IMG_CPU_GAP_POS_M):
+        raise AssertionError("card image path and CPU plain path disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -110,6 +219,7 @@ def main() -> int:
     from rvio_tpu_torch.ops.checks import kernel_checks
     from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -135,8 +245,7 @@ def main() -> int:
     for chk in kernel_checks(dev):
         err = chk.check()
         torch.cuda.synchronize()
-        ins, outs = chk.tensors()
-        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        nbytes = chk.bytes_read + chk.bytes_written
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = chk.flops / PEAK_F32_FLOP_PER_S * 1e3
         ms = device_ms(chk.run_kernel, reps=200)
@@ -150,12 +259,15 @@ def main() -> int:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=lib_ms)
         records.append((chk.kernel, rec))
-        print(f"kernel {chk.name}: err {err:.3e} (tolerance: {chk.tolerance}); "
-              f"{ms * 1e3:.2f} us/launch on the device ({per_call_ms * 1e3:.1f}"
-              f" us per eager call), plain {plain_ms * 1e3:.1f} us, "
-              f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
+        info = "".join(f", {k} {v}" for k, v in chk.info.items())
+        print(f"kernel {chk.name}: err {err:.3e} (tolerance: {chk.tolerance}"
+              f"{info}); {ms * 1e3:.2f} us/launch on the device "
+              f"({per_call_ms * 1e3:.1f} us per eager call), plain "
+              f"{plain_ms * 1e3:.1f} us, library "
+              f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
               f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}: "
               f"{nbytes} B, {chk.flops:.3g} flop)", flush=True)
+    kernels = {rec["name"]: kernel for kernel, rec in records}
 
     # ---- main path: SequenceDriver on the card, bench.py's workload ----
     cfg = RVIOConfig()
@@ -169,15 +281,16 @@ def main() -> int:
     args = (sim.imu_t, sim.imu_w, sim.imu_a)
     driver = SequenceDriver(cfg, dtype=torch.float32, device=dev)
     driver.run(*args, sim.frame_t[:100], batches[:100])   # warm-up: handles
-    for kernel, _ in records:
+    for kernel in kernels.values():
         kernel.launches = 0
     t0 = time.perf_counter()
     res = driver.run(*args, sim.frame_t, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kernel.__name__: kernel.launches for kernel, _ in records}
+    launches = {name: kernels[name].launches for name in FILTER_KERNELS}
     for kernel, rec in records:
-        rec["launches"] = kernel.launches
+        if rec["name"] in FILTER_KERNELS:
+            rec["launches"] = kernel.launches
     n = len(res.timestamps)
     idx = np.searchsorted(sim.frame_t, res.timestamps)
     ate = ate_rmse(res.positions, sim.gt_p[idx])
@@ -185,7 +298,9 @@ def main() -> int:
     print(f"main path: {n} frames, {n / wall:.1f} frames/s end to end "
           f"({wall:.2f} s), {n / backend_s:.1f} frames/s in the frame loop, "
           f"n_good mean {res.n_good.mean():.1f}, ATE {ate:.4f} m "
-          f"(limit {ATE_LIMIT_M}), launches {launches}", flush=True)
+          f"(limit {ATE_LIMIT_M}), wider ridge on "
+          f"{int(res.diag['ridge_fallback'].sum())} frames, launches "
+          f"{launches}", flush=True)
     if any(v != n for v in launches.values()):
         raise AssertionError(f"every kernel must launch once per frame "
                              f"({n}): {launches}")
@@ -211,6 +326,9 @@ def main() -> int:
     if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
         raise AssertionError("card kernel path and CPU plain path disagree")
 
+    image_phase(dev, sim, kernels, records)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": [rec for _, rec in records]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,9 +18,10 @@ from rvio_tpu_torch.core.so3 import skew
 
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    q = torch.zeros(4, dtype=dtype, device=device)
-    q[3] = 1.0
-    return q
+    """[0, 0, 0, 1], made on the device (an item assignment from a Python
+    scalar would copy it from the host and synchronize every frame)."""
+    return torch.cat([torch.zeros(3, dtype=dtype, device=device),
+                      torch.ones(1, dtype=dtype, device=device)])
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 __device__ inline float safe_z(float z, float eps) {
@@ -195,10 +197,6 @@ __global__ void jac_project_kernel(
 }  // namespace
 
 extern "C" {
-
-const char* rvio_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}
 
 int rvio_jac_project(const float* z, const float* Rcl, const float* tcl,
                      const float* Rrl, const float* trl, const float* Rcr,

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float kEpsDepth = 1e-12f;
@@ -125,10 +127,6 @@ __global__ void lm_kernel(const float* __restrict__ z,
 }  // namespace
 
 extern "C" {
-
-const char* rvio_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}
 
 int rvio_lm_triangulate(const float* z, const float* Rc, const float* tc,
                         const int* tlen, float* phi, float* psi, float* rho,

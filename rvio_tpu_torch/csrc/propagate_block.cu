@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int N = 24;
@@ -212,10 +214,6 @@ __global__ void __launch_bounds__(N * N) propagate_block_kernel(
 }  // namespace
 
 extern "C" {
-
-const char* rvio_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}
 
 int rvio_propagate_block(const float* w, const float* a, const float* dte,
                          const float* R0, const float* vR, const float* gR,

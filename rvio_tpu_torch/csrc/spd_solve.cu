@@ -12,6 +12,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 __global__ void quadform_kernel(const float* __restrict__ S,
@@ -48,10 +50,6 @@ __global__ void quadform_kernel(const float* __restrict__ S,
 }  // namespace
 
 extern "C" {
-
-const char* rvio_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
-}
 
 int rvio_spd_quadform(const float* S, const float* r, float* D, int F, int m,
                       cudaStream_t stream) {

@@ -69,6 +69,37 @@ def _gate_tables(m: int, dtype: torch.dtype, device: torch.device):
     return thr.to(dtype), etr.to(dtype)
 
 
+# The JAX package's ridge on the information matrix, relative to its trace
+# (rvio_tpu/filter/update.py:738).
+INFO_RIDGE = 1e-8
+
+
+def info_cholesky(C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower Cholesky factor of the information matrix C (n x n) plus a
+    ridge, and whether the wider ridge was needed (a 0-d bool tensor).
+
+    The ridge is the JAX package's 1e-8 * max(trace C, 1), and the factor
+    is the JAX function's wherever that factorization succeeds.  Only where
+    it fails does the factor take n eps * max(trace C, 1): in f32 a C of
+    low rank (three accepted features) can lose more than 1e-8 of its trace
+    to rounding, so a pivot turns negative and the JAX function's update is
+    NaN.  Both factorizations run and ``torch.where`` picks, so nothing is
+    read back; in f64 (n eps about 2e-14) the second one never runs.  A
+    factor that fails both ways is NaN, as in the JAX package."""
+    n = C.shape[-1]
+    eye = torch.eye(n, dtype=C.dtype, device=C.device)
+    scale = torch.clamp(torch.trace(C), min=1.0)
+    L, info = torch.linalg.cholesky_ex(C + (INFO_RIDGE * scale) * eye)
+    fallback = info != 0
+    wide = n * torch.finfo(C.dtype).eps
+    if wide > INFO_RIDGE:
+        L2, info2 = torch.linalg.cholesky_ex(C + (wide * scale) * eye)
+        L = torch.where(fallback, L2, L)
+        info = torch.where(fallback, info2, info)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return L, fallback
+
+
 def _cholesky(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor, all-NaN where the factorization fails (the
     JAX package's semantics; torch.linalg.cholesky would raise, and on CUDA
@@ -245,9 +276,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
         # ridge-regularized on the (zero) invalid-clone diagonal.
         C = Hw.T @ Hw
         b = Hw.T @ ro
-        ridge = 1e-8 * torch.clamp(torch.trace(C), min=1.0)
-        C = C + ridge * torch.eye(6 * M, dtype=dtype, device=dev)
-        Lc = _cholesky(C)
+        Lc, ridge_fallback = info_cholesky(C)
         Hn_cl = Lc.T
         rn = torch.linalg.solve_triangular(Lc, b[:, None], upper=False)[:, 0]
     elif compression == "qr":
@@ -255,6 +284,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
         # contribute nothing, like the reference's rank cut (Updater.cc:516)
         Q1, Hn_cl = torch.linalg.qr(Hw, mode="reduced")
         rn = Q1.T @ ro
+        ridge_fallback = torch.zeros((), dtype=torch.bool, device=dev)
     else:
         raise ValueError(f"unknown compression '{compression}'")
     Hn = torch.cat([torch.zeros(Hn_cl.shape[0], 24, dtype=dtype, device=dev),
@@ -339,5 +369,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
         "n_usable": torch.sum(usable),
         "tl_good_sum": torch.sum(torch.where(passed, tlen,
                                              torch.zeros_like(tlen))),
+        # the applied update's compression needed the wider ridge
+        "ridge_fallback": ridge_fallback & do_update,
     }
     return new_state, diagnostics

@@ -1,0 +1,6 @@
+"""The image front-end: pyramid, detection, KLT, RANSAC and the feature
+lifecycle (port of rvio_tpu/frontend, equalizer not yet ported)."""
+
+from rvio_tpu_torch.frontend.tracker import TrackerState, make_tracker
+
+__all__ = ["TrackerState", "make_tracker"]

@@ -1,0 +1,243 @@
+"""The front-end: feature lifecycle over fixed-shape slots.
+
+Port of rvio_tpu/frontend/tracker.py (Tracker, reference:
+src/rvio/Tracker.cc:179-396).  Every structure is a fixed-shape tensor over
+N feature slots, and one ``track_fn`` call runs the whole per-frame
+front-end — pyramid, KLT, undistortion, gyro-RANSAC, lifecycle
+classification, update-batch assembly, detection refill — without reading
+anything back to the host.
+
+Lifecycle rules preserved (Tracker.cc:271-396):
+- lost track with history >= nMinTrackingLength  -> type '1' update feature;
+- reaching nMaxTrackingLength                    -> type '2' update feature,
+  history truncated to the last ceil(L/2) entries if it got into the update
+  budget, else popped by one;
+- update batch capped at ceil(N/2), lost features first;
+- freed slots refilled from spaced Shi-Tomasi detections admitted by the
+  chess-grid occupancy test.
+
+The JAX package selects batch rows and pairs refill candidates with
+one-hot matmuls (TPU scatters and gathers serialize); the port indexes
+directly and gets the same slots, ranks and budget.  The equalizer (CLAHE,
+TPU kernels K10/K11) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from rvio_tpu_torch.config import RVIOConfig
+from rvio_tpu_torch.device import resolve_device
+from rvio_tpu_torch.filter.update import UpdateBatch
+from rvio_tpu_torch.frontend.detector import (corner_subpix, find_newer,
+                                              grid_top_corners,
+                                              nms_masked_response)
+from rvio_tpu_torch.frontend.image import build_pyramid
+from rvio_tpu_torch.frontend.klt import klt_track
+from rvio_tpu_torch.frontend.ransac import (gyro_ransac,
+                                            integrate_gyro_rotation)
+from rvio_tpu_torch.frontend.undistort import undistort_normalize
+
+
+@dataclass
+class TrackerState:
+    """Fixed-shape tracker state carried between frames."""
+
+    pos: torch.Tensor       # (N, 2) current distorted pixel positions
+    hist: torch.Tensor      # (N, L, 2) undistorted-normalized history
+    length: torch.Tensor    # (N,) int64 measurements in history
+    active: torch.Tensor    # (N,) bool slot in use
+    pyramid: tuple          # previous frame's pyramid (tuple of tensors)
+
+
+def _cam_kwargs(cfg: RVIOConfig):
+    c = cfg.camera
+    return dict(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, k1=c.k1, k2=c.k2,
+                p1=c.p1, p2=c.p2, k3=c.k3, fisheye=c.is_fisheye)
+
+
+def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
+    """Build the front-end entry points on ``device`` (``None``: the CUDA
+    device; raises without one):
+
+    init_fn(image) -> (TrackerState, n_active)                (first frame)
+    track_fn(state, image, imu_w, imu_dt, imu_valid, u)
+        -> (TrackerState, UpdateBatch, debug dict)
+
+    ``image`` is (H, W) gray or (H, W, 3) color of any real dtype (u8 frames
+    are cast on the device); ``u`` holds the frame's N uniform RANSAC draws.
+    """
+    device = resolve_device(device)
+    if cfg.tracker.enable_equalizer:
+        raise NotImplementedError(
+            "enable_equalizer needs K10/K11 (CLAHE), not ported yet")
+    N = cfg.tracker.num_features
+    L = cfg.tracker.max_tracking_length
+    Lmin = cfg.tracker.min_tracking_length
+    F = cfg.tracker.max_update_features
+    keep_after_t2 = L - (math.ceil(0.5 * L) - 1)
+    min_dist = cfg.tracker.min_distance
+    cell = max(4, int(min_dist))
+    cell2 = max(4, int(2 * min_dist))
+    cam = _cam_kwargs(cfg)
+    R_bc = torch.as_tensor(cfg.camera.R_bc, device=device).to(dtype)
+    levels = cfg.tracker.klt_levels
+    klt_kw = dict(win=cfg.tracker.klt_window,
+                  max_iters=cfg.tracker.klt_max_iters,
+                  eps=cfg.tracker.klt_eps, min_eig=cfg.tracker.klt_min_eig)
+    slots = torch.arange(N, device=device)
+    ranks = torch.arange(F, device=device)
+
+    def preprocess(image):
+        img = image.to(device=device, dtype=dtype)
+        if img.ndim == 3:
+            # color input -> BT.601 luma; Camera.RGB picks the channel order
+            # (reference: Tracker.cc:183-202 cvtColor RGB2GRAY/BGR2GRAY)
+            r, g, b = ((img[..., 0], img[..., 1], img[..., 2])
+                       if cfg.camera.is_rgb
+                       else (img[..., 2], img[..., 1], img[..., 0]))
+            img = 0.299 * r + 0.587 * g + 0.114 * b
+        return tuple(build_pyramid(img, levels))
+
+    def detect(img, spacing, refine=True):
+        resp = nms_masked_response(img)
+        pts, valid = grid_top_corners(resp, spacing, N,
+                                      cfg.tracker.quality_level)
+        if refine:
+            pts = corner_subpix(img, pts, win=int(min_dist) // 2,
+                                iters=cfg.tracker.subpix_iters)
+        return pts, valid
+
+    def init_fn(image) -> Tuple[TrackerState, torch.Tensor]:
+        pyr = preprocess(image)
+        pts, valid = detect(pyr[0], cell)
+        k = min(N, pts.shape[0])
+        pos = torch.zeros((N, 2), dtype=dtype, device=device)
+        pos[:k] = pts[:k]
+        active = torch.zeros(N, dtype=torch.bool, device=device)
+        active[:k] = valid[:k]
+        zn = undistort_normalize(pos, **cam).to(dtype)
+        hist = torch.zeros((N, L, 2), dtype=dtype, device=device)
+        hist[:, 0, :] = torch.where(active[:, None], zn, 0.0)
+        length = active.long()
+        return (TrackerState(pos=pos, hist=hist, length=length, active=active,
+                             pyramid=pyr), active.sum())
+
+    def track_fn(ts: TrackerState, image, imu_w, imu_dt, imu_valid, u):
+        pyr = preprocess(image)
+
+        # --- KLT (Tracker.cc:237-244) ---
+        new_pos, status, err = klt_track(list(ts.pyramid), list(pyr),
+                                         ts.pos, ts.active, **klt_kw)
+        zn = undistort_normalize(new_pos, **cam).to(dtype)
+
+        # --- gyro-aided RANSAC (Tracker.cc:264) ---
+        prev_zn = ts.hist[slots, torch.clamp(ts.length - 1, 0, L - 1)]
+        ones = torch.ones((N, 1), dtype=dtype, device=device)
+        p1h = torch.cat([prev_zn, ones], dim=1)
+        p2h = torch.cat([zn, ones], dim=1)
+        R_cam = integrate_gyro_rotation(imu_w.to(dtype), imu_dt.to(dtype),
+                                        imu_valid, R_bc, cfg.imu.small_angle)
+        inlier = gyro_ransac(u, p1h, p2h, status & ts.active, R_cam,
+                             cfg.tracker.inlier_threshold,
+                             n_hypotheses=cfg.tracker.ransac_iterations,
+                             use_sampson=cfg.tracker.use_sampson)
+        tracked = ts.active & inlier
+        lost = ts.active & ~inlier
+
+        # --- update batch assembly (Tracker.cc:271-342) ---
+        # type-1 (lost) features first by slot index, then type-2, capped
+        # at F; rank F means dropped
+        type1 = lost & (ts.length >= Lmin)
+        at_max = tracked & (ts.length == L)
+        n_type1 = torch.sum(type1.long())
+        r1 = torch.cumsum(type1.long(), 0) - 1
+        r2 = n_type1 + torch.cumsum(at_max.long(), 0) - 1
+        rank = torch.where(type1, r1, torch.where(at_max, r2, F))
+        in_budget_any = (type1 | at_max) & (rank < F)
+        n_sel = torch.clamp(n_type1 + torch.sum(at_max.long()), max=F)
+        sel_valid = ranks < n_sel
+        # the slot holding each rank (N: none), then its rows
+        slot_of = torch.full((F + 1,), N, dtype=torch.long, device=device)
+        slot_of.scatter_(0, torch.where(in_budget_any, rank, F), slots)
+        src = slot_of[:F]
+        hist_rows = torch.cat([ts.hist.reshape(N, L * 2),
+                               ts.hist.new_zeros(1, L * 2)])
+        len_rows = torch.cat([ts.length, ts.length.new_zeros(1)])
+        batch = UpdateBatch(meas=hist_rows[src].reshape(F, L, 2),
+                            track_len=len_rows[src],
+                            is_type2=sel_valid & (ranks >= n_type1),
+                            valid=sel_valid)
+        in_budget = at_max & (rank < F)
+
+        # --- history update (Tracker.cc:305-342) ---
+        # type-2 in budget: keep the last keep_after_t2 entries; type-2 over
+        # budget: drop one; the tail repeats the last entry
+        def shifted(s):
+            if s == 0:
+                return ts.hist
+            tail = ts.hist[:, -1:].expand(N, s, 2)
+            return torch.cat([ts.hist[:, s:], tail], dim=1)
+
+        s2 = L - keep_after_t2
+        hist = torch.where((at_max & in_budget)[:, None, None], shifted(s2),
+                           torch.where(at_max[:, None, None], shifted(1),
+                                       ts.hist))
+        shift = torch.where(at_max & in_budget, s2,
+                            torch.where(at_max, 1, 0))
+        new_len = ts.length - shift
+        # append the new measurement for tracked slots
+        app_here = ((torch.arange(L, device=device)[None, :]
+                     == torch.clamp(new_len, 0, L - 1)[:, None])
+                    & tracked[:, None])
+        hist = torch.where(app_here[:, :, None], zn[:, None, :], hist)
+        new_len = torch.where(tracked, new_len + 1, 0)
+        active = tracked
+        pos = torch.where(tracked[:, None], new_pos, 0.0)
+
+        # --- refill (Tracker.cc:344-387) ---
+        cand_pts, cand_valid = detect(pyr[0], cell2,
+                                      refine=cfg.tracker.subpix_refill)
+        admit = find_newer(cand_pts, cand_valid, pos, active,
+                           img_w=cfg.camera.width, img_h=cfg.camera.height,
+                           block_w=cfg.tracker.block_size_x,
+                           block_h=cfg.tracker.block_size_y,
+                           min_dist=min_dist, max_feats=N)
+        free = ~active
+        n_free = torch.sum(free.long())
+        n_admit = torch.sum(admit.long())
+        # pair the i-th free slot with the i-th admitted candidate (slot and
+        # candidate index order, the reference's FindNewer fill order)
+        C = cand_pts.shape[0]
+        rf = torch.cumsum(free.long(), 0) - 1
+        ra = torch.cumsum(admit.long(), 0) - 1
+        cand_of_rank = torch.full((C + 1,), C, dtype=torch.long, device=device)
+        cand_of_rank.scatter_(0, torch.where(admit, ra, C),
+                              torch.arange(C, device=device))
+        fill_slot = free & (rf < n_admit)
+        pick = cand_of_rank[torch.clamp(rf, 0, C)]
+        # a non-finite candidate must not reach a slot
+        cand_f = torch.where(torch.isfinite(cand_pts), cand_pts, 0.0)
+        cand_zn = undistort_normalize(cand_f, **cam).to(dtype)
+        cand_zn = torch.where(torch.isfinite(cand_zn), cand_zn, 0.0)
+        pad = cand_f.new_zeros(1, 2)
+        new_pts = torch.cat([cand_f.to(dtype), pad])[pick]
+        new_zn = torch.cat([cand_zn, pad])[pick]
+        pos = torch.where(fill_slot[:, None], new_pts, pos)
+        active = active | fill_slot
+        hist = torch.cat([torch.where(fill_slot[:, None], new_zn,
+                                      hist[:, 0])[:, None], hist[:, 1:]], dim=1)
+        new_len = torch.where(fill_slot, 1, new_len)
+
+        debug = {"n_tracked": torch.sum(tracked.long()),
+                 "n_lost": torch.sum(lost.long()),
+                 "n_new": torch.minimum(n_free, n_admit),
+                 "klt_err": err}
+        return (TrackerState(pos=pos, hist=hist, length=new_len,
+                             active=active, pyramid=pyr), batch, debug)
+
+    return init_fn, track_fn

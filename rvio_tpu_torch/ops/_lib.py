@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/lib<name>-<hash>.so``, the hash
-covering the source and the flags, so a stale library is never loaded) and
+covering the source, the shared ``csrc/common.cuh`` and the flags, so a
+stale library is never loaded) and
 bound with ``ctypes``.  Nothing is built or loaded at import: the first
 launch builds what it needs, and :func:`build` compiles every library at
 once, one ``nvcc`` process per source.
@@ -27,7 +28,9 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("propagate_block", "lm_triangulate", "jac_project", "spd_solve")
+SOURCES = ("propagate_block", "lm_triangulate", "jac_project", "spd_solve",
+           "tile_gather", "lk_level", "subpix_refine", "shi_tomasi_nms")
+HEADER = "common.cuh"      # included by every source
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +47,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join((CSRC / f).read_bytes() for f in (f"{name}.cu", HEADER))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{h}.so"
 

@@ -1,20 +1,23 @@
-"""Kernel-versus-plain checks at the filter's operating point.
+"""Kernel-versus-plain checks at the main paths' operating points.
 
 For each kernel: seeded inputs (numpy, then moved to the device) at the
-shapes the main path gives it under ``RVIOConfig()`` (K=16 IMU samples,
-F=100 update features, L=15 track length, M=14 clones), a comparison of the
-kernel's result with its plain version's on the same inputs with a stated
-tolerance, the operations the function needs on these inputs (for the
-roofline bound: from the structure of the matrices, and only the samples,
-iterations, rows and columns this data uses), and, where one PyTorch call
-computes the same function, that call.  ``chip_smoke.py`` and the GPU
-tests run them.
+shapes the main path gives it under ``RVIOConfig()`` (filter: K=16 IMU
+samples, F=100 update features, L=15 track length, M=14 clones; image
+front-end: 752 x 480 frames, N=200 feature slots, 40 x 32 tiles, a 15 x 15
+LK window, 10 subpix iterations), a comparison of the kernel's result with
+its plain version's on the same inputs with a stated tolerance, the
+bytes the function must read and write and the operations it needs on
+these inputs (for the roofline bound: from the structure of the matrices,
+and only the samples, iterations, measurements and pixels this data uses;
+never the size of an argument the function reads in part), and, where one
+PyTorch call computes the same function, that call.  ``chip_smoke.py`` and
+the GPU tests run them.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -40,7 +43,10 @@ class KernelCheck:
     tolerance: str
     compare: Callable      # (kernel_out, plain_out) -> error; raises if over
     flops: float           # operations the function needs on these inputs
+    bytes_read: int        # bytes of input it needs, each read once
+    bytes_written: int     # bytes of output, each written once
     library: Optional[Callable] = None   # one PyTorch call, same function
+    info: dict = field(default_factory=dict)   # what ``compare`` counted
 
     def run_kernel(self):
         return self.kernel(*self.args, **self.kwargs)
@@ -53,14 +59,6 @@ class KernelCheck:
         raises AssertionError over the tolerance."""
         return self.compare(self.run_kernel(), self.run_plain())
 
-    def tensors(self):
-        """Every tensor the call reads, and (after a run) writes."""
-        ins = [a for a in self.args if isinstance(a, torch.Tensor)]
-        ins += [a for a in self.kwargs.values() if isinstance(a, torch.Tensor)]
-        out = self.run_kernel()
-        outs = list(out) if isinstance(out, tuple) else [out]
-        return ins, outs
-
 
 def _np(t):
     return t.detach().double().cpu().numpy()
@@ -68,6 +66,10 @@ def _np(t):
 
 def _fail(name, what, err, tol):
     raise AssertionError(f"{name}: {what} error {err:.3e} over tolerance {tol:.1e}")
+
+
+F32 = 4   # bytes of one f32 (and of one int32)
+I64 = 8
 
 
 # Nonzeros of Phi = I + dt F (PreIntegrator.cc:122-142): the diagonal, four
@@ -126,12 +128,17 @@ def _propagate_case(cfg, dev, rng) -> KernelCheck:
             _fail("propagate_block", "max abs (P relative)", err, tol)
         return float(err)
 
-    flops = propagate_flops(int((dte > 0).sum()))
+    n_valid = int((dte > 0).sum())
+    # w and a of the samples with dt > 0, dte, R0, four vectors, P0 in;
+    # R, p, v, P and Psi out
+    read = F32 * (6 * n_valid + K + 9 + 12 + 24 * 24)
+    written = F32 * (9 + 3 + 3 + 2 * 24 * 24)
     return KernelCheck(
         "propagate_block", "rvio_tpu_torch/csrc/propagate_block.cu",
         "rvio_tpu/ops/propagate_block.py:212", k1.propagate_block,
         k1.propagate_block_plain, args, kwargs,
-        "max abs 1e-5 (P relative to max|P|)", compare, float(flops))
+        "max abs 1e-5 (P relative to max|P|)", compare,
+        float(propagate_flops(n_valid)), read, written)
 
 
 def _feature_geometry(cfg, rng, F, L):
@@ -187,11 +194,16 @@ def _lm_case(cfg, dev, rng) -> KernelCheck:
     # equations), 90 for the damped 3x3 solve
     its = _np(k2.lm_iterations(*args, **kwargs))
     flops = int((its * (145 * tl + 90)).sum())
+    # z, Rc, tc of each feature's tl measurements and tl in; phi, psi,
+    # rho and ok out
+    read = F32 * 14 * int(tl.sum()) + I64 * F
+    written = (3 * F32 + 1) * F
     return KernelCheck(
         "lm_triangulate", "rvio_tpu_torch/csrc/lm_triangulate.cu",
         "rvio_tpu/ops/lm_triangulate.py:177", k2.lm_triangulate,
         k2.lm_triangulate_plain, args, kwargs,
-        "ok identical; phi/psi/rho max abs 1e-4", compare, float(flops))
+        "ok identical; phi/psi/rho max abs 1e-4", compare, float(flops),
+        read, written)
 
 
 def _jac_case(cfg, dev, rng) -> KernelCheck:
@@ -233,12 +245,18 @@ def _jac_case(cfg, dev, rng) -> KernelCheck:
             _fail("jac_project", "H^T H / H^T r / r^T r scaled", err, tol_inv)
         return float(max(err, err_h))
 
+    # for each feature's t_eff measurements z (2 floats) and six chain
+    # entries (Rc, tc, Rrel, trel at the linearization point, Rc, tc at
+    # the estimate: 36), then phi, psi, rho, t_eff, c0, R_bc, t_bc in;
+    # r, Hx and hfn out, whole
+    read = F32 * (38 * int(t_eff.sum()) + 3 * F + 12) + 2 * I64 * F
+    written = F32 * F * (2 * L + 2 * L * 6 * M + 1)
     return KernelCheck(
         "jac_project", "rvio_tpu_torch/csrc/jac_project.cu",
         "rvio_tpu/ops/jac_project.py:262", k3.jac_project,
         functools.partial(k3.jac_project_plain, eps=k3.KERNEL_EPS), args, {},
         "H^T H, H^T r, r^T r within 1e-3 of their scale; hfn rtol 1e-4",
-        compare, float(jac_project_flops(t_eff)))
+        compare, float(jac_project_flops(t_eff)), read, written)
 
 
 def jac_project_flops(t_eff) -> int:
@@ -293,18 +311,343 @@ def _quadform_case(cfg, dev, rng, bad_lane=7) -> KernelCheck:
     # m^2; the dot product 2m.  About F (m^3/3 + m^2).
     n = np.arange(m)
     flops = F * (int((n * (n + 1)).sum()) + m + int(n.sum()) + m * m + 2 * m)
+    # the lower triangle of S (all a Cholesky reads) and r in; D out
+    read = F32 * F * (m * (m + 1) // 2 + m)
     return KernelCheck(
         "batched_quadform", "rvio_tpu_torch/csrc/spd_solve.cu",
         "rvio_tpu/ops/spd_solve.py:75", k4.batched_quadform,
         k4.batched_quadform_plain, (t(S), t(r)), {},
         "rtol 2e-3; the indefinite lane NaN in both", compare, float(flops),
-        library=_quadform_library)
+        read, F32 * F, library=_quadform_library)
+
+
+# --- image front-end (K6, K8, K9, K13) ----------------------------------------
+
+def _texture(rng, H, W, passes=3):
+    """A smooth random 0-255 image (box-blurred noise), f64 on the CPU."""
+    x = torch.as_tensor(rng.uniform(0, 255, (1, 1, H + 8, W + 8)))
+    for _ in range(passes):
+        x = torch.nn.functional.avg_pool2d(x, 3, stride=1, padding=1,
+                                           count_include_pad=False)
+    x = x[0, 0, 4:-4, 4:-4]
+    return (x - x.min()) / (x.max() - x.min()) * 255.0
+
+
+def _frame_pair(cfg, rng, shift=(3.3, -2.1)):
+    """A full-size textured frame and the same frame moved by ``shift``
+    (x, y) px, both f32 on the CPU, and 200 feature points on it (grid
+    points, jittered, some within a few px of the border)."""
+    from rvio_tpu_torch.frontend.image import bilinear_sample
+    H, W = cfg.camera.height, cfg.camera.width
+    N = cfg.tracker.num_features
+    base = _texture(rng, H + 40, W + 40)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                            torch.arange(W, dtype=torch.float64), indexing="ij")
+    src = torch.stack([xx + 20 - shift[0], yy + 20 - shift[1]], -1)
+    img1 = base[20:20 + H, 20:20 + W]
+    img2 = bilinear_sample(base, src)
+    gy, gx = np.meshgrid(np.linspace(3, H - 4, 10), np.linspace(3, W - 4, 20),
+                         indexing="ij")
+    pts = np.stack([gx.ravel(), gy.ravel()], -1)[:N]
+    pts = pts + rng.uniform(-2, 2, pts.shape)
+    return img1.float(), img2.float(), pts
+
+
+def _tap_span(loc, taps: int, r: int, size: int):
+    """First and last index (rows or columns) that ``taps`` bilinear taps
+    starting ``r`` before ``floor(loc)`` read in a tile of ``size``, each
+    tap's pair clipped to [0, size-2] (the oracle's ``_sample_patches``)."""
+    f = np.floor(np.asarray(loc, np.float64)).astype(np.int64)
+    return (np.clip(f - r, 0, size - 2),
+            np.clip(f - r + taps - 1, 0, size - 2) + 1)
+
+
+def _box_union(shape, boxes) -> int:
+    """Pixels of ``shape`` (N, TH, TW) covered by per-tile boxes: each box
+    (y0, y1, x0, x1, on) holds (N,) inclusive bounds and a mask of the
+    tiles it applies to."""
+    N, TH, TW = shape
+    hit = np.zeros(shape, bool)
+    rows, cols = np.arange(TH), np.arange(TW)
+    for y0, y1, x0, x1, on in boxes:
+        ry = (rows >= y0[:, None]) & (rows <= y1[:, None])
+        rx = (cols >= x0[:, None]) & (cols <= x1[:, None])
+        hit |= ry[:, :, None] & rx[:, None, :] & np.asarray(on)[:, None, None]
+    return int(hit.sum())
+
+
+# operations per pixel of K13: Sobel pair 14, products 3, box sums 3 x 8,
+# eigenvalue 9 (sqrt as 1), NMS 8 comparisons
+SHI_NMS_FLOPS_PER_PX = 58
+
+
+def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.ops import shi_tomasi as k13
+    H, W = cfg.camera.height, cfg.camera.width
+    img = _texture(rng, H, W, passes=1).float().to(dev)
+    tol = 1e-5
+    info = {}
+
+    def compare(ko, po):
+        k, p = _np(ko), _np(po)
+        fk, fp = np.isfinite(k), np.isfinite(p)
+        both = fk & fp
+        err = float(np.max(np.abs(k[both] - p[both])
+                           / np.maximum(np.abs(p[both]), 1e-30)))
+        flips = np.argwhere(fk != fp)
+        info["mask_flips"] = len(flips)
+        if len(flips):
+            # a flip is allowed only on a near-tie of the response with a
+            # neighbour
+            resp = _np(k13.shi_tomasi_response(img))
+            rp = np.pad(resp, 1, constant_values=-np.inf)
+            for y, x in flips:
+                nb = np.delete(rp[y:y + 3, x:x + 3].ravel(), 4).max()
+                if abs(resp[y, x] - nb) > tol * max(abs(resp[y, x]), 1e-30):
+                    raise AssertionError(f"shi_tomasi_nms: mask flip at "
+                                         f"{(y, x)} is no near-tie")
+        if not err <= tol:
+            _fail("shi_tomasi_nms", "relative", err, tol)
+        return err
+
+    return KernelCheck(
+        "shi_tomasi_nms", "rvio_tpu_torch/csrc/shi_tomasi_nms.cu",
+        "rvio_tpu/ops/shi_tomasi.py:165", k13.shi_tomasi_nms,
+        k13.shi_tomasi_nms_plain, (img,), {},
+        "rel 1e-5 where both finite; -inf mask flips only on near-ties",
+        compare, float(SHI_NMS_FLOPS_PER_PX * H * W), F32 * H * W,
+        F32 * H * W, info=info)
+
+
+def _tile_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops import tile_gather as k6
+    img, _, pts = _frame_pair(cfg, rng)
+    H, W = img.shape
+    o = tile_origins(torch.as_tensor(pts), H, W).to(dev)
+    img = img.to(dev)
+    rows = (o[:, 1, None] + torch.arange(TILE_H, device=dev)).long()
+    cols = (o[:, 0, None] + torch.arange(TILE, device=dev)).long()
+
+    def library(*_):
+        """The one indexing call (tile origins already in bounds)."""
+        return img[rows[:, :, None], cols[:, None, :]]
+
+    def compare(ko, po):
+        if not torch.equal(ko, po):
+            raise AssertionError("gather_tiles: kernel and plain differ")
+        return 0.0
+
+    # the image pixels the clamped tiles cover (their union: tiles may
+    # overlap) and the origins in; the tiles out
+    oc = o.cpu().numpy()
+    y0 = np.clip(oc[:, 1], 0, H - TILE_H)
+    x0 = np.clip(oc[:, 0], 0, W - TILE)
+    covered = np.zeros((H, W), bool)
+    for y, x in zip(y0, x0):
+        covered[y:y + TILE_H, x:x + TILE] = True
+    N = len(oc)
+    return KernelCheck(
+        "gather_tiles", "rvio_tpu_torch/csrc/tile_gather.cu",
+        "rvio_tpu/ops/tile_gather.py:157", k6.gather_tiles,
+        k6.gather_tiles_plain, (img, o, TILE_H, TILE), {}, "exact", compare,
+        0.0, F32 * (int(covered.sum()) + 2 * N), F32 * N * TILE_H * TILE,
+        library=library)
+
+
+def _lk_inputs(cfg, rng):
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
+    img1, img2, pts = _frame_pair(cfg, rng)
+    H, W = img1.shape
+    p = torch.as_tensor(pts, dtype=torch.float32)
+    o = tile_origins(p, H, W)
+    r = cfg.tracker.klt_window // 2 + 1
+    inb = ((p[:, 0] > r) & (p[:, 0] < W - r - 1)
+           & (p[:, 1] > r) & (p[:, 1] < H - r - 1))
+    t_tiles = gather_tiles_plain(img1, o, TILE_H, TILE)
+    n_tiles = gather_tiles_plain(img2, o, TILE_H, TILE)
+    return (t_tiles, n_tiles, p - o.float(), p, o, inb), (H, W)
+
+
+def lk_level_flops(trips, TH: int, TW: int, win: int, last: bool) -> int:
+    """Operations of K8: per feature the tile Scharr (10 a pixel), three
+    sampled patches (8 a tap) and the 2x2 system (6 a tap), then for each
+    Gauss-Newton trip it ran one sampled patch and its right-hand side
+    (13 a tap, 20 for the step), and at the last level the error (10 a
+    tap)."""
+    area = win * win
+    setup = 10 * TH * TW + 3 * 8 * area + 6 * area + (10 * area if last else 0)
+    trips = np.asarray(trips, np.int64)
+    return int(len(trips) * setup + trips.sum() * (13 * area + 20))
+
+
+def lk_level_reads(args, kwargs) -> int:
+    """Tile pixels one LK level reads, by the plain version's run on these
+    inputs: around each template centre the window's bilinear support
+    and the Scharr halo, and in each search tile the union of the window
+    supports at every position a live trip samples (and, at the last
+    level, the final one)."""
+    from rvio_tpu_torch.ops import klt_iterate as k8
+    t_tiles, n_tiles, loc0, g_init, o1, status = args
+    N, TH, TW = t_tiles.shape
+    win = kwargs["win"]
+    r = win // 2
+    l0 = loc0.double().numpy()
+    ty0, ty1 = _tap_span(l0[:, 1], win, r, TH)
+    tx0, tx1 = _tap_span(l0[:, 0], win, r, TW)
+    every = np.ones(N, bool)
+    pixels = _box_union((N, TH, TW), [(
+        np.maximum(ty0 - 1, 0), np.minimum(ty1 + 1, TH - 1),
+        np.maximum(tx0 - 1, 0), np.minimum(tx1 + 1, TW - 1), every)])
+
+    def after(k):
+        kw = dict(kwargs, max_iters=k, last=False)
+        g, alive, _, trips = k8.lk_level_trips(*args, **kw)
+        return g.double().numpy(), alive.numpy(), trips.numpy()
+
+    o = o1.double().numpy()
+    boxes = []
+    g, _, trips = after(0)
+    for k in range(kwargs["max_iters"]):
+        g_next, alive_next, trips_next = after(k + 1)
+        # trip k + 1 samples where the feature ran it and passed its
+        # wander test
+        on = (trips_next > trips) & alive_next
+        if not on.any():
+            break
+        loc = np.stack([np.clip(g[:, 0] - o[:, 0], 0, TW - 1),
+                        np.clip(g[:, 1] - o[:, 1], 0, TH - 1)], -1)
+        boxes.append((*_tap_span(loc[:, 1], win, r, TH),
+                      *_tap_span(loc[:, 0], win, r, TW), on))
+        g, trips = g_next, trips_next
+    if kwargs["last"]:
+        loc = np.stack([np.clip(g[:, 0] - o[:, 0], 0, TW - 1),
+                        np.clip(g[:, 1] - o[:, 1], 0, TH - 1)], -1)
+        boxes.append((*_tap_span(loc[:, 1], win, r, TH),
+                      *_tap_span(loc[:, 0], win, r, TW), every))
+    return pixels + _box_union((N, TH, TW), boxes)
+
+
+def _lk_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.frontend.klt import TILE
+    from rvio_tpu_torch.ops import klt_iterate as k8
+    args, hw = _lk_inputs(cfg, rng)
+    win = cfg.tracker.klt_window
+    kwargs = dict(win=win, max_iters=cfg.tracker.klt_max_iters,
+                  eps=cfg.tracker.klt_eps, min_eig=cfg.tracker.klt_min_eig,
+                  wander=float(TILE - win) / 2.0 - 1.0, last=True, hw=hw)
+    N, TH, TW = args[0].shape
+    trips = _np(k8.lk_level_trips(*args, **kwargs)[3])
+    # tile pixels, then loc0, g_init, o1 and status in; the guess, the
+    # status and err out
+    read = F32 * (lk_level_reads(args, kwargs) + 6 * N) + N
+    written = (3 * F32 + 1) * N
+    args = tuple(x.to(dev) for x in args)
+    tol, agree = 1e-3, 0.995
+    info = {}
+
+    def compare(ko, po):
+        (gk, sk, ek), (gp, sp, ep) = ([_np(x) for x in o] for o in (ko, po))
+        sk, sp = sk.astype(bool), sp.astype(bool)
+        info["alive_agree"] = float((sk == sp).mean())
+        info["alive"] = int(sp.sum())
+        if not info["alive_agree"] >= agree:
+            raise AssertionError(f"lk_level: alive flags agree on "
+                                 f"{info['alive_agree']:.3f} < {agree}")
+        both = sk & sp
+        err = float(max(np.abs(gk - gp)[both].max(initial=0.0),
+                        np.abs(ek - ep)[both].max(initial=0.0)))
+        if not err <= tol:
+            _fail("lk_level", "position/err max abs (alive in both)", err, tol)
+        return err
+
+    return KernelCheck(
+        "lk_level", "rvio_tpu_torch/csrc/lk_level.cu",
+        "rvio_tpu/ops/klt_iterate.py:265", k8.lk_level, k8.lk_level_plain,
+        args, kwargs, "alive agree >= 99.5 %; position and err 1e-3 where "
+        "both alive", compare, float(lk_level_flops(trips, TH, TW, win, True)),
+        read, written, info=info)
+
+
+def subpix_flops(n: int, win: int, iters: int) -> int:
+    """Operations of K9: per corner and iteration the (2 win + 3)^2 patch
+    (8 a tap), the 15 x 15 gradient products and sums (24 a tap) and the
+    2x2 solve (20)."""
+    size = 2 * win + 1
+    return n * iters * (8 * (size + 2) ** 2 + 24 * size * size + 20)
+
+
+def subpix_reads(tiles, origin, pts, win: int, iters: int) -> int:
+    """Tile pixels cornerSubPix reads, by the plain version's run: the
+    union over the iterations of each corner's (2 win + 3)^2 patch
+    support."""
+    from rvio_tpu_torch.ops import klt_iterate as k9
+    N, TH, TW = tiles.shape
+    ps = 2 * win + 3
+    o = origin.double().numpy()
+    boxes = []
+    for k in range(iters):
+        c = k9.subpix_refine_plain(tiles, origin, pts, win=win,
+                                   iters=k).double().numpy()
+        ly = np.clip(c[:, 1] - o[:, 1], 0, TH - 1)
+        lx = np.clip(c[:, 0] - o[:, 0], 0, TW - 1)
+        boxes.append((*_tap_span(ly, ps, ps // 2, TH),
+                      *_tap_span(lx, ps, ps // 2, TW), np.ones(N, bool)))
+    return _box_union((N, TH, TW), boxes)
+
+
+def _subpix_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops import klt_iterate as k9
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
+    img, _, pts = _frame_pair(cfg, rng)
+    H, W = img.shape
+    p = torch.as_tensor(pts, dtype=torch.float32)
+    o = tile_origins(p, H, W)
+    tiles = gather_tiles_plain(img, o, TILE_H, TILE)
+    win, iters = int(cfg.tracker.min_distance) // 2, cfg.tracker.subpix_iters
+    tol = 1e-3
+    info = {}
+
+    def compare(ko, po):
+        e = np.abs(_np(ko) - _np(po)).max(axis=1)
+        n = int(np.argmax(e))
+        err = float(e[n])
+        # the worst corner's 2 x 2 system at the plain version's result:
+        # its determinant and the condition number of the structure tensor
+        g = [_np(x)[0] for x in k9.subpix_system(
+            tiles[n:n + 1], o[n:n + 1], po.detach().cpu()[n:n + 1].float(),
+            win)]
+        gxx, gxy, gyy = (float(x) for x in g[:3])
+        ev = np.linalg.eigvalsh(np.array([[gxx, gxy], [gxy, gyy]]))
+        info.update(worst_corner=n, worst_at=[round(float(x), 3)
+                                             for x in _np(po)[n]],
+                    worst_det=float(gxx * gyy - gxy * gxy),
+                    worst_cond=float(ev[1] / max(ev[0], 1e-30)),
+                    median_err=float(np.median(e)))
+        if not err <= tol:
+            _fail("subpix_refine", "max abs px", err, tol)
+        return err
+
+    # tile pixels, the origins and the corners in; the corners out
+    read = F32 * (subpix_reads(tiles, o, p, win, iters) + 4 * len(pts))
+    return KernelCheck(
+        "subpix_refine", "rvio_tpu_torch/csrc/subpix_refine.cu",
+        "rvio_tpu/ops/klt_iterate.py:361", k9.subpix_refine,
+        k9.subpix_refine_plain, (tiles.to(dev), o.to(dev), p.to(dev)),
+        dict(win=win, iters=iters), "max abs 1e-3 px", compare,
+        float(subpix_flops(len(pts), win, iters)), read, F32 * 2 * len(pts),
+        info=info)
 
 
 def kernel_checks(device, seed: int = 0) -> List[KernelCheck]:
-    """One check per kernel of the filter step, in the order it runs them."""
+    """One check per kernel: the filter step's, in the order it runs them,
+    then the image front-end's."""
     cfg = RVIOConfig()
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     return [_propagate_case(cfg, dev, rng), _lm_case(cfg, dev, rng),
-            _jac_case(cfg, dev, rng), _quadform_case(cfg, dev, rng)]
+            _jac_case(cfg, dev, rng), _quadform_case(cfg, dev, rng),
+            _tile_case(cfg, dev, rng), _lk_case(cfg, dev, rng),
+            _subpix_case(cfg, dev, rng), _shi_nms_case(cfg, dev, rng)]

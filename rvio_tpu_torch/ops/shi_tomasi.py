@@ -1,0 +1,96 @@
+"""K13: Shi-Tomasi min-eigenvalue response fused with the 3x3 NMS test.
+
+Replaces rvio_tpu/ops/shi_tomasi.py (``shi_tomasi_nms_pallas``,
+``_shi_nms_kernel``); CUDA source ``csrc/shi_tomasi_nms.cu``.  It computes
+the function of the JAX package's oracle ``nms_masked_response``
+(rvio_tpu/frontend/detector.py:61-84 through :29-58) on the whole map: the
+Sobel/8 gradients, the 3x3 box sums of their products, the min eigenvalue,
+a zeroed 2-px border, and the 8-neighbour >= test against a -inf pad, with
+-inf at non-maxima.  The TPU kernel agrees with that only on
+[4, H-4) x [4, W-4) (its lane rolls wrap at the edges); this one agrees
+everywhere.
+
+Bound on the H100 at the tracker's operating point (one 480 x 752 f32
+level 0 per call): the function reads the image once and writes the map
+once, 2 * 1.44 MB = 2.9 MB, about 0.86 us at 3.35 TB/s; its roughly 60
+operations a pixel (22 MFLOP, 0.32 us at 67 TFLOP/s) weigh less, so it is
+bound by bytes.  The design keeps every intermediate out of device memory:
+a block loads its 16 x 32 output tile with a 3-px halo into shared memory
+once, forms the gradient products, the response and the NMS there, and
+writes the tile.  Each operation rounds as the plain version's does (no
+fused multiply-adds), so the two agree bitwise on the same card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rvio_tpu_torch.frontend.image import box_filter, sobel_gradients
+from rvio_tpu_torch.ops import _lib
+
+_LIB = "shi_tomasi_nms"
+_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+
+
+def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
+    """Min-eigenvalue corner response (cv::cornerMinEigenVal semantics),
+    a 2-px border zeroed."""
+    ix, iy = sobel_gradients(img)
+    sxx = box_filter(ix * ix, block)
+    sxy = box_filter(ix * iy, block)
+    syy = box_filter(iy * iy, block)
+    tr = sxx + syy
+    det = sxx * syy - sxy * sxy
+    disc = torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))
+    resp = (tr - disc) * 0.5
+    H, W = img.shape
+    row = torch.arange(H, device=img.device)[:, None]
+    col = torch.arange(W, device=img.device)[None, :]
+    inner = (row >= 2) & (row < H - 2) & (col >= 2) & (col < W - 2)
+    return torch.where(inner, resp, torch.zeros((), dtype=resp.dtype,
+                                                device=resp.device))
+
+
+def local_max_mask(m: torch.Tensor) -> torch.Tensor:
+    """True where ``m`` is >= each of its 8 neighbours (-inf beyond)."""
+    H, W = m.shape
+    mpad = torch.nn.functional.pad(m, (1, 1, 1, 1), value=float("-inf"))
+    local_max = torch.ones_like(m, dtype=torch.bool)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            local_max &= m >= mpad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+    return local_max
+
+
+def shi_tomasi_nms_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain version: the response, then the 3x3 local-max mask."""
+    m = shi_tomasi_response(img)
+    return torch.where(local_max_mask(m), m,
+                       torch.full((), float("-inf"), dtype=m.dtype,
+                                  device=m.device))
+
+
+def shi_tomasi_nms(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) image -> (H, W) NMS-masked response (-inf at non-maxima).
+
+    A CUDA tensor runs the kernel (f32 only); a CPU tensor the plain
+    version."""
+    if not _lib.uses_kernel(img, "shi_tomasi_nms"):
+        return shi_tomasi_nms_plain(img)
+    H, W = img.shape
+    dev = img.device
+    _lib.check("shi_tomasi_nms", "img", img, (H, W), torch.float32, dev)
+    if H < 5 or W < 5:
+        raise ValueError(f"shi_tomasi_nms: image {H}x{W} under 5x5")
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_shi_tomasi_nms", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), H, W, device=dev)
+    shi_tomasi_nms.launches += 1
+    return out
+
+
+shi_tomasi_nms.launches = 0

@@ -1,11 +1,14 @@
-"""Runtime: the per-frame step, the frame loop, init gate and driver."""
+"""Runtime: the per-frame step, the frame loop, init gate and drivers
+(feature-level replay and images -> poses)."""
 
 from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
                                            SequenceDriver, batches_from_sim,
                                            bundle_imu)
+from rvio_tpu_torch.runtime.image_driver import run_rendered_sequence_scan
 from rvio_tpu_torch.runtime.step import (FrameBundle, make_filter_step,
                                          make_sequence_scan)
 
 __all__ = ["DriverResult", "FrameBundle", "InitializationGate",
            "SequenceDriver", "batches_from_sim", "bundle_imu",
-           "make_filter_step", "make_sequence_scan"]
+           "make_filter_step", "make_sequence_scan",
+           "run_rendered_sequence_scan"]

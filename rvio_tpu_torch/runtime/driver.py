@@ -172,15 +172,46 @@ class DriverResult:
     quaternions: np.ndarray    # (T,4) q_kG (JPL xyzw)
     velocities: np.ndarray     # (T,3)
     n_good: np.ndarray         # (T,)
-    frontend_ms: np.ndarray    # (T,) per-frame host bundling time
+    # (T,) per-frame front-end time: host bundling (SequenceDriver), or the
+    # tracker's share of its chunk's wall time (image driver, timing_split)
+    frontend_ms: np.ndarray
     # (T,) the back-end's wall time (device work included: it ends in a
-    # readback) spread evenly over the frames — the frame loop never
-    # synchronizes per frame, so per-frame device times do not exist here
+    # readback) spread evenly over the frames of a run or chunk — the frame
+    # loop never synchronizes per frame, so per-frame device times do not
+    # exist here
     backend_ms: np.ndarray
     landmarks: Optional[np.ndarray] = None  # (NL,3) world-frame cloud
     # (T,) acceptance counters: n_usable (gate candidates), tl_good_sum
-    # (summed track length of accepted features)
+    # (summed track length of accepted features), ridge_fallback (the
+    # applied update's compression needed the wider ridge, filter/update.py
+    # info_cholesky); the image driver adds the tracker's n_tracked, n_lost
+    # and n_new
     diag: Optional[dict] = None
+    # (T, N) bool: the tracker's slots in use after each frame (image driver)
+    active_slots: Optional[np.ndarray] = None
+
+    def acceptance_stats(self) -> dict:
+        """Front-end quality rates over the run.
+
+        ransac_inlier_rate: KLT+RANSAC survivors / active features;
+        gate_reject_rate: chi2-gate rejections / gate candidates
+        (Updater.cc:404-454); track_len_mean: mean track length of accepted
+        update features.  A rate whose counters the run lacks is absent
+        (feature-level replay has no tracker counters).
+        """
+        out = {"n_good_mean": float(self.n_good.mean())}
+        d = self.diag or {}
+        if "n_tracked" in d:
+            att = d["n_tracked"] + d["n_lost"]
+            out["ransac_inlier_rate"] = float(d["n_tracked"].sum()
+                                              / max(att.sum(), 1))
+        if "n_usable" in d:
+            out["gate_reject_rate"] = float(
+                1.0 - self.n_good.sum() / max(d["n_usable"].sum(), 1))
+        if "tl_good_sum" in d:
+            out["track_len_mean"] = float(d["tl_good_sum"].sum()
+                                          / max(self.n_good.sum(), 1))
+        return out
 
 
 def _quat_to_rot_np(q: np.ndarray) -> np.ndarray:
@@ -265,8 +296,8 @@ class SequenceDriver:
             np.asarray(ts), host["p_Gk"], host["q_kG"], host["v_k"],
             host["n_good"], np.asarray(fe), np.full(T, wall_ms / T),
             landmarks=lms,
-            diag={"n_usable": host["n_usable"],
-                  "tl_good_sum": host["tl_good_sum"]})
+            diag={k: host[k] for k in ("n_usable", "tl_good_sum",
+                                        "ridge_fallback")})
 
     def _stack(self, rows) -> FrameBundle:
         """One host-to-device copy per input field for the whole sequence."""

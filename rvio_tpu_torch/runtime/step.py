@@ -78,6 +78,7 @@ def make_filter_step(cfg: RVIOConfig, device, dtype=torch.float32
             "landmarks": diag["landmarks"], "landmark_ok": diag["passed"],
             "rho": diag["rho"], "n_usable": diag["n_usable"],
             "tl_good_sum": diag["tl_good_sum"],
+            "ridge_fallback": diag["ridge_fallback"],
         }
         return st, outputs
 

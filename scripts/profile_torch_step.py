@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the port's filter step spends its time on a CUDA card.
+"""Where the port's per-frame path spends its time on a CUDA card.
 
-    python3 scripts/profile_torch_step.py [--frames 200] [--trace PATH]
+    python3 scripts/profile_torch_step.py [--image] [--frames 200] [--trace PATH]
 
-Runs ``SequenceDriver`` (rvio_tpu_torch, f32, ``RVIOConfig()``) on the 60 s
-synthetic workload of bench.py: once whole, timed on the host clock (the
-driver's run ends in a readback), then a window of ``--frames`` frames
-under ``torch.profiler``.  Prints the card, the frames/s, the device busy
-share of the profiled window, the CUDA kernel launches per frame, and the
-device time per launch of the port's four kernels and of the other kernels
-by total time.  ``--trace`` writes the window's Chrome trace.
+Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
+``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
+feature-level filter.  With ``--image``: ``run_rendered_sequence_scan`` on
+the same workload's rendered 752 x 480 frames, images -> poses, equalizer
+off, with its front-end/back-end split.  Either runs once whole, timed on
+the host clock (each run ends in a readback), then a window of
+``--frames`` frames under ``torch.profiler``.  Prints the card, the
+frames/s, the device busy time per frame and its share of the unprofiled
+frame loop (for the image path: of the front-end + back-end time; the
+host renders the frames outside it), the CUDA kernel launches per frame, and the device
+time per launch of the port's kernels and of the other kernels by total
+time.  ``--trace`` writes the window's Chrome trace.
 """
 
 from __future__ import annotations
@@ -26,11 +31,29 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
-                "quadform_kernel")
+                "quadform_kernel", "gather_tiles_kernel", "lk_level_kernel",
+                "lk_finish_kernel", "subpix_kernel", "shi_nms_kernel")
+
+
+def _image_runner(cfg, sim):
+    """``run(max_frames)``: images -> poses (equalizer off), timing split."""
+    import dataclasses
+
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+
+    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, enable_equalizer=False))
+
+    def run(k_end=None):
+        return run_rendered_sequence_scan(cfg, sim, device="cuda",
+                                          max_frames=k_end, timing_split=True)
+    return run
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--image", action="store_true",
+                    help="profile images -> poses instead of the filter")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
     a = ap.parse_args()
@@ -54,21 +77,32 @@ def main() -> int:
     sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,
                             ramp_time=5.0, seed=7, n_landmarks=2000,
                             motion_scale=0.8, meas_noise=0.001, imu_noise=True)
-    batches = batches_from_sim(sim)
-    imu = (sim.imu_t, sim.imu_w, sim.imu_a)
-    drv = SequenceDriver(cfg, dtype=torch.float32, device="cuda")
-    drv.run(*imu, sim.frame_t[:100], batches[:100])          # warm-up
+    if a.image:
+        run = _image_runner(cfg, sim)
+    else:
+        batches = batches_from_sim(sim)
+        imu = (sim.imu_t, sim.imu_w, sim.imu_a)
+        drv = SequenceDriver(cfg, dtype=torch.float32, device="cuda")
+
+        def run(k_end=None):
+            return drv.run(*imu, sim.frame_t[:k_end], batches[:k_end])
+    run(len(sim.frame_t) // 10)                              # warm-up
 
     walls = []
-    for _ in range(2):
+    for _ in range(1 if a.image else 2):
         t0 = time.perf_counter()
-        res = drv.run(*imu, sim.frame_t, batches)
+        res = run()
         walls.append(time.perf_counter() - t0)
     n = len(res.timestamps)
     idx = np.searchsorted(sim.frame_t, res.timestamps)
+    # the frame loop: the filter's, or the tracker's and the filter's
+    loop_ms = float(res.backend_ms.sum()
+                    + (res.frontend_ms.sum() if a.image else 0.0)) / n
+    split = (f" (front-end {res.frontend_ms.mean():.3f}, back-end "
+             f"{res.backend_ms.mean():.3f})" if a.image else "")
     print(f"whole run: {n} frames, best {min(walls):.3f} s = "
           f"{n / min(walls):.1f} frames/s end to end; frame loop "
-          f"{res.backend_ms.sum() / n:.3f} ms/frame; ATE "
+          f"{loop_ms:.3f} ms/frame{split}; ATE "
           f"{ate_rmse(res.positions, sim.gt_p[idx]):.4f} m", flush=True)
 
     # profiled window: the first frames after init, run as their own sequence
@@ -76,7 +110,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        win = drv.run(*imu, sim.frame_t[:k_end], batches[:k_end])
+        win = run(k_end)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     m = len(win.timestamps)
@@ -92,7 +126,6 @@ def main() -> int:
           f"({wall * 1e3 / m:.3f} ms/frame under the profiler); device busy "
           f"{busy / 1e3:.1f} ms = {busy / (wall * 1e6):.1%} of the window; "
           f"{launches / m:.1f} kernel launches per frame", flush=True)
-    loop_ms = float(res.backend_ms.sum()) / n
     print(f"device busy per frame {busy / 1e3 / m:.3f} ms = "
           f"{busy / 1e3 / m / loop_ms:.1%} of the unprofiled frame loop "
           f"({loop_ms:.3f} ms/frame)", flush=True)

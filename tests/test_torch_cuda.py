@@ -6,9 +6,10 @@ tests/conftest.py imports, is not installed):
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest
 
 Each kernel is held against its plain PyTorch version on the same inputs
-at the filter's operating point (rvio_tpu_torch/ops/checks.py states the
-tolerances); SequenceDriver's main path must launch every kernel once per
-frame and stay close to the CPU plain path.  Whether a card is present is
+at its main path's operating point (rvio_tpu_torch/ops/checks.py states
+the tolerances); SequenceDriver's main path must launch every filter
+kernel once per frame, the images -> poses path every kernel as often as
+it implies, and both must stay close to the CPU plain path.  Whether a card is present is
 decided in the fixture, so every process collects the same tests.
 """
 
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 KERNEL_NAMES = ["propagate_block", "lm_triangulate", "jac_project",
-                "batched_quadform"]
+                "batched_quadform", "gather_tiles", "lk_level",
+                "subpix_refine", "shi_tomasi_nms"]
 
 
 @pytest.fixture
@@ -70,3 +72,100 @@ def test_driver_launches_every_kernel(cuda):
     assert [w.launches for w in wrappers] == [n] * 4
     cpu = SequenceDriver(cfg, device="cpu").run(*args)
     np.testing.assert_allclose(gpu.positions, cpu.positions, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_image_kernels_refuse_f64(cuda):
+    from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi_nms
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles
+    img = torch.zeros(48, 64, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        shi_tomasi_nms(img)
+    with pytest.raises(TypeError):
+        gather_tiles(img, torch.zeros(3, 2, dtype=torch.int32, device=cuda),
+                     40, 32)
+
+
+def _small_image_cfg():
+    from rvio_tpu_torch.config import (CameraConfig, ImuConfig, InitConfig,
+                                       RVIOConfig, TpuConfig, TrackerConfig)
+    return RVIOConfig(
+        imu=ImuConfig(rate_hz=100.0),
+        camera=CameraConfig(fps=10.0, width=320, height=240, fx=200.0,
+                            fy=200.0, cx=160.0, cy=120.0, k1=-0.05, k2=0.01,
+                            p1=0.0, p2=0.0),
+        tracker=TrackerConfig(num_features=40, max_tracking_length=8,
+                              min_tracking_length=3, min_distance=12.0,
+                              block_size_x=80, block_size_y=60,
+                              enable_equalizer=False),
+        init=InitConfig(sigma_v0=0.1), tpu=TpuConfig(imu_block=16))
+
+
+@pytest.mark.gpu
+def test_frame_reads_nothing_back(cuda):
+    """A frame of images -> poses (track_fn, then the filter step) makes no
+    synchronizing call: it runs under set_sync_debug_mode("error")."""
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.dataio.synthetic import render_frame
+    from rvio_tpu_torch.filter.propagation import ImuBlock
+    from rvio_tpu_torch.frontend import make_tracker
+    from rvio_tpu_torch.runtime import bundle_imu, make_filter_step
+    from rvio_tpu_torch.runtime.image_driver import (_find_init_frame,
+                                                     _imu_chunk_arrays)
+    from rvio_tpu_torch.runtime.step import FrameBundle
+    cfg = _small_image_cfg()
+    sim = simulate_sequence(cfg, duration=4.0, static_time=1.0, ramp_time=1.5,
+                            seed=6, n_landmarks=400, motion_scale=0.5)
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    fs, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
+                              cuda)
+    init_fn, track_fn = make_tracker(cfg, cuda)
+    step = make_filter_step(cfg, cuda)
+    ts, _ = init_fn(torch.as_tensor(render_frame(cfg, sim, k0)))
+    ks = list(range(k0 + 1, k0 + 5))
+    ch = _imu_chunk_arrays(groups, ks, cfg.tpu.imu_block, torch.float32, cuda)
+    imgs = torch.as_tensor(np.stack([render_frame(cfg, sim, k) for k in ks]),
+                           device=cuda)
+    u = torch.rand(len(ks), cfg.tracker.num_features, device=cuda)
+    for i in range(len(ks)):
+        if i > 0:                            # the first frame warms caches
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ts, batch, _ = track_fn(ts, imgs[i], ch["imu_w"][i],
+                                    ch["imu_dt"][i], ch["imu_valid"][i], u[i])
+            imu = ImuBlock(w=ch["imu_w"][i], a=ch["imu_a"][i],
+                           dt=ch["imu_dt"][i], valid=ch["imu_valid"][i])
+            fs, out = step(fs, FrameBundle(imu=imu, batch=batch))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out["p_Gk"]).all()
+
+
+@pytest.mark.gpu
+def test_image_driver_launches_every_kernel(cuda):
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.ops import (jac_project, klt_iterate, lm_triangulate,
+                                    propagate_block, shi_tomasi, spd_solve,
+                                    tile_gather)
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    cfg = _small_image_cfg()
+    sim = simulate_sequence(cfg, duration=6.0, static_time=1.0, ramp_time=1.5,
+                            seed=6, n_landmarks=400, motion_scale=0.5)
+    wrappers = {w.__name__: w for w in (
+        propagate_block.propagate_block, lm_triangulate.lm_triangulate,
+        jac_project.jac_project, spd_solve.batched_quadform,
+        tile_gather.gather_tiles, klt_iterate.lk_level,
+        klt_iterate.subpix_refine, shi_tomasi.shi_tomasi_nms)}
+    for w in wrappers.values():
+        w.launches = 0
+    gpu = run_rendered_sequence_scan(cfg, sim, device=cuda, chunk_size=16)
+    n = len(gpu.timestamps)
+    got = {k: w.launches for k, w in wrappers.items()}
+    want = dict.fromkeys(KERNEL_NAMES[:4], n)
+    want.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
+                shi_tomasi_nms=n + 1)
+    assert got == want
+    cpu = run_rendered_sequence_scan(cfg, sim, device="cpu", chunk_size=16)
+    np.testing.assert_array_equal(cpu.timestamps, gpu.timestamps)
+    assert (cpu.active_slots == gpu.active_slots).mean() > 0.99
+    np.testing.assert_allclose(gpu.positions, cpu.positions, atol=1e-3)

@@ -130,14 +130,16 @@ def test_entry_point_refuses_missing_cuda():
 
 
 @pytest.mark.parametrize("build", ["gate", "initial_state", "static_init",
-                                   "imu_block"])
+                                   "imu_block", "tracker", "image_driver"])
 def test_public_builders_default_to_cuda(build):
     """Every public function that makes tensors means CUDA by default and
     raises without it, as SequenceDriver does."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from rvio_tpu_torch.filter.propagation import make_imu_block
-    from rvio_tpu_torch.runtime import InitializationGate
+    from rvio_tpu_torch.frontend import make_tracker
+    from rvio_tpu_torch.runtime import (InitializationGate,
+                                        run_rendered_sequence_scan)
     from rvio_tpu_torch.state import make_initial_state, static_initialize
     z3 = np.zeros((4, 3))
     calls = {
@@ -148,9 +150,18 @@ def test_public_builders_default_to_cuda(build):
             imu_rate=100.0, sigma_a=0.1, sigma_wg=0.1, sigma_wa=0.1,
             enable_alignment=True, max_clones=4),
         "imu_block": lambda: make_imu_block(z3, z3, np.zeros(4), 8),
+        "tracker": lambda: make_tracker(_image_cfg()),
+        "image_driver": lambda: run_rendered_sequence_scan(
+            _image_cfg(), tsynthetic.simulate_sequence(
+                _image_cfg(), duration=1.0, static_time=0.5, seed=1)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[build]()
+
+
+def _image_cfg():
+    return tconfig.RVIOConfig(tracker=tconfig.TrackerConfig(
+        enable_equalizer=False))
 
 
 def test_wrappers_refuse_other_devices():

@@ -228,7 +228,7 @@ def _skew(w):
     return np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
 
 
-def _scene(seed, noise, p_scale=3e-3):
+def _scene(seed, noise, p_scale=3e-3, M=M, L=L, F=F):
     """A window of M clone transitions and F features seen by all its
     frames (independent numpy geometry), as a dict of state arrays."""
     rng = np.random.default_rng(seed)
@@ -332,3 +332,84 @@ def test_ekf_tail_fused_raises():
                                  valid=torch.tensor(valid)),
                      R_bc=R_BC, t_bc=T_BC, sigma_im=SIGMA, min_clone_states=2,
                      ekf_tail_fused=True)
+
+
+def test_info_ridge_keeps_f32_cholesky_finite():
+    """The cholesky compression's ridge: the JAX package's 1e-8 * trace,
+    whose factor ``info_cholesky`` returns unchanged wherever it exists.  In
+    f32 a C with two collinear dominant columns (rank-deficient, as three
+    image-path features give) can lose more than that to rounding and the
+    factorization fails; only then is the factor that of n * eps * trace."""
+    from rvio_tpu_torch.filter.update import info_cholesky
+    old_fail = 0
+    for seed in range(20):
+        rng = np.random.default_rng(seed)
+        A = rng.normal(size=(81, 84))
+        A[:, 1] = 1.5 * A[:, 0]
+        A[:, :2] *= 30.0
+        for dtype in (torch.float64, torch.float32):
+            C = torch.as_tensor(A.T @ A).to(dtype)
+            eye = torch.eye(84, dtype=dtype)
+            scale = torch.clamp(torch.trace(C), min=1.0)
+            L_jax, info = torch.linalg.cholesky_ex(C + (1e-8 * scale) * eye)
+            L, fallback = info_cholesky(C)
+            assert bool(fallback) == bool(info != 0)
+            assert torch.isfinite(L).all()
+            if not fallback:
+                assert torch.equal(L, L_jax)
+            else:
+                assert dtype == torch.float32
+                old_fail += 1
+                wide = 84 * torch.finfo(dtype).eps
+                assert torch.equal(L, torch.linalg.cholesky(
+                    C + (wide * scale) * eye))
+    assert old_fail > 0
+
+
+def _f32_update_pair(d, batch, compression):
+    """The port's and the JAX package's msckf_update on the same f32
+    inputs (the JAX oracle path), and the JAX f64 result."""
+    meas, tlen, typ2, valid = batch
+    kw = dict(R_bc=R_BC, t_bc=T_BC, sigma_im=SIGMA, min_clone_states=2,
+              compression=compression, adaptive_noise=True)
+    out = {}
+    for name, jdt in (("jax32", jnp.float32), ("jax64", jnp.float64)):
+        st = {k: (jnp.asarray(v, jdt) if np.asarray(v).dtype.kind == "f"
+                  else jnp.asarray(v)) for k, v in d.items()}
+        jst, jdiag = jupd.msckf_update(
+            JState(**st), jupd.UpdateBatch(
+                meas=jnp.asarray(meas, jdt), track_len=jnp.asarray(tlen),
+                is_type2=jnp.asarray(typ2), valid=jnp.asarray(valid)),
+            use_pallas=False, **kw)
+        out[name] = ({k: np.asarray(v) for k, v in jst.__dict__.items()},
+                     jdiag)
+    pst, pdiag = msckf_update(
+        state_from_numpy(d, "cpu", torch.float32),
+        UpdateBatch(meas=_t(meas, torch.float32),
+                    track_len=_t(tlen, torch.int64),
+                    is_type2=torch.tensor(typ2), valid=torch.tensor(valid)),
+        **kw)
+    out["port32"] = state_to_numpy(pst), pdiag
+    return out
+
+
+# f32 against f32: both factor C + 1e-8 tr(C) I by LAPACK in another
+# summation order; the readings were 1e-7 on the state and 1.5e-9 on P
+F32_TOL_STATE, F32_TOL_P = 1e-6, 1e-8
+
+
+@pytest.mark.parametrize("compression,seed", [("cholesky", 26),
+                                              ("cholesky", 1), ("qr", 26)])
+def test_msckf_update_f32_matches_jax_f32(compression, seed):
+    """Ordinary frames in f32: the port's update is the JAX function's,
+    with the JAX ridge (no fallback) and the same gate decisions."""
+    d, batch = _scene(seed=seed, noise=5e-4)
+    out = _f32_update_pair(d, batch, compression)
+    (got, pdiag), (ref, jdiag) = out["port32"], out["jax32"]
+    assert not bool(pdiag["ridge_fallback"])
+    assert bool(pdiag["did_update"]) and bool(jdiag["did_update"])
+    np.testing.assert_array_equal(pdiag["passed"].numpy(),
+                                  np.asarray(jdiag["passed"]))
+    for k, v in ref.items():
+        tol = F32_TOL_P if k == "P" else F32_TOL_STATE
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=tol, err_msg=k)
