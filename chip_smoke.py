@@ -8,18 +8,27 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from ``rvio_tpu_torch/csrc`` (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
 version at its main path's operating point and times both, then drives the
-port's two main paths over the 60 s synthetic workload of bench.py at the
-EuRoC operating point of ``RVIOConfig()`` (200 feature slots, 15-frame
-tracks, 14 clones, 20 Hz camera, 200 Hz IMU, f32):
+port's paths over the 60 s synthetic workload of bench.py at the EuRoC
+operating point of ``RVIOConfig()`` (200 feature slots, 15-frame tracks,
+14 clones, 20 Hz camera, 200 Hz IMU, f32), each with every launch count
+set to 0 just before it and read just after:
 
 - the feature-level filter, ``SequenceDriver`` on the simulator's tracks:
   every filter kernel runs once per filtered frame, ATE below 0.05 m, and
   the first 100 frames agree with the port's plain path on the CPU;
 - images -> poses, ``run_rendered_sequence_scan`` on rendered 752 x 480
-  frames with the equalizer off: every kernel launches as often as the
-  path implies, ATE below 0.05 m, the front-end acceptance gates of
-  tests/test_flagship_image_ate.py hold, and the first 50 frames agree
-  with the CPU plain path.
+  frames, with the equalizer off over the first 300 frames and with
+  ``RVIOConfig()`` unmodified (CLAHE on) over the whole workload: every
+  kernel launches as often as the path implies, ATE below 0.05 m, the
+  front-end acceptance gates of tests/test_flagship_image_ate.py hold, and
+  the first 50 frames agree with the CPU plain path;
+- the public entries that no path reaches, the detector's
+  ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
+  workload's frames and the tracker's live positions, each against its
+  plain version;
+- the live entry point, ``OnlineDriver``, fed frame by frame over the
+  first 200 tracked frames: frames/s, push-to-pose latency, no drops, and
+  the poses of the CLAHE-on run above (same seed, so the same draws).
 
 Output, in order: a device line, the build, one line per kernel check, the
 main-path lines, the card's name and power limit as nvidia-smi reports
@@ -56,6 +65,15 @@ CPU_GAP_ROT_RAD = 1e-5
 IMG_CPU_FRAMES = 50
 IMG_CPU_ACTIVE_AGREE = 0.99
 IMG_CPU_GAP_POS_M = 5e-5
+# the equalizer-off image path runs this many frames after its init frame
+IMG_OFF_FRAMES = 300
+# the live path: tracked frames fed to OnlineDriver, and the largest
+# position gap allowed to the CLAHE-on scan with the same draws.  An H100
+# run read 0 (the same kernels and arithmetic in the same order); the limit
+# is a few float32 ulps of a position at the trajectory's scale (meters),
+# so any change of the computation shows.
+ONLINE_FRAMES = 200
+ONLINE_GAP_M = 1e-6
 # front-end acceptance gates of tests/test_flagship_image_ate.py:49-53
 ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
                 "gate_reject_rate": ("<", 0.50),
@@ -117,63 +135,90 @@ def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
 
 FILTER_KERNELS = ("propagate_block", "lm_triangulate", "jac_project",
                   "batched_quadform")
+EQUALIZER_KERNELS = ("clahe_luts", "clahe_apply")
+ENTRY_KERNELS = ("shi_tomasi", "gather_tiles_aligned")
 
 
-def expected_launches(n: int) -> dict:
+def expected_launches(n: int, equalizer: bool = True) -> dict:
     """Launches of each kernel when the image path runs its init frame and
     n tracked frames: per frame K6 twice per pyramid level (4) plus once
     for the refill's subpix tiles, K8 once per level, K9 and K13 once for
-    the refill detection, and every filter kernel once; the init frame's
-    detection adds one K6, K9 and K13."""
+    the refill detection, K10 and K11 once with the equalizer on, and every
+    filter kernel once; the init frame's preprocessing and detection add
+    one K10, K11, K6, K9 and K13.  K12 and K7 are on no path."""
     out = {name: n for name in FILTER_KERNELS}
     out.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
                shi_tomasi_nms=n + 1)
+    out.update({name: n + 1 if equalizer else 0 for name in EQUALIZER_KERNELS})
+    out.update(dict.fromkeys(ENTRY_KERNELS, 0))
     return out
 
 
-def image_phase(dev, sim, kernels, records) -> None:
-    """Images -> poses on the card, then its first frames on the CPU."""
+def _zero(kernels) -> None:
+    for kernel in kernels.values():
+        kernel.launches = 0
+
+
+def _launches(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def image_config(equalizer: bool):
     import dataclasses
 
     from rvio_tpu_torch import RVIOConfig
+    cfg = RVIOConfig()
+    if equalizer:
+        return cfg
+    return dataclasses.replace(cfg, tracker=dataclasses.replace(
+        cfg.tracker, enable_equalizer=False))
+
+
+def image_phase(dev, sim, kernels, records, equalizer: bool,
+                n_frames=None):
+    """Images -> poses on the card (the first ``n_frames`` tracked frames,
+    or all), then its first frames on the CPU.  With the equalizer on, the
+    image kernels' launches go to ``records``.  Returns the card run."""
     from rvio_tpu_torch.eval.ate import ate_rmse
     from rvio_tpu_torch.runtime import bundle_imu, run_rendered_sequence_scan
     from rvio_tpu_torch.runtime.image_driver import _find_init_frame
 
-    cfg = RVIOConfig()
-    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
-        cfg.tracker, enable_equalizer=False))
+    cfg = image_config(equalizer)
+    label = "image path (equalizer on)" if equalizer else \
+        "image path (equalizer off)"
     groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
     _, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
                              "cpu")
+    k_end = len(sim.frame_t) if n_frames is None else k0 + 1 + n_frames
     # warm-up: library handles and the allocator's pool
     run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 9)
-    for kernel in kernels.values():
-        kernel.launches = 0
+    _zero(kernels)
     t0 = time.perf_counter()
-    res = run_rendered_sequence_scan(cfg, sim, device=dev, timing_split=True)
+    res = run_rendered_sequence_scan(cfg, sim, device=dev, timing_split=True,
+                                     max_frames=k_end)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    for kernel, rec in records:
-        if rec["name"] not in FILTER_KERNELS:
-            rec["launches"] = kernel.launches
+    launches = _launches(kernels)
+    if equalizer:
+        for kernel, rec in records:
+            if rec["name"] not in FILTER_KERNELS + ENTRY_KERNELS:
+                rec["launches"] = kernel.launches
     n = len(res.timestamps)
-    if n != len(sim.frame_t) - k0 - 1:
-        raise AssertionError("the image path skipped frames of the loop")
+    if n != k_end - k0 - 1:
+        raise AssertionError(f"{label} skipped frames of the loop")
     idx = np.searchsorted(sim.frame_t, res.timestamps)
     ate = ate_rmse(res.positions, sim.gt_p[idx])
     acc = res.acceptance_stats()
     usable = float(res.diag["n_usable"].mean())
     fe, be = float(res.frontend_ms.mean()), float(res.backend_ms.mean())
-    print(f"image path: {n} frames (init frame {k0}), {n / wall:.1f} frames/s "
+    print(f"{label}: {n} frames (init frame {k0}), {n / wall:.1f} frames/s "
           f"images -> poses ({wall:.2f} s, host rendering included); "
           f"front-end {fe:.3f} ms/frame, back-end {be:.3f} ms/frame on the "
           f"card; ATE {ate:.4f} m (limit {ATE_LIMIT_M}); acceptance "
           f"{json.dumps(acc)}, n_usable mean {usable:.1f}; wider ridge on "
           f"{int(res.diag['ridge_fallback'].sum())} frames; launches "
           f"{launches}", flush=True)
-    want = expected_launches(n)
+    want = expected_launches(n, equalizer)
     if launches != want:
         raise AssertionError(f"image path launches {launches}, expected {want}")
     if not (np.isfinite(res.positions).all() and res.positions.shape == (n, 3)
@@ -198,13 +243,117 @@ def image_phase(dev, sim, kernels, records) -> None:
         raise AssertionError("the CPU image run filtered other frames")
     agree = float((cpu.active_slots == res.active_slots[:m]).mean())
     dp = float(np.abs(cpu.positions - res.positions[:m]).max())
-    print(f"image path, cpu plain path, first {m} frames "
+    print(f"{label}, cpu plain path, first {m} frames "
           f"({time.perf_counter() - t0:.1f} s): active slots agree on "
           f"{agree:.4%} of slot-frames (limit {IMG_CPU_ACTIVE_AGREE:.0%}), "
           f"max position gap {dp:.3e} m (limit {IMG_CPU_GAP_POS_M})",
           flush=True)
     if not (agree >= IMG_CPU_ACTIVE_AGREE and dp < IMG_CPU_GAP_POS_M):
         raise AssertionError("card image path and CPU plain path disagree")
+    return res
+
+
+def _render_u8(cfg, sim, k):
+    from rvio_tpu_torch.dataio.synthetic import render_frame
+    return np.clip(render_frame(cfg, sim, k), 0, 255).astype(np.uint8)
+
+
+def online_phase(dev, sim, kernels, scan):
+    """OnlineDriver on the card, fed as a live node would be: each frame's
+    IMU through the first sample at or after its stamp (the buffer waits
+    for such a sample, and the simulator's stamps can put the sample of
+    the frame's instant a rounding error before it), then its image, then
+    one spin.  Returns the driver."""
+    from rvio_tpu_torch.runtime import OnlineDriver
+
+    cfg = image_config(True)
+    k_end = int(np.searchsorted(sim.frame_t, scan.timestamps[ONLINE_FRAMES - 1])) + 1
+    t0 = time.perf_counter()
+    frames = [_render_u8(cfg, sim, k) for k in range(k_end)]
+    render_s = time.perf_counter() - t0
+    drv = OnlineDriver(cfg, device=dev)
+    _zero(kernels)
+    pushed, lat, imu_done = {}, [], 0
+    t0 = time.perf_counter()
+    for k in range(k_end):
+        t = sim.frame_t[k]
+        end = min(int(np.searchsorted(sim.imu_t, t)) + 1, len(sim.imu_t))
+        for j in range(imu_done, end):
+            drv.push_imu(sim.imu_t[j], sim.imu_w[j], sim.imu_a[j], seq=j)
+        imu_done = end
+        pushed[t] = time.perf_counter()
+        drv.push_image(t, frames[k], seq=k)
+        got = drv.spin_once()
+        if got is not None:
+            lat.append((time.perf_counter() - pushed[got["t"]]) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    n = len(drv.poses)
+    want = expected_launches(drv.pipeline.n_tracked)
+    t_on = np.asarray([p[0] for p in drv.poses])
+    p_on = np.asarray([p[1] for p in drv.poses])
+    if n < ONLINE_FRAMES - 1 or not np.array_equal(t_on, scan.timestamps[:n]):
+        raise AssertionError(f"the live path gave {n} poses at other frames "
+                             f"than the scan")
+    gap = float(np.abs(p_on - scan.positions[:n]).max())
+    p50, p99 = np.percentile(lat, [50, 99])
+    print(f"live path (OnlineDriver): {n} poses from {k_end} pushed frames "
+          f"in {wall:.2f} s = {n / wall:.1f} frames/s (frames pre-rendered "
+          f"in {render_s:.1f} s); push-to-pose latency p50 {p50:.2f} ms, p99 "
+          f"{p99:.2f} ms; drops {drv.drops}; max position gap to the "
+          f"equalizer-on scan {gap:.3e} m (limit {ONLINE_GAP_M}); launches "
+          f"{launches}", flush=True)
+    if drv.drops != {"imu": 0, "image": 0}:
+        raise AssertionError(f"the live path counted drops {drv.drops}")
+    if launches != want:
+        raise AssertionError(f"live path launches {launches}, expected {want}")
+    if not (np.isfinite(p_on).all() and gap < ONLINE_GAP_M):
+        raise AssertionError("the live path and the scan disagree")
+    return drv
+
+
+def entries_phase(dev, sim, kernels, records, drv) -> None:
+    """K12 and K7 through their public entries on the workload's frames:
+    the detector's response on the first tracked frames, the aligned
+    tiles at the live driver's final feature positions."""
+    from rvio_tpu_torch.frontend.detector import shi_tomasi_response
+    from rvio_tpu_torch.ops.shi_tomasi import \
+        shi_tomasi_response as shi_plain
+    from rvio_tpu_torch.ops.tile_gather import (gather_tiles_aligned,
+                                                gather_tiles_aligned_plain)
+
+    cfg = image_config(True)
+    k1 = int(np.searchsorted(sim.frame_t, drv.poses[0][0]))
+    imgs = [torch.as_tensor(_render_u8(cfg, sim, k)).to(dev).float()
+            for k in range(k1, k1 + 3)]
+    ts = drv.pipeline.tracker_state
+    live = ts.pos[ts.active]
+    origins = torch.round(live - live.new_tensor([128.0, 20.0])).int()
+    last = ts.pyramid[0].contiguous()
+    _zero(kernels)
+    resp = [shi_tomasi_response(img) for img in imgs]
+    tiles = gather_tiles_aligned(last, origins)
+    torch.cuda.synchronize()
+    launches = _launches(kernels)
+    for kernel, rec in records:
+        if rec["name"] in ENTRY_KERNELS:
+            rec["launches"] = kernel.launches
+    plain = [shi_plain(img) for img in imgs]
+    diff = sum(int((r != q).sum()) for r, q in zip(resp, plain))
+    rel = max(float(((r - q).abs() / q.abs().clamp(min=1e-30)).max())
+              for r, q in zip(resp, plain))
+    exact = torch.equal(tiles, gather_tiles_aligned_plain(last, origins))
+    print(f"public entries: shi_tomasi_response on {len(imgs)} frames, "
+          f"{diff} pixels differ from the plain version (max rel {rel:.3e}, "
+          f"limit 1e-5); gather_tiles_aligned at {len(origins)} live "
+          f"positions, {'exact' if exact else 'DIFFERS'}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    want = dict.fromkeys(kernels, 0)
+    want.update(shi_tomasi=len(imgs), gather_tiles_aligned=1)
+    if launches != want:
+        raise AssertionError(f"entry launches {launches}, expected {want}")
+    if not (rel <= 1e-5 and exact):
+        raise AssertionError("a public entry disagrees with its plain version")
 
 
 def main() -> int:
@@ -281,13 +430,16 @@ def main() -> int:
     args = (sim.imu_t, sim.imu_w, sim.imu_a)
     driver = SequenceDriver(cfg, dtype=torch.float32, device=dev)
     driver.run(*args, sim.frame_t[:100], batches[:100])   # warm-up: handles
-    for kernel in kernels.values():
-        kernel.launches = 0
+    _zero(kernels)
     t0 = time.perf_counter()
     res = driver.run(*args, sim.frame_t, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: kernels[name].launches for name in FILTER_KERNELS}
+    if any(k.launches for name, k in kernels.items()
+           if name not in FILTER_KERNELS):
+        raise AssertionError(f"the feature path launched image kernels: "
+                             f"{_launches(kernels)}")
     for kernel, rec in records:
         if rec["name"] in FILTER_KERNELS:
             rec["launches"] = kernel.launches
@@ -326,7 +478,11 @@ def main() -> int:
     if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
         raise AssertionError("card kernel path and CPU plain path disagree")
 
-    image_phase(dev, sim, kernels, records)
+    image_phase(dev, sim, kernels, records, equalizer=False,
+                n_frames=IMG_OFF_FRAMES)
+    scan = image_phase(dev, sim, kernels, records, equalizer=True)
+    drv = online_phase(dev, sim, kernels, scan)
+    entries_phase(dev, sim, kernels, records, drv)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -1,8 +1,13 @@
-// Shi-Tomasi min-eigenvalue response + 3x3 non-maximum suppression.
+// Shi-Tomasi min-eigenvalue response, alone (K12) or with 3x3 non-maximum
+// suppression (K13).
 //
-// Replaces rvio_tpu/ops/shi_tomasi.py (shi_tomasi_nms_pallas /
-// _shi_nms_kernel) and computes its oracle, detector.nms_masked_response,
-// on the whole map:
+// rvio_shi_tomasi_nms replaces rvio_tpu/ops/shi_tomasi.py
+// (shi_tomasi_nms_pallas / _shi_nms_kernel) and computes its oracle,
+// detector.nms_masked_response, on the whole map; rvio_shi_tomasi replaces
+// shi_tomasi_pallas / _shi_kernel and computes detector.shi_tomasi_response,
+// the same kernel without the NMS stage (the response written where it is
+// formed, 0 on the 2-px border; the TPU kernel's lane-roll wrap has no
+// counterpart here):
 //   ix = Sobel/8 in x, iy = Sobel/8 in y (reflect border, never reached:
 //        the response needs them only at rows/cols [1, H-1) x [1, W-1)),
 //   s** = 3x3 box sums of ix*ix, ix*iy, iy*iy,
@@ -29,8 +34,10 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
-__global__ void shi_nms_kernel(const float* __restrict__ img,
-                               float* __restrict__ out, int H, int W) {
+// NMS false: the response alone, written from the response stage.
+template <bool NMS>
+__global__ void shi_kernel(const float* __restrict__ img,
+                           float* __restrict__ out, int H, int W) {
   __shared__ float I[TY + 6][TX + 6];
   __shared__ float PXX[TY + 4][TX + 4], PXY[TY + 4][TX + 4], PYY[TY + 4][TX + 4];
   __shared__ float R[TY + 2][TX + 2];
@@ -92,8 +99,13 @@ __global__ void shi_nms_kernel(const float* __restrict__ img,
       const float disc = __fsqrt_rn(fmaxf(sub(mul(tr, tr), mul(4.f, det)), 0.f));
       v = mul(sub(tr, disc), 0.5f);
     }
-    R[r][c] = v;
+    if constexpr (NMS) {
+      R[r][c] = v;
+    } else if (r >= 1 && r <= TY && c >= 1 && c <= TX && gy < H && gx < W) {
+      out[(size_t)gy * W + gx] = v;
+    }
   }
+  if constexpr (!NMS) return;
   __syncthreads();
 
   // 3x3 local maximum at (y0+3+r, x0+3+c)
@@ -119,7 +131,14 @@ extern "C" {
 int rvio_shi_tomasi_nms(const float* img, float* out, int H, int W,
                         cudaStream_t stream) {
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  shi_nms_kernel<<<grid, 256, 0, stream>>>(img, out, H, W);
+  shi_kernel<true><<<grid, 256, 0, stream>>>(img, out, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rvio_shi_tomasi(const float* img, float* out, int H, int W,
+                    cudaStream_t stream) {
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
+  shi_kernel<false><<<grid, 256, 0, stream>>>(img, out, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ Port of rvio_tpu/frontend/detector.py (FeatureDetector, reference:
 src/rvio/FeatureDetector.cc, and the cv::goodFeaturesToTrack +
 cv::cornerSubPix pair it wraps):
 
-- the NMS-masked min-eigenvalue response (K13, ``ops.shi_tomasi``);
+- the min-eigenvalue response (K12) and its NMS-masked form (K13), both
+  in ``ops.shi_tomasi``;
 - per-cell argmax over a minDist grid plus suppression by stronger
   neighbours, with the JAX package's tie-breaks (earliest row, then
   earliest column inside a cell; the lower flat index between equal
@@ -22,10 +23,18 @@ import torch.nn.functional as F
 
 from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
 from rvio_tpu_torch.ops.klt_iterate import subpix_refine
-from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi_nms
+from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi, shi_tomasi_nms
 from rvio_tpu_torch.ops.tile_gather import gather_tiles
 
 _NINF = float("-inf")
+
+
+def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
+    """Min-eigenvalue corner response (cv::cornerMinEigenVal semantics), a
+    2-px border zeroed: K12 on the card (f32, ``block`` 3), the plain
+    version on the CPU.  The tracker reaches the response only through
+    :func:`nms_masked_response`."""
+    return shi_tomasi(img, block)
 
 
 def nms_masked_response(img: torch.Tensor) -> torch.Tensor:

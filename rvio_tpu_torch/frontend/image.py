@@ -1,17 +1,19 @@
-"""Image preprocessing: Gaussian pyramid, gradients, box sums, sampling.
+"""Image preprocessing: CLAHE, Gaussian pyramid, gradients, box sums, sampling.
 
 Port of rvio_tpu/frontend/image.py (the reference's OpenCV preprocessing,
 reference: src/rvio/Tracker.cc:183-202, and cv::calcOpticalFlowPyrLK's
 internal pyramid).  Every filter is a short chain of shifted slices of a
 reflect-padded image, added in the JAX package's order, so the f64 results
-match it to rounding.  ``clahe`` (the equalizer, TPU kernels K10/K11) is
-not ported yet: the tracker refuses ``enable_equalizer=True``.
+match it to rounding.  ``clahe`` (the equalizer) runs kernels K10 and K11
+(``ops.clahe``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from rvio_tpu_torch.ops.clahe import clahe_apply, clahe_luts
 
 
 def reflect_pad(img: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
@@ -83,6 +85,17 @@ def box_filter(img: torch.Tensor, size: int = 3) -> torch.Tensor:
     """Unnormalized box sum (cv::boxFilter normalize=false semantics)."""
     k = [1.0] * size
     return _sep_filter(img, k, k)
+
+
+def clahe(img: torch.Tensor, clip_limit: float = 3.0, grid: int = 5,
+          n_bins: int = 256) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization
+    (cv::createCLAHE(3.0, Size(5, 5)) semantics, reference:
+    Tracker.cc:198-202): per-tile clipped-histogram LUTs (K10), then each
+    pixel's LUT entry blended over the four surrounding tiles (K11).  Input
+    in [0, 255]; output in the same range."""
+    luts = clahe_luts(img, clip_limit, grid, n_bins)
+    return clahe_apply(img, luts, grid)
 
 
 def bilinear_sample(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,7 @@ Lifecycle rules preserved (Tracker.cc:271-396):
 
 The JAX package selects batch rows and pairs refill candidates with
 one-hot matmuls (TPU scatters and gathers serialize); the port indexes
-directly and gets the same slots, ranks and budget.  The equalizer (CLAHE,
-TPU kernels K10/K11) is not ported yet.
+directly and gets the same slots, ranks and budget.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ from rvio_tpu_torch.filter.update import UpdateBatch
 from rvio_tpu_torch.frontend.detector import (corner_subpix, find_newer,
                                               grid_top_corners,
                                               nms_masked_response)
-from rvio_tpu_torch.frontend.image import build_pyramid
+from rvio_tpu_torch.frontend.image import build_pyramid, clahe
 from rvio_tpu_torch.frontend.klt import klt_track
 from rvio_tpu_torch.frontend.ransac import (gyro_ransac,
                                             integrate_gyro_rotation)
@@ -72,9 +71,6 @@ def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
     are cast on the device); ``u`` holds the frame's N uniform RANSAC draws.
     """
     device = resolve_device(device)
-    if cfg.tracker.enable_equalizer:
-        raise NotImplementedError(
-            "enable_equalizer needs K10/K11 (CLAHE), not ported yet")
     N = cfg.tracker.num_features
     L = cfg.tracker.max_tracking_length
     Lmin = cfg.tracker.min_tracking_length
@@ -101,6 +97,8 @@ def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
                        if cfg.camera.is_rgb
                        else (img[..., 2], img[..., 1], img[..., 0]))
             img = 0.299 * r + 0.587 * g + 0.114 * b
+        if cfg.tracker.enable_equalizer:
+            img = clahe(img, 3.0, 5)
         return tuple(build_pyramid(img, levels))
 
     def detect(img, spacing, refine=True):

@@ -3,8 +3,9 @@
 For each kernel: seeded inputs (numpy, then moved to the device) at the
 shapes the main path gives it under ``RVIOConfig()`` (filter: K=16 IMU
 samples, F=100 update features, L=15 track length, M=14 clones; image
-front-end: 752 x 480 frames, N=200 feature slots, 40 x 32 tiles, a 15 x 15
-LK window, 10 subpix iterations), a comparison of the kernel's result with
+front-end: 752 x 480 frames, a 5 x 5 CLAHE grid, N=200 feature slots,
+40 x 32 tiles (40 x 256 for K7), a 15 x 15 LK window, 10 subpix
+iterations), a comparison of the kernel's result with
 its plain version's on the same inputs with a stated tolerance, the
 bytes the function must read and write and the operations it needs on
 these inputs (for the roofline bound: from the structure of the matrices,
@@ -47,6 +48,7 @@ class KernelCheck:
     bytes_written: int     # bytes of output, each written once
     library: Optional[Callable] = None   # one PyTorch call, same function
     info: dict = field(default_factory=dict)   # what ``compare`` counted
+    check_launches: int = 1   # kernel launches one ``check`` makes
 
     def run_kernel(self):
         return self.kernel(*self.args, **self.kwargs)
@@ -641,13 +643,194 @@ def _subpix_case(cfg, dev, rng) -> KernelCheck:
         info=info)
 
 
+# --- CLAHE (K10, K11), the response alone (K12), aligned tiles (K7) ----------
+
+def _checker_frame(rng, H, W, n_corners=150, blob=4):
+    """A frame as the synthetic renderer draws one (dataio/synthetic.py
+    render_frame): a background of 80 +- 20 gray levels and a 2 x 2
+    checker corner of 230 and 20 at each of ``n_corners`` random points,
+    f32 on the CPU.  Its pixels fall on few histogram bins, as the main
+    path's frames do."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = 80.0 + 20.0 * np.cos(2 * np.pi * xx / W) * np.cos(2 * np.pi * yy / H)
+    for x, y in zip(rng.integers(0, W, n_corners), rng.integers(0, H, n_corners)):
+        x0, x1 = max(x - blob, 0), min(x + blob, W)
+        y0, y1 = max(y - blob, 0), min(y + blob, H)
+        img[y0:y, x0:x] = img[y:y1, x:x1] = 230.0
+        img[y0:y, x:x1] = img[y:y1, x0:x] = 20.0
+    return torch.as_tensor(img, dtype=torch.float32)
+
+
+# operations of K10 per pixel (clamp, truncate, count) and per bin (clip,
+# excess, spread, CDF, scale, round); of K11 per pixel (bin, four LUT
+# reads, the row and column blends: 2 products and a fused product-sum
+# per tile column, 2 products and a sum; the tile coordinates per row and
+# column are counted once each)
+CLAHE_HIST_FLOPS_PER_PX = 4
+CLAHE_LUT_FLOPS_PER_BIN = 8
+CLAHE_APPLY_FLOPS_PER_PX = 12
+CLAHE_AXIS_FLOPS = 10
+
+
+def _clahe_luts_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.ops import clahe as k10
+    H, W = cfg.camera.height, cfg.camera.width
+    g, clip = 5, 3.0
+    img = _checker_frame(rng, H, W)
+    cpu_luts = k10.clahe_luts_plain(img, clip, g)
+    cpu_hist = k10.clahe_hist_plain(img, g)
+    img = img.to(dev)
+    th, tw = k10.tile_shape(H, W, g)
+    x = torch.nn.functional.pad(img[None, None], (0, tw * g - W, 0, th * g - H),
+                                mode="reflect")[0, 0]
+    tile = ((torch.arange(th * g, device=dev) // th)[:, None] * g
+            + (torch.arange(tw * g, device=dev) // tw)[None, :])
+    key = (tile * 256 + torch.clamp(x, 0, 255).long()).reshape(-1)
+    info = {}
+
+    def library(*_):
+        """The histogram half alone: one bincount of tile * 256 + bin."""
+        return torch.bincount(key, minlength=g * g * 256)
+
+    def compare(ko, po):
+        # the histograms from a second launch that also writes them out;
+        # the timed call is the tracker's, which writes the LUTs alone
+        hist = k10._luts_and_hist(img, clip, g)[1].cpu()
+        if not torch.equal(hist.long(), cpu_hist):
+            raise AssertionError("clahe_luts: histograms differ from the "
+                                 "plain version's")
+        luts = ko.cpu()
+        info["lut_entries_differing_from_cpu_plain"] = int(
+            (luts != cpu_luts).sum())
+        info["lut_entries_differing_from_card_plain"] = int(
+            (luts != po.cpu()).sum())
+        if info["lut_entries_differing_from_cpu_plain"]:
+            raise AssertionError(f"clahe_luts: {info['lut_entries_differing_from_cpu_plain']}"
+                                 " LUT entries differ from the CPU plain version")
+        return float((luts - cpu_luts).abs().max())
+
+    return KernelCheck(
+        "clahe_luts", "rvio_tpu_torch/csrc/clahe.cu",
+        "rvio_tpu/ops/clahe.py:94", k10.clahe_luts, k10.clahe_luts_plain,
+        (img,), dict(clip_limit=clip, grid=g),
+        "histograms exact, LUTs bitwise with the plain version on the CPU",
+        compare, float(CLAHE_HIST_FLOPS_PER_PX * th * tw * g * g
+                       + CLAHE_LUT_FLOPS_PER_BIN * 256 * g * g),
+        F32 * H * W, F32 * 256 * g * g, library=library, info=info,
+        check_launches=2)
+
+
+def _clahe_apply_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.ops import clahe as k11
+    H, W = cfg.camera.height, cfg.camera.width
+    g = 5
+    img = _checker_frame(rng, H, W)
+    luts = k11.clahe_luts_plain(img, 3.0, g)
+    cpu_out = k11.clahe_apply_plain(img, luts, g)
+    tol = 1e-3
+    info = {}
+
+    def compare(ko, po):
+        k = ko.cpu()
+        info["pixels_differing_from_cpu_plain"] = int((k != cpu_out).sum())
+        info["max_abs_vs_card_plain"] = float((k - po.cpu()).abs().max())
+        err = float((k - cpu_out).abs().max())
+        if not err <= tol:
+            _fail("clahe_apply", "max abs gray vs the CPU plain version", err,
+                  tol)
+        return err
+
+    return KernelCheck(
+        "clahe_apply", "rvio_tpu_torch/csrc/clahe.cu",
+        "rvio_tpu/ops/clahe.py:132", k11.clahe_apply, k11.clahe_apply_plain,
+        (img.to(dev), luts.to(dev)), dict(grid=g),
+        "max abs 1e-3 gray vs the plain version on the CPU (bitwise "
+        "expected; differing pixels counted)", compare,
+        float(CLAHE_APPLY_FLOPS_PER_PX * H * W + CLAHE_AXIS_FLOPS * (H + W)),
+        F32 * (H * W + 256 * g * g), F32 * H * W, info=info)
+
+
+# operations per pixel of K12: K13's without the 8 NMS comparisons
+SHI_FLOPS_PER_PX = SHI_NMS_FLOPS_PER_PX - 8
+
+
+def _shi_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.ops import shi_tomasi as k12
+    H, W = cfg.camera.height, cfg.camera.width
+    img = _texture(rng, H, W, passes=1).float().to(dev)
+    tol = 1e-5
+    info = {}
+
+    def compare(ko, po):
+        k, p = _np(ko), _np(po)
+        info["pixels_differing"] = int((k != p).sum())
+        err = float(np.max(np.abs(k - p) / np.maximum(np.abs(p), 1e-30)))
+        if not err <= tol:
+            _fail("shi_tomasi", "relative", err, tol)
+        return err
+
+    return KernelCheck(
+        "shi_tomasi", "rvio_tpu_torch/csrc/shi_tomasi_nms.cu",
+        "rvio_tpu/ops/shi_tomasi.py:90", k12.shi_tomasi,
+        k12.shi_tomasi_response, (img,), {},
+        "rel 1e-5 (bitwise expected; differing pixels counted)", compare,
+        float(SHI_FLOPS_PER_PX * H * W), F32 * H * W, F32 * H * W, info=info)
+
+
+def aligned_tile_reads(origin, H: int, W: int, th: int, tw: int) -> int:
+    """Image pixels K7's tiles cover (their union) at these origins."""
+    from rvio_tpu_torch.ops.tile_gather import aligned_origins
+    o = aligned_origins(torch.as_tensor(origin).cpu(), H, W, th, tw).numpy()
+    covered = np.zeros((H, W), bool)
+    for x, y in o:
+        covered[y:y + th, x:x + tw] = True
+    return int(covered.sum())
+
+
+def _aligned_tile_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.ops import tile_gather as k7
+    img, _, pts = _frame_pair(cfg, rng)
+    H, W = img.shape
+    th, tw = 40, 256
+    # tiles centred on the 200 feature points, as a wide-window tracker
+    # would place them
+    o = torch.as_tensor(np.round(pts - [tw / 2, th / 2]).astype(np.int32))
+    oa = k7.aligned_origins(o, H, W, th, tw).to(dev)
+    img, o = img.to(dev), o.to(dev)
+    rows = (oa[:, 1, None] + torch.arange(th, device=dev)).long()
+    cols = (oa[:, 0, None] + torch.arange(tw, device=dev)).long()
+
+    def library(*_):
+        """The one indexing call (aligned origins already in bounds)."""
+        return img[rows[:, :, None], cols[:, None, :]]
+
+    def compare(ko, po):
+        if not torch.equal(ko, po):
+            raise AssertionError("gather_tiles_aligned: kernel and plain "
+                                 "differ")
+        return 0.0
+
+    N = o.shape[0]
+    return KernelCheck(
+        "gather_tiles_aligned", "rvio_tpu_torch/csrc/tile_gather.cu",
+        "rvio_tpu/ops/tile_gather.py:124", k7.gather_tiles_aligned,
+        k7.gather_tiles_aligned_plain, (img, o), dict(th=th, tw=tw), "exact",
+        compare, 0.0,
+        F32 * (aligned_tile_reads(o, H, W, th, tw) + 2 * N),
+        F32 * N * th * tw, library=library)
+
+
 def kernel_checks(device, seed: int = 0) -> List[KernelCheck]:
     """One check per kernel: the filter step's, in the order it runs them,
-    then the image front-end's."""
+    then the image front-end's, then (drawing later from the same seeded
+    stream, so the earlier checks keep their inputs) the equalizer's, K12
+    and K7."""
     cfg = RVIOConfig()
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     return [_propagate_case(cfg, dev, rng), _lm_case(cfg, dev, rng),
             _jac_case(cfg, dev, rng), _quadform_case(cfg, dev, rng),
             _tile_case(cfg, dev, rng), _lk_case(cfg, dev, rng),
-            _subpix_case(cfg, dev, rng), _shi_nms_case(cfg, dev, rng)]
+            _subpix_case(cfg, dev, rng), _shi_nms_case(cfg, dev, rng),
+            _clahe_luts_case(cfg, dev, rng), _clahe_apply_case(cfg, dev, rng),
+            _shi_case(cfg, dev, rng), _aligned_tile_case(cfg, dev, rng)]

@@ -1,0 +1,221 @@
+"""K10, K11: CLAHE, per-tile clipped-histogram LUTs and their bilinear read.
+
+Replaces rvio_tpu/ops/clahe.py (``_hist_call``/``_hist_kernel``, K10, and
+``_apply_call``/``_apply_kernel``, K11); CUDA source ``csrc/clahe.cu``.
+Both compute the function of the oracle's XLA path,
+rvio_tpu/frontend/image.py:clahe (cv::createCLAHE(3.0, Size(5, 5))
+semantics, reference: Tracker.cc:198-202), not the Pallas variant, which
+rounds the row-blended LUT to bf16 a second time:
+
+- reflect-pad the (H, W) image to (g th, g tw), th = ceil(H/g),
+  tw = ceil(W/g), and cut it into g x g tiles;
+- bin each pixel by clamp(trunc(x), 0, 255) and count an exact histogram
+  per tile;
+- clip at max(clip_limit * area / 256, 1), spread the excess uniformly,
+  take the CDF, scale by 255 / area and round each LUT entry to bf16 once;
+- blend the LUT entries of the pixel's bin over the 2 x 2 surrounding
+  tiles (clamped tile indices, weights from ty = (y - (th-1)/2) / th).
+
+The oracle selects bins and tiles with one-hot matmuls, a TPU workaround;
+the plain versions here index, which gives the same values (the one-hot
+dot picks the bf16 LUT entry exactly).
+
+Bounds on the H100 at the tracker's operating point (one 480 x 752 f32
+frame, g = 5: 25 tiles of 96 x 151, area 14 496): K10 reads the image
+once (1.44 MB) and writes the 25 x 256 LUTs (25.6 kB), about 0.44 us at
+3.35 TB/s (the check's launch also writes the histograms, as much
+again).  K11 reads
+the image and the LUTs and writes the output, 2.9 MB, about 0.87 us.  A
+few operations a pixel each, so both are bound by bytes.  K10 gives each
+tile one block and a shared-memory histogram filled by atomicAdd, then
+clips, sums and rounds in the same block: one launch where the TPU
+version ran a host epilogue.  K11 stages the LUTs in shared memory and
+gives each output pixel one thread.  Where the two would differ from
+these plain versions:
+
+- the CDF: in f32 the clipped bins are multiples of 1/2048 and partial
+  sums above 8192 round, so the order of the sum matters.  K10 sums in
+  bin order in double and rounds each entry to f32, as ``torch.cumsum``
+  does on the CPU; its LUTs are bitwise those of the plain version on the
+  CPU (``torch.cumsum`` on the card sums in another order);
+- K11 follows the oracle's arithmetic: a row blend whose second product
+  is fused into the sum (the oracle's CPU contraction does the same, so
+  the f64 plain version is bitwise the oracle), then a column blend
+  without fusion.  Every other product, sum and division rounds on its
+  own (IEEE division), so K11 is bitwise with the plain version on the
+  CPU (on the card PyTorch divides by a scalar through its reciprocal).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from rvio_tpu_torch.ops import _lib
+
+_LIB = "clahe"
+# both entries: three pointers, H, W, grid, two floats (then the stream)
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+KERNEL_BINS = 256
+
+
+def tile_shape(H: int, W: int, grid: int):
+    """(th, tw): the tile size, the image's ceil-divided by the grid (OpenCV
+    extends the border)."""
+    return -(-H // grid), -(-W // grid)
+
+
+def _bins(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """clamp(trunc(x), 0, n_bins-1), computed as the truncation of the
+    clamped value (the same for every finite x)."""
+    return torch.clamp(x, 0, n_bins - 1).long()
+
+
+def clahe_hist_plain(img: torch.Tensor, grid: int = 5,
+                     n_bins: int = 256) -> torch.Tensor:
+    """(grid^2, n_bins) int64 per-tile histograms of the reflect-padded
+    image, tiles in row-major order."""
+    H, W = img.shape
+    th, tw = tile_shape(H, W, grid)
+    Hp, Wp = th * grid, tw * grid
+    x = F.pad(img[None, None], (0, Wp - W, 0, Hp - H), mode="reflect")[0, 0]
+    rows = torch.arange(Hp, device=img.device) // th
+    cols = torch.arange(Wp, device=img.device) // tw
+    tile = rows[:, None] * grid + cols[None, :]
+    key = tile * n_bins + _bins(x, n_bins)
+    return torch.bincount(key.reshape(-1), minlength=grid * grid * n_bins
+                          ).reshape(grid * grid, n_bins)
+
+
+def clahe_luts_plain(img: torch.Tensor, clip_limit: float = 3.0,
+                     grid: int = 5, n_bins: int = 256) -> torch.Tensor:
+    """(grid^2, n_bins) LUTs in the image's dtype (bf16 values)."""
+    H, W = img.shape
+    th, tw = tile_shape(H, W, grid)
+    counts = clahe_hist_plain(img, grid, n_bins)
+    hist = counts.to(img.dtype)
+    area = th * tw
+    limit = max(clip_limit * area / n_bins, 1.0)
+    clipped = torch.clamp(hist, max=limit)
+    excess = (hist - clipped).sum(dim=1, keepdim=True)
+    clipped = clipped + excess / n_bins
+    cdf = torch.cumsum(clipped, dim=1)
+    return (cdf * ((n_bins - 1.0) / area)).to(torch.bfloat16).to(img.dtype)
+
+
+def clahe_apply_plain(img: torch.Tensor, luts: torch.Tensor,
+                      grid: int = 5) -> torch.Tensor:
+    """(H, W): each pixel's LUT entry blended bilinearly over the 2 x 2
+    surrounding tiles."""
+    H, W = img.shape
+    th, tw = tile_shape(H, W, grid)
+    n_bins = luts.shape[1]
+    dt, dev = img.dtype, img.device
+
+    def axis(n, size):
+        """The two tiles along one axis and their weights; where the
+        clamped pair coincides, the second weight joins the first."""
+        t = (torch.arange(n, dtype=dt, device=dev) - (size - 1) / 2.0) / size
+        t0 = torch.clamp(torch.floor(t), 0, grid - 1)
+        frac = torch.clamp(t - t0, 0.0, 1.0)
+        t0 = t0.long()
+        t1 = torch.clamp(t0 + 1, max=grid - 1)
+        same = t0 == t1
+        w0 = torch.where(same, (1 - frac) + frac, 1 - frac)
+        return t0, t1, w0, torch.where(same, 0.0, frac)
+
+    ty0, ty1, wy0, wy1 = (x[:, None] for x in axis(H, th))
+    tx0, tx1, wx0, wx1 = axis(W, tw)
+    b = _bins(img, n_bins)
+    lut = luts.to(dt)
+
+    def rows(tj):
+        """The row blend in tile column tj: wy0 v0 + wy1 v1 with the second
+        product fused (torch.addcmul: one rounding), as the oracle's
+        contraction rounds it."""
+        return torch.addcmul(wy0 * lut[ty0 * grid + tj, b], wy1,
+                             lut[ty1 * grid + tj, b])
+
+    return rows(tx0) * wx0 + rows(tx1) * wx1
+
+
+def _check_image(name: str, img: torch.Tensor, grid: int, n_bins: int):
+    H, W = img.shape
+    _lib.check(name, "img", img, (H, W), torch.float32, img.device)
+    if n_bins != KERNEL_BINS:
+        raise ValueError(f"{name}: the CUDA kernel takes {KERNEL_BINS} bins, "
+                         f"got {n_bins}")
+    th, tw = tile_shape(H, W, grid)
+    if th * grid - H >= H or tw * grid - W >= W:
+        raise ValueError(f"{name}: image {H}x{W} too small for a {grid}x"
+                         f"{grid} grid")
+    return H, W
+
+
+def _launch_luts(img: torch.Tensor, clip_limit: float, grid: int,
+                 hist) -> torch.Tensor:
+    """Launch K10 on a checked CUDA f32 image; ``hist``: None, or an int32
+    (grid^2, 256) tensor that receives the counted histograms."""
+    H, W = img.shape
+    th, tw = tile_shape(H, W, grid)
+    area = th * tw
+    luts = torch.empty((grid * grid, KERNEL_BINS), dtype=torch.float32,
+                       device=img.device)
+    fn = _lib.function(_LIB, "rvio_clahe_luts", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts),
+              ctypes.c_void_p(None) if hist is None else _lib.ptr(hist), H, W,
+              grid, max(clip_limit * area / KERNEL_BINS, 1.0),
+              (KERNEL_BINS - 1.0) / area, device=img.device)
+    clahe_luts.launches += 1
+    return luts
+
+
+def clahe_luts(img: torch.Tensor, clip_limit: float = 3.0, grid: int = 5,
+               n_bins: int = 256) -> torch.Tensor:
+    """(H, W) image -> (grid^2, 256) LUTs.
+
+    A CUDA tensor runs the kernel (f32 image, 256 bins); a CPU tensor the
+    plain version."""
+    if not _lib.uses_kernel(img, "clahe_luts"):
+        return clahe_luts_plain(img, clip_limit, grid, n_bins)
+    _check_image("clahe_luts", img, grid, n_bins)
+    return _launch_luts(img, clip_limit, grid, None)
+
+
+def _luts_and_hist(img: torch.Tensor, clip_limit: float = 3.0,
+                   grid: int = 5):
+    """K10's LUTs and the int32 histograms it counted, for the kernel check
+    (the tracker asks for LUTs only).  A CPU tensor: the plain versions."""
+    if not _lib.uses_kernel(img, "clahe_luts"):
+        return (clahe_luts_plain(img, clip_limit, grid),
+                clahe_hist_plain(img, grid).int())
+    _check_image("clahe_luts", img, grid, KERNEL_BINS)
+    hist = torch.empty((grid * grid, KERNEL_BINS), dtype=torch.int32,
+                       device=img.device)
+    return _launch_luts(img, clip_limit, grid, hist), hist
+
+
+def clahe_apply(img: torch.Tensor, luts: torch.Tensor,
+                grid: int = 5) -> torch.Tensor:
+    """(H, W) image + (grid^2, 256) LUTs -> (H, W) equalized image.
+
+    A CUDA tensor runs the kernel (f32); a CPU tensor the plain version."""
+    if not _lib.uses_kernel(img, "clahe_apply"):
+        return clahe_apply_plain(img, luts, grid)
+    H, W = _check_image("clahe_apply", img, grid, luts.shape[1])
+    dev = img.device
+    _lib.check("clahe_apply", "luts", luts, (grid * grid, KERNEL_BINS),
+               torch.float32, dev)
+    th, tw = tile_shape(H, W, grid)
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_clahe_apply", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts), _lib.ptr(out), H, W,
+              grid, (th - 1) / 2.0, (tw - 1) / 2.0, device=dev)
+    clahe_apply.launches += 1
+    return out
+
+
+clahe_luts.launches = 0
+clahe_apply.launches = 0

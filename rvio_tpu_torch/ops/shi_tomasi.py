@@ -1,6 +1,7 @@
-"""K13: Shi-Tomasi min-eigenvalue response fused with the 3x3 NMS test.
+"""K12, K13: the Shi-Tomasi min-eigenvalue response, alone or fused with
+the 3x3 NMS test.
 
-Replaces rvio_tpu/ops/shi_tomasi.py (``shi_tomasi_nms_pallas``,
+K13 replaces rvio_tpu/ops/shi_tomasi.py (``shi_tomasi_nms_pallas``,
 ``_shi_nms_kernel``); CUDA source ``csrc/shi_tomasi_nms.cu``.  It computes
 the function of the JAX package's oracle ``nms_masked_response``
 (rvio_tpu/frontend/detector.py:61-84 through :29-58) on the whole map: the
@@ -19,6 +20,13 @@ a block loads its 16 x 32 output tile with a 3-px halo into shared memory
 once, forms the gradient products, the response and the NMS there, and
 writes the tile.  Each operation rounds as the plain version's does (no
 fused multiply-adds), so the two agree bitwise on the same card.
+
+K12 replaces ``shi_tomasi_pallas`` (``_shi_kernel``) and computes the
+oracle ``shi_tomasi_response`` (rvio_tpu/frontend/detector.py:29-58): the
+same kernel without its NMS stage, in the same source.  It reads and
+writes as much as K13 (0.86 us) and is bound by bytes too.  The TPU
+kernel's lane rolls wrap at the edges and the JAX wrapper strips them;
+here there is nothing to strip.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
 
 
 def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
-    """Min-eigenvalue corner response (cv::cornerMinEigenVal semantics),
-    a 2-px border zeroed."""
+    """Plain version of K12: the min-eigenvalue corner response
+    (cv::cornerMinEigenVal semantics), a 2-px border zeroed."""
     ix, iy = sobel_gradients(img)
     sxx = box_filter(ix * ix, block)
     sxy = box_filter(ix * iy, block)
@@ -94,3 +102,28 @@ def shi_tomasi_nms(img: torch.Tensor) -> torch.Tensor:
 
 
 shi_tomasi_nms.launches = 0
+
+
+def shi_tomasi(img: torch.Tensor, block: int = 3) -> torch.Tensor:
+    """(H, W) image -> (H, W) min-eigenvalue response, 2-px border zeroed.
+
+    A CUDA tensor runs the kernel (f32, 3 x 3 block only); a CPU tensor the
+    plain version."""
+    if not _lib.uses_kernel(img, "shi_tomasi"):
+        return shi_tomasi_response(img, block)
+    H, W = img.shape
+    dev = img.device
+    _lib.check("shi_tomasi", "img", img, (H, W), torch.float32, dev)
+    if block != 3:
+        raise ValueError(f"shi_tomasi: the CUDA kernel sums 3 x 3 blocks, "
+                         f"got {block}")
+    if H < 5 or W < 5:
+        raise ValueError(f"shi_tomasi: image {H}x{W} under 5x5")
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_shi_tomasi", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), H, W, device=dev)
+    shi_tomasi.launches += 1
+    return out
+
+
+shi_tomasi.launches = 0

@@ -1,14 +1,17 @@
 """Runtime: the per-frame step, the frame loop, init gate and drivers
-(feature-level replay and images -> poses)."""
+(feature-level replay, images -> poses, and the live OnlineDriver)."""
 
 from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
                                            SequenceDriver, batches_from_sim,
                                            bundle_imu)
-from rvio_tpu_torch.runtime.image_driver import run_rendered_sequence_scan
+from rvio_tpu_torch.runtime.image_driver import (ImagePipeline,
+                                                 run_rendered_sequence_scan)
+from rvio_tpu_torch.runtime.input_buffer import InputBuffer
+from rvio_tpu_torch.runtime.online import OnlineDriver
 from rvio_tpu_torch.runtime.step import (FrameBundle, make_filter_step,
                                          make_sequence_scan)
 
-__all__ = ["DriverResult", "FrameBundle", "InitializationGate",
-           "SequenceDriver", "batches_from_sim", "bundle_imu",
-           "make_filter_step", "make_sequence_scan",
+__all__ = ["DriverResult", "FrameBundle", "ImagePipeline", "InitializationGate",
+           "InputBuffer", "OnlineDriver", "SequenceDriver", "batches_from_sim",
+           "bundle_imu", "make_filter_step", "make_sequence_scan",
            "run_rendered_sequence_scan"]

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the port's per-frame path spends its time on a CUDA card.
 
-    python3 scripts/profile_torch_step.py [--image] [--frames 200] [--trace PATH]
+    python3 scripts/profile_torch_step.py [--image [--no-equalizer]]
+        [--frames 200] [--trace PATH]
 
 Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
 ``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
 feature-level filter.  With ``--image``: ``run_rendered_sequence_scan`` on
-the same workload's rendered 752 x 480 frames, images -> poses, equalizer
-off, with its front-end/back-end split.  Either runs once whole, timed on
+the same workload's rendered 752 x 480 frames, images -> poses at
+``RVIOConfig()`` (CLAHE on; ``--no-equalizer`` turns it off), with its
+front-end/back-end split.  Either runs once whole, timed on
 the host clock (each run ends in a readback), then a window of
 ``--frames`` frames under ``torch.profiler``.  Prints the card, the
 frames/s, the device busy time per frame and its share of the unprofiled
@@ -30,19 +32,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+# profiler names of the port's kernels (K13 is shi_kernel<true>)
 PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
-                "quadform_kernel", "gather_tiles_kernel", "lk_level_kernel",
-                "lk_finish_kernel", "subpix_kernel", "shi_nms_kernel")
+                "quadform_kernel", "clahe_luts_kernel", "clahe_apply_kernel",
+                "gather_tiles_kernel", "lk_level_kernel", "lk_finish_kernel",
+                "subpix_kernel", "shi_kernel<true>")
 
 
-def _image_runner(cfg, sim):
-    """``run(max_frames)``: images -> poses (equalizer off), timing split."""
+def _image_runner(cfg, sim, equalizer: bool):
+    """``run(max_frames)``: images -> poses, timing split."""
     import dataclasses
 
     from rvio_tpu_torch.runtime import run_rendered_sequence_scan
 
     cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(
-        cfg.tracker, enable_equalizer=False))
+        cfg.tracker, enable_equalizer=equalizer))
 
     def run(k_end=None):
         return run_rendered_sequence_scan(cfg, sim, device="cuda",
@@ -54,6 +58,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--image", action="store_true",
                     help="profile images -> poses instead of the filter")
+    ap.add_argument("--no-equalizer", action="store_true",
+                    help="with --image: CLAHE off (the PR 3 workload)")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
     a = ap.parse_args()
@@ -72,13 +78,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    print("workload: " + ("images -> poses, CLAHE "
+                          + ("off" if a.no_equalizer else "on")
+                          if a.image else "feature-level filter"), flush=True)
     _lib.build()
     cfg = RVIOConfig()
     sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,
                             ramp_time=5.0, seed=7, n_landmarks=2000,
                             motion_scale=0.8, meas_noise=0.001, imu_noise=True)
     if a.image:
-        run = _image_runner(cfg, sim)
+        run = _image_runner(cfg, sim, not a.no_equalizer)
     else:
         batches = batches_from_sim(sim)
         imu = (sim.imu_t, sim.imu_w, sim.imu_a)

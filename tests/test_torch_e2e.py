@@ -130,7 +130,8 @@ def test_entry_point_refuses_missing_cuda():
 
 
 @pytest.mark.parametrize("build", ["gate", "initial_state", "static_init",
-                                   "imu_block", "tracker", "image_driver"])
+                                   "imu_block", "tracker", "image_driver",
+                                   "image_pipeline", "online_driver"])
 def test_public_builders_default_to_cuda(build):
     """Every public function that makes tensors means CUDA by default and
     raises without it, as SequenceDriver does."""
@@ -138,7 +139,8 @@ def test_public_builders_default_to_cuda(build):
         pytest.skip("a CUDA device is present")
     from rvio_tpu_torch.filter.propagation import make_imu_block
     from rvio_tpu_torch.frontend import make_tracker
-    from rvio_tpu_torch.runtime import (InitializationGate,
+    from rvio_tpu_torch.runtime import (ImagePipeline, InitializationGate,
+                                        OnlineDriver,
                                         run_rendered_sequence_scan)
     from rvio_tpu_torch.state import make_initial_state, static_initialize
     z3 = np.zeros((4, 3))
@@ -154,14 +156,15 @@ def test_public_builders_default_to_cuda(build):
         "image_driver": lambda: run_rendered_sequence_scan(
             _image_cfg(), tsynthetic.simulate_sequence(
                 _image_cfg(), duration=1.0, static_time=0.5, seed=1)),
+        "image_pipeline": lambda: ImagePipeline(_image_cfg()),
+        "online_driver": lambda: OnlineDriver(_image_cfg()),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[build]()
 
 
 def _image_cfg():
-    return tconfig.RVIOConfig(tracker=tconfig.TrackerConfig(
-        enable_equalizer=False))
+    return tconfig.RVIOConfig()
 
 
 def test_wrappers_refuse_other_devices():

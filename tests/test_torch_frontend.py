@@ -4,6 +4,8 @@ Each port function (its plain path: CPU tensors) gets the same numpy
 inputs, made from a seed, as its JAX counterpart (the XLA oracle path,
 ``use_pallas=False`` where the JAX function has a Pallas branch).
 Tolerance: 1e-10 on values; masks, indices and slots must be identical.
+CLAHE also runs in f32, against the JAX function in f32, within 1e-3 gray
+(the two sum the CDF in other orders; bf16 LUT entries agree).
 """
 
 import jax
@@ -102,6 +104,40 @@ def test_distort_pairs():
     for f in ("distort_radtan", "undistort_radtan"):
         close(getattr(tund, f)(T(xy), **EUROC_DIST, k3=0.01),
               getattr(jund, f)(jnp.asarray(xy), **EUROC_DIST, k3=0.01))
+
+
+def _clahe_input(H, W, seed=0):
+    """tests/test_ops.py's CLAHE input (blocks of noise plus pixel noise in
+    [0, 255])."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(H // 8, W // 8))
+    img = np.kron(base, np.ones((8, 8)))[:H, :W]
+    img = (img - img.min()) / (img.max() - img.min()) * 230.0 + 10.0
+    img += rng.normal(size=img.shape) * 4.0
+    return np.clip(img, 0, 255)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-10), ("float32", 1e-3)])
+@pytest.mark.parametrize("shape", [(480, 752), (120, 130), (440, 750)])
+def test_clahe(shape, dtype, tol):
+    img = _clahe_input(*shape).astype(dtype)
+    ref = jimg.clahe(jnp.asarray(img), 3.0, 5, use_pallas=False)
+    got = timg.clahe(T(img), 3.0, 5)
+    assert got.dtype == getattr(torch, dtype)
+    close(got, ref, tol=tol)
+    if dtype == "float64":
+        # the row blend's fused product-sum rounds as the oracle's
+        # contraction does: bitwise, which the 1e-8 m images -> poses test
+        # over 32 frames needs (a 1-ulp image difference reaches a KLT slot)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_shi_tomasi_response_entry():
+    """The detector's public response (K12's plain path on the CPU)."""
+    for seed in (6, 7):
+        img = texture(seed, sigma=1.5)
+        close(tdet.shi_tomasi_response(T(img)),
+              jdet.shi_tomasi_response(jnp.asarray(img), use_pallas=False))
 
 
 def _masks_equal(got, ref):

@@ -1,9 +1,10 @@
 """The port's tracker and images -> poses driver against the JAX package.
 
 f64 on the CPU at the small image config of tests/test_tracker_images.py
-(320x240 frames, N = 40 slots, L = 8), equalizer off on both sides.  Both
-sides get the JAX chain's RANSAC draws: ``key, sub = jax.random.split(key)``
-then ``jax.random.uniform(sub, (N,))`` per frame.
+(320x240 frames, N = 40 slots, L = 8), with the equalizer (CLAHE) off and
+on, the same on both sides.  Both sides get the JAX chain's RANSAC draws:
+``key, sub = jax.random.split(key)`` then ``jax.random.uniform(sub, (N,))``
+per frame.
 
 - tracker: init_fn plus 12 track_fn frames on rendered frames; every
   TrackerState field, every UpdateBatch and the debug counters agree to
@@ -59,9 +60,11 @@ def jax_draws(seed, T, N):
     return np.stack(rows)
 
 
-@pytest.fixture(scope="module")
-def tracked():
-    jcfg, tcfg = _cfg(jconfig), _cfg(tconfig)
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["equalizer_off", "equalizer_on"])
+def tracked(request):
+    jcfg, tcfg = (_cfg(jconfig, request.param),
+                  _cfg(tconfig, request.param))
     sim = simulate_sequence(jcfg, duration=4.0, static_time=1.0, seed=5,
                             n_landmarks=300, motion_scale=0.6)
     groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
@@ -134,11 +137,6 @@ def test_update_batches_match_jax(tracked):
     assert np.mean([int(d["n_tracked"]) for *_x, d in frames[1:]]) > 10
 
 
-def test_equalizer_refused():
-    with pytest.raises(NotImplementedError, match="K10/K11"):
-        make_tracker(_cfg(tconfig, equalizer=True), device="cpu")
-
-
 def test_uniform_table_prefix():
     a = uniform_table(3, 5, 7)
     b = uniform_table(3, 9, 7)
@@ -147,8 +145,9 @@ def test_uniform_table_prefix():
     assert ((b >= 0) & (b < 1)).all()
 
 
-def test_images_to_poses_matches_jax():
-    jcfg, tcfg = _cfg(jconfig), _cfg(tconfig)
+@pytest.mark.parametrize("equalizer", [False, True])
+def test_images_to_poses_matches_jax(equalizer):
+    jcfg, tcfg = _cfg(jconfig, equalizer), _cfg(tconfig, equalizer)
     sim = simulate_sequence(jcfg, duration=6.0, static_time=1.0,
                             ramp_time=1.5, seed=6, n_landmarks=400,
                             motion_scale=0.5)
