@@ -14,8 +14,17 @@ operating point of ``RVIOConfig()`` (200 feature slots, 15-frame tracks,
 set to 0 just before it and read just after:
 
 - the feature-level filter, ``SequenceDriver`` on the simulator's tracks:
-  every filter kernel runs once per filtered frame, ATE below 0.05 m, and
-  the first 100 frames agree with the port's plain path on the CPU;
+  every filter kernel (K5 included) runs once per filtered frame, ATE
+  below 0.05 m, and the first 100 frames agree with the port's plain path
+  on the CPU, whose 100th frame gives the inputs of K5's check on a real
+  frame (and of a seeded case that takes the wider ridge);
+- the same with the unfused library chain called in K5's place (a
+  yardstick the port never runs on the card): the first 100 frames within
+  the card-vs-CPU limits of the K5 run, and the back-end time of the two
+  in turns;
+- the workload written as a EuRoC ASL folder (rendered u8 frames as PNG,
+  IMU and ground truth as CSV); the image paths below run on its
+  timestamps;
 - images -> poses, ``run_rendered_sequence_scan`` on rendered 752 x 480
   frames, with the equalizer off over the first 300 frames and with
   ``RVIOConfig()`` unmodified (CLAHE on) over the whole workload: every
@@ -28,7 +37,14 @@ set to 0 just before it and read just after:
   plain version;
 - the live entry point, ``OnlineDriver``, fed frame by frame over the
   first 200 tracked frames: frames/s, push-to-pose latency, no drops, and
-  the poses of the CLAHE-on run above (same seed, so the same draws).
+  the poses of the CLAHE-on run above (same seed, so the same draws);
+- the file replay, this slice's main path: ``python -m rvio_tpu_torch.run
+  --euroc`` on the folder (in process): every kernel of the image path and
+  K5 as often as the path implies, ATE below 0.05 m, the acceptance gates,
+  the two .dat files one line a frame; then the replay against the
+  rendered scan (300 frames, the same bytes), a bag of the first 200
+  frames against the folder, and a run saved after 100 of them and
+  resumed against the uninterrupted run.
 
 Output, in order: a device line, the build, one line per kernel check, the
 main-path lines, the card's name and power limit as nvidia-smi reports
@@ -39,10 +55,16 @@ that line; with no CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -74,6 +96,28 @@ IMG_OFF_FRAMES = 300
 # so any change of the computation shows.
 ONLINE_FRAMES = 200
 ONLINE_GAP_M = 1e-6
+# K5 against its plain version on the captured frame: the tolerance of
+# tests/test_ops.py::TestEkfTailKernel (2e-5 of the largest entry); H100
+# runs read 4.6e-7 to 6.5e-7
+EKF_TAIL_FRAME_TOL = 2e-5
+# the feature path with K5 and with the library chain in its place, timed
+# in turns: pairs of runs over the first frames
+TIMING_FRAMES = 300
+TIMING_PAIRS = 4
+# the file replay: the workload's timestamps in the ASL folder are
+# T0_NS + t ns (a start at 100 s keeps a float64 second exact to 1.4e-14 s,
+# so a bag's sec/nsec stamps and the CSV's ns give the same dt in f32);
+# threads that render and encode the folder's frames
+T0_NS = 100_000_000_000
+WRITE_THREADS = 6
+# the replay (flag off) against the rendered scan over these frames, the
+# bag and the resumed run against the folder over BAG_FRAMES, each saved
+# and resumed half-way.  The same frames (PNG is lossless), IMU and draws
+# in the same order on one card: 0 expected; the limit is a few float32
+# ulps of a position in meters, as for the live path
+REPLAY_SCAN_FRAMES = 300
+BAG_FRAMES = 200
+REPLAY_GAP_M = 1e-6
 # front-end acceptance gates of tests/test_flagship_image_ate.py:49-53
 ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
                 "gate_reject_rate": ("<", 0.50),
@@ -133,8 +177,9 @@ def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
     return float(torch.arcsin(torch.linalg.vector_norm(s, dim=-1).clamp(max=1.0)).max())
 
 
+TAIL_KERNEL = "ekf_tail"
 FILTER_KERNELS = ("propagate_block", "lm_triangulate", "jac_project",
-                  "batched_quadform")
+                  "batched_quadform", TAIL_KERNEL)
 EQUALIZER_KERNELS = ("clahe_luts", "clahe_apply")
 ENTRY_KERNELS = ("shi_tomasi", "gather_tiles_aligned")
 
@@ -143,15 +188,47 @@ def expected_launches(n: int, equalizer: bool = True) -> dict:
     """Launches of each kernel when the image path runs its init frame and
     n tracked frames: per frame K6 twice per pyramid level (4) plus once
     for the refill's subpix tiles, K8 once per level, K9 and K13 once for
-    the refill detection, K10 and K11 once with the equalizer on, and every
-    filter kernel once; the init frame's preprocessing and detection add
-    one K10, K11, K6, K9 and K13.  K12 and K7 are on no path."""
+    the refill detection, K10 and K11 once with the equalizer on, every
+    filter kernel (K5 included) once; the init frame's preprocessing and
+    detection add one K10, K11, K6, K9 and K13.  K12 and K7 are on no
+    path."""
     out = {name: n for name in FILTER_KERNELS}
     out.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
                shi_tomasi_nms=n + 1)
     out.update({name: n + 1 if equalizer else 0 for name in EQUALIZER_KERNELS})
     out.update(dict.fromkeys(ENTRY_KERNELS, 0))
     return out
+
+
+def measure(chk, label: str = "") -> dict:
+    """Kernel vs plain on the card (raises over the tolerance), the device
+    time per launch (a CUDA graph of 200), the eager call, the plain
+    version's and the library call's times, and the bound; prints them and
+    returns the kernel's record (launches 0 until a path sets them)."""
+    err = chk.check()
+    torch.cuda.synchronize()
+    nbytes = chk.bytes_read + chk.bytes_written
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = chk.flops / PEAK_F32_FLOP_PER_S * 1e3
+    ms = device_ms(chk.run_kernel, reps=200)
+    per_call_ms = call_ms(chk.run_kernel, reps=200)
+    plain_ms = call_ms(chk.run_plain, reps=10)
+    lib_ms = (call_ms(lambda: chk.library(*chk.args), reps=200)
+              if chk.library else None)
+    rec = dict(name=chk.name, route="cuda", source=chk.source,
+               replaces=chk.replaces, launches=0, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=lib_ms)
+    info = "".join(f", {k} {v}" for k, v in chk.info.items())
+    print(f"kernel {chk.name}{label}: err {err:.3e} (tolerance: "
+          f"{chk.tolerance}{info}); {ms * 1e3:.2f} us/launch on the device "
+          f"({per_call_ms * 1e3:.1f} us per eager call), plain "
+          f"{plain_ms * 1e3:.1f} us, library "
+          f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
+          f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}: "
+          f"{nbytes} B, {chk.flops:.3g} flop)", flush=True)
+    return rec
 
 
 def _zero(kernels) -> None:
@@ -164,8 +241,6 @@ def _launches(kernels) -> dict:
 
 
 def image_config(equalizer: bool):
-    import dataclasses
-
     from rvio_tpu_torch import RVIOConfig
     cfg = RVIOConfig()
     if equalizer:
@@ -356,6 +431,347 @@ def entries_phase(dev, sim, kernels, records, drv) -> None:
         raise AssertionError("a public entry disagrees with its plain version")
 
 
+def capture_tail_inputs(cfg, args, frame_t, batches):
+    """The feature path on the CPU plain path, keeping the inputs of the
+    last K5 call: a real frame's C, b, P and sigma^2.  Returns (result,
+    inputs)."""
+    from unittest import mock
+
+    import rvio_tpu_torch.filter.update as update
+    from rvio_tpu_torch.ops import ekf_tail as k5
+    from rvio_tpu_torch.runtime import SequenceDriver
+    captured = []
+
+    def record(*tail_args):
+        captured[:] = [a.detach().clone() for a in tail_args]
+        return k5.ekf_tail(*tail_args)
+
+    with mock.patch.object(update, "ekf_tail", record):
+        res = SequenceDriver(cfg, dtype=torch.float32,
+                             device="cpu").run(*args, frame_t, batches)
+    return res, [x[0].numpy() for x in captured]
+
+
+def ekf_tail_phase(dev, records, inputs) -> None:
+    """K5 on a real frame's inputs (its record: error, times, bound) and on
+    seeded inputs that take the wider ridge."""
+    from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
+                                           EKF_TAIL_FALLBACK_TOL,
+                                           ekf_tail_case,
+                                           ekf_tail_fallback_inputs)
+    C, b, P, sig2 = inputs
+    if not all(np.isfinite(x).all() for x in inputs):
+        raise AssertionError("the captured K5 inputs are not finite")
+    chk = ekf_tail_case(dev, C, b, P, sig2, tol=EKF_TAIL_FRAME_TOL,
+                        what="the feature path's frame 100")
+    rec = measure(chk, " (the feature path's frame 100, CPU plain path)")
+    for _, r in records:
+        if r["name"] == TAIL_KERNEL:
+            r.update(rec)
+    # what one K5 launch replaces: the unfused chain's device time (a CUDA
+    # graph of its launches, as K5's own time is taken) and its launches
+    from torch.profiler import ProfilerActivity, profile
+    lib_dev_ms = device_ms(lambda: chk.library(*chk.args), reps=200)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chk.library(*chk.args)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.count]
+    kern = sum(e.count for e in rows
+               if not e.key.startswith(("Memcpy", "Memset")))
+    copies = sum(e.count for e in rows) - kern
+    print(f"kernel {TAIL_KERNEL}: one launch replaces the unfused chain's "
+          f"{kern} kernel launches and {copies} copies/sets a call "
+          f"(torch.profiler), {lib_dev_ms * 1e3:.2f} us on the device (CUDA "
+          f"graph) against K5's {rec['ms'] * 1e3:.2f} us", flush=True)
+    fb = ekf_tail_case(dev, *ekf_tail_fallback_inputs(
+        np.random.default_rng(0)), tol=EKF_TAIL_FALLBACK_TOL,
+        what="seeded wider-ridge case",
+        scaled_tol=EKF_TAIL_FALLBACK_SCALED_TOL)
+    err = fb.check()
+    torch.cuda.synchronize()
+    if not (fb.info["fallback"] and bool(fb.run_kernel()[2].all())):
+        raise AssertionError("ekf_tail: the seeded case did not take the "
+                             "wider ridge")
+    print(f"kernel {TAIL_KERNEL} (seeded wider-ridge case): fallback taken "
+          f"by kernel and plain version, err {err:.3e}, P_new scaled by its "
+          f"diagonal {fb.info['P_new scaled by its diagonal']} (tolerance: "
+          f"{fb.tolerance})", flush=True)
+
+
+def library_chain_phase(dev, sim, batches, kernels, k5_run, k5_driver
+                        ) -> None:
+    """The feature path on the card with the unfused library chain called
+    in K5's place (a yardstick: the port never runs it on the card): K5
+    never launches, and the first frames stay within the card-vs-CPU
+    limits of the K5 run (two summation orders of one function); then the
+    back-end time of the two over the first TIMING_FRAMES frames, in turns
+    (chain, K5, K5, chain, ...)."""
+    from unittest import mock
+
+    import rvio_tpu_torch.filter.update as update
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail_plain
+    from rvio_tpu_torch.runtime import SequenceDriver
+
+    args = (sim.imu_t, sim.imu_w, sim.imu_a)
+    driver = SequenceDriver(RVIOConfig(), dtype=torch.float32, device=dev)
+
+    def chain_run(frame_t, bs):
+        with mock.patch.object(update, "ekf_tail", ekf_tail_plain):
+            return driver.run(*args, frame_t, bs)
+
+    chain_run(sim.frame_t[:100], batches[:100])   # warm-up: handles
+    _zero(kernels)
+    t0 = time.perf_counter()
+    res = chain_run(sim.frame_t, batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    n = len(res.timestamps)
+    want = dict.fromkeys(kernels, 0)
+    want.update(dict.fromkeys(FILTER_KERNELS, n))
+    want[TAIL_KERNEL] = 0
+    if launches != want or not np.array_equal(res.timestamps,
+                                              k5_run.timestamps):
+        raise AssertionError(f"library-chain feature path: launches "
+                             f"{launches} over {n} frames, expected {want}")
+    dp = float(np.abs(res.positions - k5_run.positions)[:CPU_FRAMES].max())
+    dq = rotation_gap(res.quaternions[:CPU_FRAMES],
+                      k5_run.quaternions[:CPU_FRAMES])
+    ate = ate_rmse(res.positions,
+                   sim.gt_p[np.searchsorted(sim.frame_t, res.timestamps)])
+    print(f"feature path with the library chain in K5's place: {n} frames, "
+          f"{n / wall:.1f} frames/s end to end, back-end "
+          f"{res.backend_ms.mean():.3f} ms/frame (K5 "
+          f"{k5_run.backend_ms.mean():.3f}), ATE {ate:.4f} m; first "
+          f"{CPU_FRAMES} frames against the K5 run: max position gap "
+          f"{dp:.3e} m (limit {CPU_GAP_POS_M}), attitude {dq:.3e} rad "
+          f"(limit {CPU_GAP_ROT_RAD}); wider ridge on "
+          f"{int(res.diag['ridge_fallback'].sum())} frames (K5 "
+          f"{int(k5_run.diag['ridge_fallback'].sum())}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD and ate < ATE_LIMIT_M
+            and np.isfinite(res.positions).all()):
+        raise AssertionError("the K5 and library-chain feature paths "
+                             "disagree")
+
+    k_end = int(np.searchsorted(sim.frame_t,
+                                res.timestamps[TIMING_FRAMES - 1])) + 1
+    runs = {False: chain_run,
+            True: lambda ft, bs: k5_driver.run(*args, ft, bs)}
+    ms = {False: [], True: []}
+    for k5 in (False, True) * (TIMING_PAIRS // 2) + (True, False) * (
+            TIMING_PAIRS // 2):
+        ms[k5].append(float(runs[k5](sim.frame_t[:k_end],
+                                     batches[:k_end]).backend_ms.mean()))
+    print(f"feature path back-end in turns over the first {TIMING_FRAMES} "
+          f"frames: library chain {[round(x, 3) for x in ms[False]]} "
+          f"ms/frame, K5 {[round(x, 3) for x in ms[True]]} ms/frame; medians "
+          f"{np.median(ms[False]):.3f} and {np.median(ms[True]):.3f}",
+          flush=True)
+
+
+def write_asl(root, cfg, sim):
+    """The workload as a EuRoC ASL folder (the layout of
+    tests/test_euroc_pipeline.py): every rendered u8 frame as a PNG, the
+    IMU and the ground truth as CSV, stamps T0_NS + t ns.  Returns the
+    folder loaded back (``load_euroc``) and the simulator's sequence on
+    those stamps (the same frames and IMU, so the rendered paths and the
+    replay see the same inputs)."""
+    from rvio_tpu_torch.dataio.euroc import load_euroc
+    from rvio_tpu_torch.dataio.png import write_png_gray
+    mav = os.path.join(root, "mav0")
+    for d in ("imu0", "cam0/data", "state_groundtruth_estimate0"):
+        os.makedirs(os.path.join(mav, d))
+
+    def ns(t):
+        return T0_NS + int(round(t * 1e9))
+
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for t, w, a in zip(sim.imu_t, sim.imu_w, sim.imu_a):
+            f.write(f"{ns(t)},{w[0]},{w[1]},{w[2]},{a[0]},{a[1]},{a[2]}\n")
+    with open(os.path.join(mav, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        f.writelines(f"{ns(t)},{ns(t)}.png\n" for t in sim.frame_t)
+    with open(os.path.join(mav, "state_groundtruth_estimate0", "data.csv"),
+              "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz\n")
+        for t, p in zip(sim.frame_t, sim.gt_p):
+            f.write(f"{ns(t)},{p[0]},{p[1]},{p[2]},1,0,0,0\n")
+
+    def frame(k):
+        write_png_gray(os.path.join(mav, "cam0", "data",
+                                    f"{ns(sim.frame_t[k])}.png"),
+                       _render_u8(cfg, sim, k))
+
+    with ThreadPoolExecutor(WRITE_THREADS) as pool:
+        list(pool.map(frame, range(len(sim.frame_t))))
+    seq = load_euroc(root)
+    if not (np.array_equal(seq.imu_w, sim.imu_w)
+            and np.array_equal(seq.imu_a, sim.imu_a)
+            and len(seq.cam_files) == len(sim.frame_t)):
+        raise AssertionError("the ASL folder does not read back")
+    return seq, dataclasses.replace(sim, imu_t=seq.imu_t, frame_t=seq.cam_t)
+
+
+def _init_frame(cfg, seq) -> int:
+    from rvio_tpu_torch.runtime import bundle_imu
+    from rvio_tpu_torch.runtime.image_driver import _find_init_frame
+    groups = bundle_imu(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t)
+    return _find_init_frame(cfg, groups, len(seq.cam_t), torch.float32,
+                            "cpu")[1]
+
+
+def replay_phase(dev, root, seq, kernels, records, tmp):
+    """The slice's main path: ``python -m rvio_tpu_torch.run --euroc`` on
+    the folder with ``RVIOConfig()``, in process.  Returns the run."""
+    from rvio_tpu_torch import run as cli
+    from rvio_tpu_torch.dataio.tum import read_tum
+    from rvio_tpu_torch.eval.ate import ate_rmse
+
+    out = os.path.join(tmp, "out")
+    _zero(kernels)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res = cli.run(["--euroc", root, "--output", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    for kernel, rec in records:
+        if rec["name"] == TAIL_KERNEL:
+            rec["launches"] = kernel.launches
+    n = len(res.timestamps)
+    gi = np.clip(np.searchsorted(seq.gt_t, res.timestamps), 0,
+                 len(seq.gt_t) - 1)
+    ate = ate_rmse(res.positions, seq.gt_p[gi])
+    acc = res.acceptance_stats()
+    usable = float(res.diag["n_usable"].mean())
+    t_dat = read_tum(os.path.join(out, "stamped_pose_ests.dat"))[0]
+    cost = np.loadtxt(os.path.join(out, "time_cost.dat"), ndmin=2)
+    fe, be = float(cost[:, 1].mean()), float(cost[:, 2].mean())
+    print(f"file replay (the run CLI, --euroc): {n} "
+          f"frames in {wall:.2f} s = {n / wall:.1f} frames/s end to end, "
+          f"{n / (wall - res.image_s):.1f} frames/s without the "
+          f"{res.image_s:.2f} s of PNG decode ({res.decoder} decoder); "
+          f"front-end {fe:.3f} ms/frame, back-end {be:.3f} ms/frame; ATE "
+          f"{ate:.4f} m (limit {ATE_LIMIT_M}); acceptance {json.dumps(acc)}, "
+          f"n_usable mean {usable:.1f}; wider ridge on "
+          f"{int(res.diag['ridge_fallback'].sum())} frames; launches "
+          f"{launches}", flush=True)
+    print("  the CLI printed: " + " | ".join(printed.getvalue().splitlines()),
+          flush=True)
+    want = expected_launches(n)
+    if launches != want:
+        raise AssertionError(f"file replay launches {launches}, expected "
+                             f"{want}")
+    if not (np.isfinite(res.positions).all() and ate < ATE_LIMIT_M):
+        raise AssertionError(f"file replay ATE {ate:.4f} m over {ATE_LIMIT_M}")
+    for key, (op, lim) in ACCEPT_GATES.items():
+        if not (acc[key] > lim if op == ">" else acc[key] < lim):
+            raise AssertionError(f"file replay {key} {acc[key]:.3f} fails "
+                                 f"{op} {lim}")
+    if not usable > N_USABLE_MIN:
+        raise AssertionError(f"n_usable mean {usable:.1f} <= {N_USABLE_MIN}")
+    # stamped_pose_ests.dat keeps nine decimals of a second
+    if not (len(t_dat) == n and np.abs(t_dat - res.timestamps).max() < 1e-9
+            and cost.shape == (n, 3)
+            and np.array_equal(cost[:, 0], np.arange(1, n + 1))):
+        raise AssertionError("the .dat files do not hold one line a frame")
+    return res
+
+
+def replay_checks(dev, seq, kernels, scan, tmp) -> None:
+    """The replay against the rendered scan (the same bytes); a bag of the
+    first frames against the folder; a run saved half-way and resumed
+    against the uninterrupted run."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.dataio.euroc import load_image
+    from rvio_tpu_torch.dataio.rosbag import (load_rosbag, serialize_image,
+                                              serialize_imu, write_rosbag)
+    from rvio_tpu_torch.runtime import run_euroc_sequence_scan
+
+    cfg = RVIOConfig()
+    k0 = _init_frame(cfg, seq)
+    m = REPLAY_SCAN_FRAMES
+    _zero(kernels)
+    rep = run_euroc_sequence_scan(cfg, seq, device=dev, max_frames=k0 + 1 + m)
+    launches = _launches(kernels)
+    agree = float((rep.active_slots == scan.active_slots[:m]).mean())
+    gap = float(np.abs(rep.positions - scan.positions[:m]).max())
+    print(f"file replay vs the rendered scan, first {m} "
+          f"frames: active slots agree on {agree:.4%} of slot-frames, max "
+          f"position gap {gap:.3e} m (limit {REPLAY_GAP_M})", flush=True)
+    if not (np.array_equal(rep.timestamps, scan.timestamps[:m])
+            and agree == 1.0 and gap <= REPLAY_GAP_M
+            and launches == expected_launches(m)):
+        raise AssertionError(f"the replay and the rendered scan disagree "
+                             f"(launches {launches})")
+
+    k_end = k0 + 1 + BAG_FRAMES
+    bag = os.path.join(tmp, "first.bag")
+    t_last = seq.cam_t[k_end - 1]
+    msgs = [("/imu0", b"sensor_msgs/Imu", float(t),
+             serialize_imu(i, float(t), w, a))
+            for i, (t, w, a) in enumerate(zip(seq.imu_t, seq.imu_w, seq.imu_a))
+            if t <= t_last]
+    msgs += [("/cam0/image_raw", b"sensor_msgs/Image", float(seq.cam_t[k]),
+              serialize_image(k, float(seq.cam_t[k]),
+                              load_image(seq.cam_files[k])))
+             for k in range(k_end)]
+    msgs.sort(key=lambda x: x[2])
+    write_rosbag(bag, msgs, chunk_count=20)
+    bseq = load_rosbag(bag)
+    ni = len(bseq.imu_t)
+    dt = max(float(np.abs(bseq.imu_t - seq.imu_t[:ni]).max()),
+             float(np.abs(bseq.cam_t - seq.cam_t[:k_end]).max()))
+    if not (np.array_equal(bseq.imu_w, seq.imu_w[:ni])
+            and np.array_equal(bseq.imu_a, seq.imu_a[:ni]) and dt < 1e-9):
+        raise AssertionError("the bag does not hold the folder's IMU stream")
+    # The two formats turn one ns stamp into float seconds by different
+    # roundings (sec + nsec 1e-9 against ns 1e-9, an ulp apart), and the
+    # workload's init gate sums frame spans to an exact 0.6 s boundary
+    # (runtime/driver.py InitializationGate), so the folder replay compared
+    # takes the bag's stamps: what differs is where frames and IMU come from.
+    seq = dataclasses.replace(seq, imu_t=bseq.imu_t, imu_w=seq.imu_w[:ni],
+                              imu_a=seq.imu_a[:ni], cam_t=bseq.cam_t,
+                              cam_files=seq.cam_files[:k_end])
+    folder = run_euroc_sequence_scan(cfg, seq, device=dev)
+    _zero(kernels)
+    from_bag = run_euroc_sequence_scan(cfg, bseq, device=dev)
+    tail = kernels[TAIL_KERNEL].launches
+    n = len(folder.timestamps)
+    gap_bag = float(np.abs(from_bag.positions - folder.positions).max())
+    ck = os.path.join(tmp, "session.npz")
+    half = k0 + 1 + BAG_FRAMES // 2
+    first = run_euroc_sequence_scan(cfg, seq, device=dev, max_frames=half,
+                                    checkpoint_path=ck)
+    second = run_euroc_sequence_scan(cfg, seq, device=dev, resume_from=ck)
+    both = np.concatenate([first.positions, second.positions])
+    gap_res = float(np.abs(both - folder.positions).max())
+    print(f"rosbag of the first {n} frames ({os.path.getsize(bag) >> 20} MiB, "
+          f"uncompressed): max position gap to the folder replay "
+          f"{gap_bag:.3e} m (limit {REPLAY_GAP_M}), stamps within "
+          f"{dt:.1e} s of the folder's, K5 launches {tail}; saved after "
+          f"{len(first.timestamps)} frames and resumed: max position gap to "
+          f"the uninterrupted run {gap_res:.3e} m (limit {REPLAY_GAP_M})",
+          flush=True)
+    if not (len(from_bag.timestamps) == n == BAG_FRAMES and tail == n
+            and np.array_equal(from_bag.timestamps, folder.timestamps)
+            and gap_bag <= REPLAY_GAP_M):
+        raise AssertionError("the bag replay and the folder replay disagree")
+    if not (len(first.timestamps) + len(second.timestamps) == n
+            and np.array_equal(np.concatenate([first.timestamps,
+                                               second.timestamps]),
+                               folder.timestamps)
+            and gap_res <= REPLAY_GAP_M):
+        raise AssertionError("the resumed run is not the uninterrupted run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -390,32 +806,7 @@ def main() -> int:
 
     # ---- kernel phase: kernel vs plain on the card, times, bounds ----
     dev = torch.device("cuda", 0)
-    records = []
-    for chk in kernel_checks(dev):
-        err = chk.check()
-        torch.cuda.synchronize()
-        nbytes = chk.bytes_read + chk.bytes_written
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = chk.flops / PEAK_F32_FLOP_PER_S * 1e3
-        ms = device_ms(chk.run_kernel, reps=200)
-        per_call_ms = call_ms(chk.run_kernel, reps=200)
-        plain_ms = call_ms(chk.run_plain, reps=10)
-        lib_ms = (call_ms(lambda: chk.library(*chk.args), reps=200)
-                  if chk.library else None)
-        rec = dict(name=chk.name, route="cuda", source=chk.source,
-                   replaces=chk.replaces, launches=0, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=lib_ms)
-        records.append((chk.kernel, rec))
-        info = "".join(f", {k} {v}" for k, v in chk.info.items())
-        print(f"kernel {chk.name}: err {err:.3e} (tolerance: {chk.tolerance}"
-              f"{info}); {ms * 1e3:.2f} us/launch on the device "
-              f"({per_call_ms * 1e3:.1f} us per eager call), plain "
-              f"{plain_ms * 1e3:.1f} us, library "
-              f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
-              f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}: "
-              f"{nbytes} B, {chk.flops:.3g} flop)", flush=True)
+    records = [(chk.kernel, measure(chk)) for chk in kernel_checks(dev)]
     kernels = {rec["name"]: kernel for kernel, rec in records}
 
     # ---- main path: SequenceDriver on the card, bench.py's workload ----
@@ -438,8 +829,8 @@ def main() -> int:
     launches = {name: kernels[name].launches for name in FILTER_KERNELS}
     if any(k.launches for name, k in kernels.items()
            if name not in FILTER_KERNELS):
-        raise AssertionError(f"the feature path launched image kernels: "
-                             f"{_launches(kernels)}")
+        raise AssertionError(f"the feature path launched kernels off its "
+                             f"path: {_launches(kernels)}")
     for kernel, rec in records:
         if rec["name"] in FILTER_KERNELS:
             rec["launches"] = kernel.launches
@@ -462,11 +853,12 @@ def main() -> int:
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate:.4f} m over {ATE_LIMIT_M} m")
 
-    # ---- the first frames again through the plain path on the CPU ----
+    # ---- the first frames again through the plain path on the CPU, which
+    # captures a frame's K5 inputs ----
     k_end = int(np.searchsorted(sim.frame_t, res.timestamps[CPU_FRAMES - 1])) + 1
     t0 = time.perf_counter()
-    cpu = SequenceDriver(cfg, dtype=torch.float32, device="cpu").run(
-        *args, sim.frame_t[:k_end], batches[:k_end])
+    cpu, tail_inputs = capture_tail_inputs(cfg, args, sim.frame_t[:k_end],
+                                           batches[:k_end])
     m = len(cpu.timestamps)
     if m != CPU_FRAMES or not np.array_equal(cpu.timestamps, res.timestamps[:m]):
         raise AssertionError("the CPU run filtered other frames")
@@ -478,11 +870,28 @@ def main() -> int:
     if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
         raise AssertionError("card kernel path and CPU plain path disagree")
 
-    image_phase(dev, sim, kernels, records, equalizer=False,
-                n_frames=IMG_OFF_FRAMES)
-    scan = image_phase(dev, sim, kernels, records, equalizer=True)
-    drv = online_phase(dev, sim, kernels, scan)
-    entries_phase(dev, sim, kernels, records, drv)
+    ekf_tail_phase(dev, records, tail_inputs)
+    library_chain_phase(dev, sim, batches, kernels, res, driver)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # set-up: the folder, and the native PNG loader built before the
+        # timed replay
+        from rvio_tpu_torch.dataio.native_loader import get_lib
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "asl")
+        seq, sim_f = write_asl(root, cfg, sim)
+        get_lib()
+        print(f"ASL folder: {len(seq.cam_files)} frames rendered and written "
+              f"as PNG in {time.perf_counter() - t0:.1f} s "
+              f"({WRITE_THREADS} threads)", flush=True)
+
+        image_phase(dev, sim_f, kernels, records, equalizer=False,
+                    n_frames=IMG_OFF_FRAMES)
+        scan = image_phase(dev, sim_f, kernels, records, equalizer=True)
+        drv = online_phase(dev, sim_f, kernels, scan)
+        entries_phase(dev, sim_f, kernels, records, drv)
+        replay_phase(dev, root, seq, kernels, records, tmp)
+        replay_checks(dev, seq, kernels, scan, tmp)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -16,11 +16,11 @@ window) also live here: they are baked into jitted programs, so changing them
 recompiles.
 
 In the PyTorch port the tensor's device, not the config, selects kernels:
-``tpu.use_pallas`` and ``tpu.klt_fused`` select nothing, and
-``tpu.parallel_propagation`` selects only the window-chain form
-(filter/update.window_pose_chain); IMU propagation always runs the
-sequential recursion.  ``tpu.ekf_tail_fused=True`` raises
-NotImplementedError until its kernel is ported.
+``tpu.use_pallas``, ``tpu.klt_fused`` and ``tpu.ekf_tail_fused`` select
+nothing, and ``tpu.parallel_propagation`` selects only the window-chain
+form (filter/update.window_pose_chain); IMU propagation always runs the
+sequential recursion.  The Cholesky compression and EKF core are always
+kernel K5 (ops/ekf_tail.py) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -227,12 +227,8 @@ class TpuConfig:
     # (parallel/handoff.py sets this to the warm-up length); nominal
     # static-init runs keep 0.
     adaptive_rampup_frames: int = 0
-    # Fused Pallas compression+EKF-core kernel (ops/ekf_tail.py).
-    # MEASURED NEGATIVE RESULT, kept as an option: in-kernel blocked
-    # Cholesky runs the tail in 45 us vs the XLA ops' 34.5 us in-context
-    # on v5e (XLA's 84x84 cholesky/solve lowerings are latency-lean), and
-    # under vmap the kernel serializes across the batch grid.  Off by
-    # default; full parity coverage in tests/test_ops.py.
+    # The JAX package's switch for its fused compression + EKF-core
+    # kernel; read from YAML, selects nothing here (K5 always runs on CUDA).
     ekf_tail_fused: bool = False
     donate_state: bool = True         # donate state buffers through the jitted step
 

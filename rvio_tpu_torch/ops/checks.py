@@ -26,6 +26,7 @@ import torch
 
 from rvio_tpu_torch.config import RVIOConfig
 from rvio_tpu_torch.core.so3 import rodrigues_np
+from rvio_tpu_torch.ops import ekf_tail as k5
 from rvio_tpu_torch.ops import jac_project as k3
 from rvio_tpu_torch.ops import lm_triangulate as k2
 from rvio_tpu_torch.ops import propagate_block as k1
@@ -820,11 +821,173 @@ def _aligned_tile_case(cfg, dev, rng) -> KernelCheck:
         F32 * N * th * tw, library=library)
 
 
+# --- the fused EKF tail (K5) -------------------------------------------------
+
+def _chol_flops(n: int) -> int:
+    """A lower Cholesky factorization: the lower half of each trailing
+    update (2 a entry), the column's divisions and the pivot's sqrt."""
+    w = np.arange(n)[::-1]            # trailing width after each pivot
+    return int((w * (w + 1) + w + 1).sum())
+
+
+def ekf_tail_flops(n: int, D: int, fallback: bool) -> int:
+    """Operations of K5 for one system, from the structure of its matrices:
+    the factor of C (twice where the wider ridge was taken), rn, the
+    triangular product Lc^T P[24:, :], the lower half of S and its factor,
+    the two triangular solves for K^T (D right-hand sides), dx, G^T = Lc K^T,
+    (I - K Hn) P through the n live columns of K Hn, and the lower half of
+    the Joseph form (two n-long sums a entry)."""
+    tri = n * (n + 1)                  # 2 x the entries of a triangle
+    k = np.arange(n)
+    return int(_chol_flops(n) * (2 if fallback else 1) + n * n + D * tri
+               + 2 * int(((n - k) ** 2).sum()) + n + _chol_flops(n)
+               + 2 * D * n * n + 2 * n * D + D * tri + 2 * n * D * D
+               + (D * (D + 1) // 2) * (4 * n + 2))
+
+
+def ekf_tail_bytes(n: int, D: int) -> tuple:
+    """(read, written) bytes of K5 for one system: the lower triangle of C
+    (all a factorization reads), b, the upper triangle of P (the kernel
+    takes P's symmetry), sig2; dx, P_new whole and the fallback flag."""
+    return (F32 * (n * (n + 1) // 2 + n + D * (D + 1) // 2 + 1),
+            F32 * (D + D * D) + 1)
+
+
+# kernel vs plain on the inputs that take the wider ridge, whose factor of
+# C + 1e-5 tr(C) I has a condition number near 1e5: H100 runs read
+# 2.3e-5 to 3.1e-5 of the largest entry (chip_smoke.py), under a limit of
+# about 20x the f32 rounding such a factor amplifies.
+EKF_TAIL_FALLBACK_TOL = 5e-4
+# P_new's error scaled entry by entry by sqrt(P_new[i, i] P_new[j, j]) of
+# the plain version, so that the small, well-observed blocks count as much
+# as the largest: the error relative to the largest entry can miss a fault
+# there (on the seeded stack a P_new without sig2 K K^T stays within 2e-5
+# of the largest entry and is over 0.5 away scaled:
+# tests/test_torch_ekf_tail.py).  H100 runs of kernel vs plain read
+# 1.0e-6 on the feature path's frame 100 (chip_smoke.py), 4.9e-4 to
+# 8.7e-4 on ten seeded stacks and 5.2e-5 to 5.4e-3 on ten seeded
+# wider-ridge cases, whose factor is conditioned near 1e5
+# (scripts/kernel_margins.py).
+EKF_TAIL_SCALED_TOL = 1e-2
+EKF_TAIL_FALLBACK_SCALED_TOL = 5e-2
+
+
+def scaled_cov_err(Pk: np.ndarray, Pp: np.ndarray) -> float:
+    """max |Pk - Pp| / sqrt(Pp_ii Pp_jj) over the entries whose diagonals
+    are positive (the rest, a dead clone's zero rows, are held by the
+    absolute comparison)."""
+    d = np.sqrt(np.clip(np.diagonal(Pp, axis1=-2, axis2=-1), 0.0, None))
+    den = d[..., :, None] * d[..., None, :]
+    live = den > 0
+    if not live.any():
+        return 0.0
+    return float((np.abs(Pk - Pp)[live] / den[live]).max())
+
+
+def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
+                  scaled_tol: float = EKF_TAIL_SCALED_TOL) -> KernelCheck:
+    """K5 on one system (numpy f32 arrays C (n, n), b (n,), P (D, D) and
+    the scalar sig2): kernel vs plain on the same inputs, the fallback
+    flags equal, NaN where the plain version is NaN, dx and P_new within
+    ``tol`` of their largest entry, and P_new within ``scaled_tol`` of its
+    diagonal's scale (:func:`scaled_cov_err`).  The library yardstick is
+    the unfused chain (``cholesky_tail``), which the plain version runs."""
+    n, D = C.shape[0], P.shape[0]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32)[None], device=dev)
+
+    args = (t(C), t(b), t(P), t(np.float32(sig2)))
+    fallback = bool(k5.ekf_tail_plain(*(a.cpu() for a in args))[2][0])
+    info = {"fallback": fallback}
+
+    def compare(ko, po):
+        (dk, Pk, fk), (dp, Pp, fp) = ([_np(x) for x in o] for o in (ko, po))
+        if not np.array_equal(fk, fp):
+            raise AssertionError(f"ekf_tail: fallback flags {fk} (kernel) vs "
+                                 f"{fp} (plain)")
+        for x, y, name in ((dk, dp, "dx"), (Pk, Pp, "P_new")):
+            if not np.array_equal(np.isnan(x), np.isnan(y)):
+                raise AssertionError(f"ekf_tail: {name} NaN where the plain "
+                                     f"version is not, or the reverse")
+        if np.isnan(dp).all():
+            return 0.0
+        err = max(np.abs(dk - dp).max() / np.abs(dp).max(),
+                  np.abs(Pk - Pp).max() / np.abs(Pp).max())
+        if not err <= tol:
+            _fail("ekf_tail", "dx/P_new max abs relative to the largest entry",
+                  err, tol)
+        scaled = scaled_cov_err(Pk, Pp)
+        info["P_new scaled by its diagonal"] = f"{scaled:.3e}"
+        if not scaled <= scaled_tol:
+            _fail("ekf_tail", "P_new error scaled by sqrt(P_ii P_jj)", scaled,
+                  scaled_tol)
+        return float(err)
+
+    def library(C, b, P, sig2):
+        return k5.cholesky_tail(C[0], b[0], P[0], sig2[0])
+
+    read, written = ekf_tail_bytes(n, D)
+    return KernelCheck(
+        "ekf_tail", "rvio_tpu_torch/csrc/ekf_tail.cu",
+        "rvio_tpu/ops/ekf_tail.py:256", k5.ekf_tail, k5.ekf_tail_plain, args,
+        {}, f"{what}: fallback identical, NaN identical, dx and P_new max abs "
+        f"{tol:.0e} of their largest entry, P_new {scaled_tol:.0e} scaled by "
+        f"its diagonal", compare,
+        float(ekf_tail_flops(n, D, fallback)), read, written, library=library,
+        info=info)
+
+
+def ekf_tail_stack(rng, M: int, n_rows: int, masked_frac: float = 0.5,
+                   dead_clones: int = 0, sig2: float = 2.3e-6):
+    """The inputs of tests/test_ops.py::TestEkfTailKernel: C and b from a
+    random row stack of which the last ``masked_frac`` is gate-masked to
+    zero, a random SPD P, and ``dead_clones`` trailing clones with zero
+    columns in H and zero rows and columns in P (the growth phase), f32."""
+    CM, D = 6 * M, 24 + 6 * M
+    H = rng.normal(size=(n_rows, CM)).astype(np.float32) * 0.5
+    if dead_clones:
+        H[:, CM - 6 * dead_clones:] = 0.0
+    live = int(n_rows * (1 - masked_frac))
+    H[live:] = 0.0
+    r = (rng.normal(size=n_rows) * 0.01).astype(np.float32)
+    r[live:] = 0.0
+    A = rng.normal(size=(D, D)) * 0.02
+    P = np.asarray(A @ A.T + np.eye(D) * 1e-4, np.float32)
+    if dead_clones:
+        P[D - 6 * dead_clones:, :] = 0.0
+        P[:, D - 6 * dead_clones:] = 0.0
+    return H.T @ H, H.T @ r, P, np.float32(sig2)
+
+
+def ekf_tail_fallback_inputs(rng, n: int = 84, rows: int = 40):
+    """Inputs on which K5 must take the wider ridge: C = A^T A of ``rows``
+    < n rows with two collinear dominant columns (as three accepted
+    features give), minus 1e-6 tr(C) along one direction of its null space,
+    the rounding loss that makes a pivot of the 1e-8 ridge's factor
+    negative, made large enough that every summation order fails there and
+    that the n eps ridge (1e-5 tr(C) at n = 84) succeeds; the stack's b, a
+    random SPD P and the operating point's sig2, all f32."""
+    A = rng.normal(size=(rows, n))
+    A[:, 1] = 1.5 * A[:, 0]
+    A[:, :2] *= 30.0
+    v = np.linalg.svd(A)[2][-1]              # a null direction of A
+    C = A.T @ A
+    C -= 1e-6 * np.trace(C) * np.outer(v, v)
+    r = rng.normal(size=rows) * 0.01
+    D = 24 + n
+    G = rng.normal(size=(D, D)) * 0.02
+    P = G @ G.T + np.eye(D) * 1e-4
+    return (np.float32(C), np.float32(A.T @ r), np.float32(P),
+            np.float32(2.3e-6))
+
+
 def kernel_checks(device, seed: int = 0) -> List[KernelCheck]:
     """One check per kernel: the filter step's, in the order it runs them,
     then the image front-end's, then (drawing later from the same seeded
-    stream, so the earlier checks keep their inputs) the equalizer's, K12
-    and K7."""
+    stream, so the earlier checks keep their inputs) the equalizer's, K12,
+    K7 and K5 (the flagship case of tests/test_ops.py::TestEkfTailKernel:
+    M = 14, 3000 rows, half of them masked, at its tolerance)."""
     cfg = RVIOConfig()
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
@@ -833,4 +996,6 @@ def kernel_checks(device, seed: int = 0) -> List[KernelCheck]:
             _tile_case(cfg, dev, rng), _lk_case(cfg, dev, rng),
             _subpix_case(cfg, dev, rng), _shi_nms_case(cfg, dev, rng),
             _clahe_luts_case(cfg, dev, rng), _clahe_apply_case(cfg, dev, rng),
-            _shi_case(cfg, dev, rng), _aligned_tile_case(cfg, dev, rng)]
+            _shi_case(cfg, dev, rng), _aligned_tile_case(cfg, dev, rng),
+            ekf_tail_case(dev, *ekf_tail_stack(rng, cfg.window_size, 3000),
+                          tol=2e-5, what="seeded stack")]

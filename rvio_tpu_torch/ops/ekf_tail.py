@@ -1,0 +1,156 @@
+"""K5: the MSCKF update's dense tail (compression + EKF core) in one launch.
+
+Replaces rvio_tpu/ops/ekf_tail.py (``ekf_tail_pallas``,
+``_ekf_tail_kernel``); CUDA source ``csrc/ekf_tail.cu``.  After the masked
+row stack Hw, ro of the accepted features, with C = Hw^T Hw and
+b = Hw^T ro formed outside (as the JAX package forms them outside its
+kernel), the tail is: the lower Cholesky factor Lc of C plus a ridge,
+rn = Lc^-1 b and Hn = [0 | Lc^T] (Updater.cc:460-536); S = Hn P Hn^T +
+sig2 I, K = P Hn^T S^-1, dx = K rn and the Joseph-form
+P_new = (I - K Hn) P (I - K Hn)^T + sig2 K K^T (Updater.cc:538-619).
+
+Inputs carry a leading batch axis B (B = 1 for one filter): C (B, n, n),
+b (B, n), P (B, D, D) with D = 24 + n, sig2 (B,).  Returns (dx (B, D),
+P_new (B, D, D), fallback (B,) bool).  ``fallback`` says that the factor
+took the wider ridge (see :func:`info_cholesky`).
+
+The function is the port's unfused Cholesky chain, :func:`cholesky_tail`;
+the plain version runs it once per batch entry.  The filter's Cholesky
+branch always calls :func:`ekf_tail`, so the tensor's device picks the
+kernel or the chain (``tpu.ekf_tail_fused`` selects nothing).  The JAX
+package launches its kernel only on a TPU in f32; elsewhere its flag runs
+the same unfused chain, which is therefore the reference.
+
+Bound on the H100 at the operating point (B = 1, n = 84, D = 108, f32): the
+call moves about 85 KB and needs about 8 MFLOP (ops/checks.ekf_tail_flops),
+0.03 us and 0.12 us at the card's peaks, far below the latency of its two
+84-step factorizations and two 84-step triangular solves; the design
+(csrc/ekf_tail.cu) keeps every intermediate in one block's shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from rvio_tpu_torch.ops import _lib
+
+_LIB = "ekf_tail"
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+
+# The JAX package's ridge on the information matrix, relative to its trace
+# (rvio_tpu/filter/update.py:738).
+INFO_RIDGE = 1e-8
+# error-state entries before the clone block
+NX = 24
+# the largest n whose intermediates fit in one block's shared memory on the
+# H100 (227 KB; csrc/ekf_tail.cu smem_bytes and NMAX)
+NMAX = 92
+
+
+def info_cholesky(C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower Cholesky factor of the information matrix C (n x n) plus a
+    ridge, and whether the wider ridge was needed (a 0-d bool tensor).
+
+    The ridge is the JAX package's 1e-8 * max(trace C, 1), and the factor
+    is the JAX function's wherever that factorization succeeds.  Only where
+    it fails does the factor take n eps * max(trace C, 1): in f32 a C of
+    low rank (three accepted features) can lose more than 1e-8 of its trace
+    to rounding, so a pivot turns negative and the JAX function's update is
+    NaN.  Both factorizations run and ``torch.where`` picks, so nothing is
+    read back; in f64 (n eps about 2e-14) the second one never runs.  A
+    factor that fails both ways is NaN, as in the JAX package."""
+    n = C.shape[-1]
+    eye = torch.eye(n, dtype=C.dtype, device=C.device)
+    scale = torch.clamp(torch.trace(C), min=1.0)
+    L, info = torch.linalg.cholesky_ex(C + (INFO_RIDGE * scale) * eye)
+    fallback = info != 0
+    wide = n * torch.finfo(C.dtype).eps
+    if wide > INFO_RIDGE:
+        L2, info2 = torch.linalg.cholesky_ex(C + (wide * scale) * eye)
+        L = torch.where(fallback, L2, L)
+        info = torch.where(fallback, info2, info)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return L, fallback
+
+
+def nan_cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, all-NaN where the factorization fails (the
+    JAX package's semantics; torch.linalg.cholesky would raise, and on CUDA
+    read the status back to the host)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
+
+
+def ekf_correction(P: torch.Tensor, Hn_cl: torch.Tensor, rn: torch.Tensor,
+                   sig2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The EKF core for a compressed system (Updater.cc:538-619): the
+    correction dx and the symmetrized Joseph-form covariance, given the
+    clone-block rows Hn_cl (k, D - 24), rn (k,) and the variance sig2."""
+    dtype, dev = P.dtype, P.device
+    D = P.shape[-1]
+    Hn = torch.cat([torch.zeros(Hn_cl.shape[0], NX, dtype=dtype, device=dev),
+                    Hn_cl], dim=1)                     # (k, D)
+    PHt = P @ Hn.T                                     # (D, k)
+    S = Hn @ PHt + sig2 * torch.eye(Hn.shape[0], dtype=dtype, device=dev)
+    S = 0.5 * (S + S.T)
+    K = torch.cholesky_solve(PHt.T, nan_cholesky(S)).T  # (D, k)
+    dx = K @ rn
+    I_KH = torch.eye(D, dtype=dtype, device=dev) - K @ Hn
+    P_new = I_KH @ P @ I_KH.T + sig2 * (K @ K.T)
+    return dx, 0.5 * (P_new + P_new.T)
+
+
+def cholesky_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor, sig2
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unfused chain for one system: information-form compression
+    (C = Lc Lc^T, Hn = Lc^T, rn = Lc^-1 b) and the EKF core.  Returns
+    (dx (D,), P_new (D, D), fallback 0-d bool)."""
+    Lc, fallback = info_cholesky(C)
+    rn = torch.linalg.solve_triangular(Lc, b[:, None], upper=False)[:, 0]
+    dx, P_new = ekf_correction(P, Lc.T, rn, sig2)
+    return dx, P_new, fallback
+
+
+def ekf_tail_plain(C, b, P, sig2):
+    """Plain version: :func:`cholesky_tail` for each batch entry."""
+    outs = [cholesky_tail(C[i], b[i], P[i], sig2[i]) for i in range(C.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
+             sig2: torch.Tensor):
+    """(dx, P_new, fallback) for B systems (see the module docstring).
+
+    A CUDA tensor runs the kernel (f32 only; n up to NMAX, so that a
+    block's intermediates fit in shared memory, else it raises); a CPU
+    tensor the plain version."""
+    if not _lib.uses_kernel(C, "ekf_tail"):
+        return ekf_tail_plain(C, b, P, sig2)
+    B, n = C.shape[0], C.shape[-1]
+    if not 1 <= n <= NMAX:
+        raise ValueError(f"ekf_tail: n = {n} (6 x the window's clones); the "
+                         f"kernel takes 1 <= n <= {NMAX}")
+    D = NX + n
+    dev = C.device
+    f32 = torch.float32
+    name = "ekf_tail"
+    _lib.check(name, "C", C, (B, n, n), f32, dev)
+    _lib.check(name, "b", b, (B, n), f32, dev)
+    _lib.check(name, "P", P, (B, D, D), f32, dev)
+    _lib.check(name, "sig2", sig2, (B,), f32, dev)
+    dx = torch.empty(B, D, dtype=f32, device=dev)
+    P_new = torch.empty(B, D, D, dtype=f32, device=dev)
+    fallback = torch.empty(B, dtype=torch.bool, device=dev)
+    fn = _lib.function(_LIB, "rvio_ekf_tail", _ARGS)
+    _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (C, b, P, sig2, dx, P_new,
+                                                fallback)),
+              B, n, device=dev)
+    ekf_tail.launches += 1
+    return dx, P_new, fallback
+
+
+ekf_tail.launches = 0

@@ -1,10 +1,14 @@
 """Runtime: the per-frame step, the frame loop, init gate and drivers
-(feature-level replay, images -> poses, and the live OnlineDriver)."""
+(feature-level replay, images -> poses on rendered or replayed frames, the
+live OnlineDriver) and the session checkpoint."""
 
 from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
                                            SequenceDriver, batches_from_sim,
                                            bundle_imu)
+from rvio_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from rvio_tpu_torch.runtime.image_driver import (ImagePipeline,
+                                                 run_euroc_sequence,
+                                                 run_euroc_sequence_scan,
                                                  run_rendered_sequence_scan)
 from rvio_tpu_torch.runtime.input_buffer import InputBuffer
 from rvio_tpu_torch.runtime.online import OnlineDriver
@@ -13,5 +17,6 @@ from rvio_tpu_torch.runtime.step import (FrameBundle, make_filter_step,
 
 __all__ = ["DriverResult", "FrameBundle", "ImagePipeline", "InitializationGate",
            "InputBuffer", "OnlineDriver", "SequenceDriver", "batches_from_sim",
-           "bundle_imu", "make_filter_step", "make_sequence_scan",
-           "run_rendered_sequence_scan"]
+           "bundle_imu", "load_checkpoint", "make_filter_step",
+           "make_sequence_scan", "run_euroc_sequence", "run_euroc_sequence_scan",
+           "run_rendered_sequence_scan", "save_checkpoint"]

@@ -3,13 +3,16 @@
 Port of rvio_tpu/runtime/image_driver.py (the reference node's per-image
 callback chain, rvio_mono.cc:54-79 -> System::MonoVIO, System.cc:173-437):
 
-- the chunked replay, ``run_rendered_sequence_scan``: frames are rendered
-  on the host, copied to the device a chunk at a time as u8 with that
-  chunk's IMU blocks and RANSAC draws, and each frame runs ``track_fn``
-  then the filter step.  The frame loop reads nothing back; each chunk's
-  outputs come back in one go;
-- the per-frame ``ImagePipeline`` the live driver (runtime/online.py)
-  feeds: one frame in, one packed pose vector out.
+- the chunked replay: frames come to the host (rendered by the simulator,
+  ``run_rendered_sequence_scan``, or read from an EuRoC ASL folder or a
+  rosbag, ``run_euroc_sequence_scan``), are copied to the device a chunk at
+  a time as u8 with that chunk's IMU blocks and RANSAC draws, and each
+  frame runs ``track_fn`` then the filter step.  The frame loop reads
+  nothing back; each chunk's outputs come back in one go.  A file replay
+  can save the session after its last chunk and resume from it
+  (runtime/checkpoint.py);
+- the per-frame ``ImagePipeline`` the live driver (runtime/online.py) and
+  ``run_euroc_sequence`` feed: one frame in, one packed pose vector out.
 
 RANSAC draws: the JAX package splits a ``jax.random`` key per frame, a
 stream torch cannot reproduce.  Here a run draws one (T, N) table of
@@ -18,12 +21,12 @@ i-th frame of the loop, so a card run and a CPU run with one seed use the
 same hypotheses; ``uniforms`` replaces the table (the tests pass the JAX
 chain's draws through it).
 
-Not carried yet: checkpoint save/resume, the EuRoC file replay and the
-photometric stress option.
+Not carried yet: the photometric stress option.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 from dataclasses import fields, replace
 from typing import Optional
@@ -36,13 +39,14 @@ from rvio_tpu_torch.device import resolve_device
 from rvio_tpu_torch.filter.propagation import ImuBlock, pad_imu, propagate
 from rvio_tpu_torch.frontend.tracker import make_tracker
 from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
-                                           bundle_imu)
+                                           bundle_imu, landmark_cloud)
 from rvio_tpu_torch.runtime.step import FrameBundle, make_filter_step
 
 # per-frame acceptance counters (see DriverResult.acceptance_stats)
 _DIAG_KEYS = ("n_tracked", "n_lost", "n_new", "n_usable", "tl_good_sum",
               "ridge_fallback")
 _POSE_KEYS = ("p_Gk", "q_kG", "v_k", "n_good")
+_LANDMARK_KEYS = ("landmarks", "landmark_ok", "rho")
 
 
 def _find_init_frame(cfg: RVIOConfig, groups, n: int, dtype, device):
@@ -94,6 +98,19 @@ def uniform_table(seed: int, T: int, N: int) -> torch.Tensor:
     return torch.stack(rows) if rows else torch.zeros((0, N), dtype=torch.float64)
 
 
+def _draw_table(seed: int, uniforms, T: int, N: int, start: int = 0):
+    """The (T, N) draws of a run's T frames: rows ``start:start + T`` of
+    :func:`uniform_table` of ``seed``, or the first T rows of
+    ``uniforms``."""
+    if uniforms is None:
+        return uniform_table(seed, start + T, N)[start:]
+    table = torch.as_tensor(np.asarray(uniforms, np.float64))
+    if table.shape[0] < T or table.shape[1:] != (N,):
+        raise ValueError(f"uniforms has shape {tuple(table.shape)}; the run "
+                         f"needs ({T}, {N})")
+    return table
+
+
 def _select(ok: torch.Tensor, new, old):
     """``new`` where the 0-d bool ``ok`` holds, else ``old``, field by field
     (a TrackerState or FilterState), without a host sync."""
@@ -113,8 +130,9 @@ def _sync(device: torch.device) -> None:
 
 def _replay_chunks(cfg: RVIOConfig, device, dtype, chunk_size: int, table,
                    groups, cam_t, frame_ids, track_fn, tracker_state,
-                   filter_state, get_images, timing_split: bool
-                   ) -> DriverResult:
+                   filter_state, get_images, timing_split: bool,
+                   checkpoint_path: Optional[str] = None,
+                   draws=None) -> DriverResult:
     """The chunked replay loop.
 
     With ``timing_split`` each chunk runs the tracker over its frames, then
@@ -123,16 +141,24 @@ def _replay_chunks(cfg: RVIOConfig, device, dtype, chunk_size: int, table,
     time_cost.dat (System.cc:376-379).  Otherwise the two alternate per
     frame and the chunk's whole time goes to the back-end column.  Frames
     with ``ok`` False leave both states untouched (``torch.where``).
+
+    ``checkpoint_path``: save the session (filter, tracker, draws, frame
+    cursor) after the last chunk; ``draws`` is (seed, row of ``table[0]``)
+    where the table comes from a seed, None where it was given.
     """
     K = cfg.tpu.imu_block
     step = make_filter_step(cfg, device, dtype)
     ts, fs = tracker_state, filter_state
     rows = []
+    image_s = 0.0
     for c0 in range(0, len(frame_ids), chunk_size):
         ks = frame_ids[c0:c0 + chunk_size]
         B = len(ks)
         ch = _imu_chunk_arrays(groups, ks, K, dtype, device)
-        images = torch.as_tensor(get_images(ks)).to(device)
+        t_img = time.perf_counter()
+        images = get_images(ks)
+        image_s += time.perf_counter() - t_img
+        images = torch.as_tensor(images).to(device)
         u = table[c0:c0 + B].to(device=device, dtype=dtype)
         ok = ch["ok"]
 
@@ -173,8 +199,8 @@ def _replay_chunks(cfg: RVIOConfig, device, dtype, chunk_size: int, table,
         _sync(device)
         t2 = time.perf_counter()
         host = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                for k in _POSE_KEYS + ("n_usable", "tl_good_sum",
-                                       "ridge_fallback")}
+                for k in _POSE_KEYS + _LANDMARK_KEYS + (
+                    "n_usable", "tl_good_sum", "ridge_fallback")}
         host.update({k: torch.stack([d[k] for d in dbgs]).cpu().numpy()
                      for k in ("n_tracked", "n_lost", "n_new")})
         host["active"] = torch.stack(actives).cpu().numpy()
@@ -186,15 +212,26 @@ def _replay_chunks(cfg: RVIOConfig, device, dtype, chunk_size: int, table,
                 rows.append((cam_t[k], host["p_Gk"][i], host["q_kG"][i],
                              host["v_k"][i], int(host["n_good"][i]), fe_ms,
                              be_ms, {d: int(host[d][i]) for d in _DIAG_KEYS},
-                             host["active"][i]))
+                             host["active"][i],
+                             tuple(host[x][i] for x in _LANDMARK_KEYS)))
+    if checkpoint_path and frame_ids:
+        from rvio_tpu_torch.runtime.checkpoint import save_checkpoint
+        last = frame_ids[-1]
+        save_checkpoint(checkpoint_path, fs, tracker_state=ts,
+                        draws=None if draws is None else
+                        (draws[0], draws[1] + len(frame_ids)),
+                        frame_cursor=last, timestamp=float(cam_t[last]))
     if not rows:
         raise RuntimeError("no frames processed")
-    t, p, q, v, g, fe, be, dg, act = zip(*rows)
+    t, p, q, v, g, fe, be, dg, act, lm = zip(*rows)
     diag = {k: np.asarray([d[k] for d in dg]) for k in _DIAG_KEYS}
+    cloud = dict(zip(_LANDMARK_KEYS, (np.asarray(x) for x in zip(*lm))),
+                 p_Gk=np.asarray(p), q_kG=np.asarray(q))
     return DriverResult(np.asarray(t), np.asarray(p), np.asarray(q),
                         np.asarray(v), np.asarray(g), np.asarray(fe),
-                        np.asarray(be), diag=diag,
-                        active_slots=np.asarray(act))
+                        np.asarray(be), landmarks=landmark_cloud(cfg, cloud),
+                        diag=diag, active_slots=np.asarray(act),
+                        image_s=image_s)
 
 
 def run_rendered_sequence_scan(cfg: RVIOConfig, sim, dtype=torch.float32,
@@ -227,14 +264,8 @@ def run_rendered_sequence_scan(cfg: RVIOConfig, sim, dtype=torch.float32,
 
     tracker_state, _ = init_fn(torch.as_tensor(render_u8(k0)))
     frame_ids = list(range(k0 + 1, n))
-    N = cfg.tracker.num_features
-    if uniforms is None:
-        table = uniform_table(seed, len(frame_ids), N)
-    else:
-        table = torch.as_tensor(np.asarray(uniforms, np.float64))
-        if table.shape[0] < len(frame_ids) or table.shape[1:] != (N,):
-            raise ValueError(f"uniforms has shape {tuple(table.shape)}; the "
-                             f"run needs ({len(frame_ids)}, {N})")
+    table = _draw_table(seed, uniforms, len(frame_ids),
+                        cfg.tracker.num_features)
 
     def get_images(ks):
         return np.stack([render_u8(k) for k in ks])
@@ -242,6 +273,172 @@ def run_rendered_sequence_scan(cfg: RVIOConfig, sim, dtype=torch.float32,
     return _replay_chunks(cfg, device, dtype, chunk_size, table, groups,
                           sim.frame_t, frame_ids, track_fn, tracker_state,
                           filter_state, get_images, timing_split)
+
+
+class _FrameReader:
+    """The frames of a replayed sequence as (B, H, W) u8 host arrays: a
+    bag's frames (decoded when the bag was loaded), or an ASL folder's PNGs
+    through the native batch loader (threaded C++, native/dataloader.cpp),
+    or, where that cannot be built, the pure-python codec.  ``decoder``
+    names the choice (DriverResult.decoder)."""
+
+    def __init__(self, seq, n_threads: int = 2):
+        self.mem = getattr(seq, "images", None)
+        self.files = getattr(seq, "cam_files", None)
+        self.loader = None
+        if self.mem is not None:
+            self.decoder = "bag"
+            return
+        from rvio_tpu_torch.dataio.native_loader import BatchLoader
+        try:
+            self.loader = BatchLoader(n_threads=n_threads)
+            self.decoder = "native"
+        except (OSError, subprocess.CalledProcessError) as e:
+            self.decoder = f"python (native loader not built: {e})"
+
+    def one(self, k: int) -> np.ndarray:
+        if self.mem is not None:
+            return self.mem[k]
+        from rvio_tpu_torch.dataio.euroc import load_image
+        return load_image(self.files[k], native=self.loader is not None)
+
+    def __call__(self, ks) -> np.ndarray:
+        if self.mem is not None:
+            return np.stack([self.mem[k] for k in ks])
+        first = self.one(ks[0])
+        if self.loader is None or len(ks) == 1:
+            return np.stack([first] + [self.one(k) for k in ks[1:]])
+        self.loader.submit([self.files[k] for k in ks[1:]],
+                           width=first.shape[1], height=first.shape[0])
+        return np.concatenate([first[None], self.loader.collect()], axis=0)
+
+    def prefetch(self, k: int, like: np.ndarray) -> None:
+        """Start decoding frame k (of ``like``'s shape) on the native
+        loader's threads; :meth:`take` returns it."""
+        if self.loader is not None:
+            self.loader.submit([self.files[k]], width=like.shape[1],
+                               height=like.shape[0])
+
+    def take(self, k: int) -> np.ndarray:
+        """Frame k: the prefetched one where the loader runs."""
+        if self.loader is not None:
+            return self.loader.collect()[0]
+        return self.one(k)
+
+    def close(self) -> None:
+        if self.loader is not None:
+            self.loader.close()
+
+
+def run_euroc_sequence_scan(cfg: RVIOConfig, seq, dtype=torch.float32,
+                            device=None, chunk_size: int = 32, seed: int = 0,
+                            timing_split: bool = False,
+                            max_frames: Optional[int] = None,
+                            checkpoint_path: Optional[str] = None,
+                            resume_from: Optional[str] = None,
+                            uniforms=None) -> DriverResult:
+    """Replay a loaded sequence (``load_euroc`` or ``load_rosbag``) through
+    the chunked pipeline: the same init gate, per-frame work and draws as
+    ``run_rendered_sequence_scan``, on the sequence's own frames.
+    ``device=None`` means the CUDA device (raises without one).
+
+    ``checkpoint_path`` saves the session after the run; ``resume_from``
+    continues a run from its checkpoint (the same sequence): frames up to
+    the checkpoint's cursor are skipped, and the draws continue at its row,
+    so the two runs together are the uninterrupted run.  A checkpoint
+    without draws (one the JAX package wrote) needs ``uniforms``, which
+    otherwise replaces the seed's table: row i for the i-th frame this call
+    filters.
+    """
+    device = resolve_device(device)
+    init_fn, track_fn = make_tracker(cfg, device, dtype)
+    groups = bundle_imu(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t,
+                        time_offset=cfg.camera.time_offset)
+    n = len(seq.cam_t) if max_frames is None else min(max_frames,
+                                                      len(seq.cam_t))
+    start = 0
+    if resume_from is not None:
+        from rvio_tpu_torch.runtime.checkpoint import load_checkpoint
+        filter_state, tracker_state, draws, k0, _ = load_checkpoint(
+            resume_from, dtype, device)
+        if tracker_state is None:
+            raise ValueError(f"{resume_from}: the checkpoint has no tracker "
+                             "state (not an image-pipeline session)")
+        if draws is not None:
+            seed, start = draws
+        elif uniforms is None:
+            raise ValueError(f"{resume_from}: the checkpoint holds no RANSAC "
+                             "draws (written by the JAX package?); pass "
+                             "uniforms= with the draws to continue with")
+    else:
+        filter_state, k0 = _find_init_frame(cfg, groups, n, dtype, device)
+    frame_ids = list(range(k0 + 1, n))
+    table = _draw_table(seed, uniforms, len(frame_ids),
+                        cfg.tracker.num_features, start)
+    reader = _FrameReader(seq)
+    try:
+        t0 = time.perf_counter()
+        if resume_from is None:
+            tracker_state, _ = init_fn(torch.as_tensor(reader.one(k0)))
+        init_s = time.perf_counter() - t0
+        res = _replay_chunks(cfg, device, dtype, chunk_size, table, groups,
+                             seq.cam_t, frame_ids, track_fn, tracker_state,
+                             filter_state, reader, timing_split,
+                             checkpoint_path=checkpoint_path,
+                             draws=None if uniforms is not None
+                             else (seed, start))
+    finally:
+        reader.close()
+    res.decoder = reader.decoder
+    res.image_s += init_s
+    return res
+
+
+def run_euroc_sequence(cfg: RVIOConfig, seq, dtype=torch.float32,
+                       device=None, seed: int = 0,
+                       max_frames: Optional[int] = None,
+                       uniforms=None) -> DriverResult:
+    """Replay a loaded sequence frame by frame through ``ImagePipeline``
+    (the live path's shape: one frame in, one pose read back), the next
+    frame decoded while the current one runs.  Its draws are the scan's
+    where every frame has IMU.  ``backend_ms`` is each frame's time from
+    the call to its pose on the host."""
+    pipe = ImagePipeline(cfg, dtype, seed=seed, device=device,
+                         uniforms=uniforms)
+    groups = bundle_imu(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t,
+                        time_offset=cfg.camera.time_offset)
+    n = len(seq.cam_t) if max_frames is None else min(max_frames,
+                                                      len(seq.cam_t))
+    reader = _FrameReader(seq, n_threads=1)
+    rows, image_s = [], 0.0
+    try:
+        t_img = time.perf_counter()
+        img = reader.one(0)
+        for k in range(n):
+            if k + 1 < n:
+                reader.prefetch(k + 1, img)
+            image_s += time.perf_counter() - t_img
+            t0 = time.perf_counter()
+            out = pipe.process_device(seq.cam_t[k], img, *groups[k])
+            if out is not None:
+                o = pipe.unpack(out)
+                rows.append((seq.cam_t[k], o["p_Gk"], o["q_kG"], o["v_k"],
+                             o["n_good"], (time.perf_counter() - t0) * 1e3,
+                             o["n_usable"], o["tl_good_sum"]))
+            t_img = time.perf_counter()
+            if k + 1 < n:
+                img = reader.take(k + 1)
+    finally:
+        reader.close()
+    if not rows:
+        raise RuntimeError("sequence never initialized")
+    t, p, q, v, g, be, nu, tl = zip(*rows)
+    return DriverResult(np.asarray(t), np.asarray(p), np.asarray(q),
+                        np.asarray(v), np.asarray(g), np.zeros(len(t)),
+                        np.asarray(be),
+                        diag={"n_usable": np.asarray(nu),
+                              "tl_good_sum": np.asarray(tl)},
+                        image_s=image_s, decoder=reader.decoder)
 
 
 def upload(x, device: torch.device) -> torch.Tensor:

@@ -63,8 +63,7 @@ def make_filter_step(cfg: RVIOConfig, device, dtype=torch.float32
                   fej=cfg.tpu.fej,
                   adaptive_noise=cfg.tpu.adaptive_noise,
                   adaptive_rampup=cfg.tpu.adaptive_rampup_frames,
-                  parallel_chains=cfg.tpu.parallel_propagation,
-                  ekf_tail_fused=cfg.tpu.ekf_tail_fused)
+                  parallel_chains=cfg.tpu.parallel_propagation)
 
     def step(state: FilterState, bundle: FrameBundle
              ) -> Tuple[FilterState, Dict[str, torch.Tensor]]:

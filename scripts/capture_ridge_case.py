@@ -10,7 +10,7 @@ the equalizer off, f32) on the first ``--frames`` frames of bench.py's
 synthetic workload (60 s and seed 7, or ``--duration`` s and ``--seed``
 with the same other settings) and records every ``msckf_update`` call.  At the
 first applied update whose Cholesky factorization of C + 1e-8 max(tr C, 1) I
-fails (``ridge_fallback``, filter/update.py ``info_cholesky``) it saves that
+fails (``ridge_fallback``, ops/ekf_tail.py ``info_cholesky``) it saves that
 call's filter state and update batch, and those of the two calls before
 it, to OUT.npz (keys ``<i>/<field>``, i = 0, 1, 2 oldest first, with
 ``frame``, the update's index in the run, and ``fallback`` per call).

@@ -12,8 +12,12 @@ kernel once per frame, the images -> poses path every kernel as often as
 it implies (at a small config with CLAHE off and on, and at
 ``RVIOConfig()``), and stay close to the CPU plain path (with CLAHE on at
 the small config, as accurate as it); a frame of images -> poses (CLAHE
-off and on) and ``ImagePipeline.process_device`` make no synchronizing
-call.  Whether a
+off and on), ``ImagePipeline.process_device`` and the filter step with
+K5 make no synchronizing call; K5 takes the wider ridge where its plain
+version does, and the filter with K5 stays with the filter that runs the
+library chain in its place;
+the replay of an ASL folder is the rendered scan of the same frames, and
+a resumed replay the uninterrupted one.  Whether a
 card is present is decided in the fixture, so every process collects the
 same tests.
 """
@@ -25,7 +29,8 @@ import torch
 KERNEL_NAMES = ["propagate_block", "lm_triangulate", "jac_project",
                 "batched_quadform", "gather_tiles", "lk_level",
                 "subpix_refine", "shi_tomasi_nms", "clahe_luts",
-                "clahe_apply", "shi_tomasi", "gather_tiles_aligned"]
+                "clahe_apply", "shi_tomasi", "gather_tiles_aligned",
+                "ekf_tail"]
 
 
 @pytest.fixture
@@ -47,6 +52,141 @@ def test_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.gpu
+def test_ekf_tail_fallback_matches_plain(cuda):
+    """K5 on inputs whose factor must take the wider ridge: the kernel
+    decides it, as the plain version does, and agrees with it."""
+    from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
+                                           EKF_TAIL_FALLBACK_TOL,
+                                           ekf_tail_case,
+                                           ekf_tail_fallback_inputs)
+    for seed in range(3):
+        chk = ekf_tail_case(cuda, *ekf_tail_fallback_inputs(
+            np.random.default_rng(seed)), tol=EKF_TAIL_FALLBACK_TOL,
+            what="fallback", scaled_tol=EKF_TAIL_FALLBACK_SCALED_TOL)
+        assert chk.info["fallback"]
+        chk.check()
+        assert bool(chk.run_kernel()[2].all())
+
+
+@pytest.mark.gpu
+def test_ekf_tail_batch_and_narrow_window(cuda):
+    """K5 at M = 7 (n = 42, rows padded to 44 and D to 68) on a batch of
+    three: each entry agrees with the plain version, and with a single
+    launch of it."""
+    from rvio_tpu_torch.ops.checks import ekf_tail_stack
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    rng = np.random.default_rng(5)
+    cases = [ekf_tail_stack(rng, 7, 320, dead_clones=2) for _ in range(3)]
+    args = [torch.as_tensor(np.stack(x), device=cuda) for x in zip(*cases)]
+    dx, P_new, fb = ekf_tail(*args)
+    ref = ekf_tail_plain(*args)
+    for got, want in zip((dx, P_new), ref[:2]):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < 2e-5, err
+    assert not bool(fb.any()) and not bool(ref[2].any())
+    one = ekf_tail(*(a[1:2].contiguous() for a in args))
+    assert torch.equal(one[0][0], dx[1]) and torch.equal(one[1][0], P_new[1])
+
+
+@pytest.mark.gpu
+def test_ekf_tail_refuses_f64(cuda):
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    n = 6
+    args = [torch.eye(n, device=cuda)[None], torch.ones(1, n, device=cuda),
+            torch.eye(24 + n, device=cuda)[None], torch.ones(1, device=cuda)]
+    for i in range(4):
+        bad = list(args)
+        bad[i] = bad[i].double()
+        with pytest.raises(TypeError):
+            ekf_tail(*bad)
+    with pytest.raises(ValueError):                  # D != 24 + n
+        ekf_tail(args[0], args[1], args[2][:, 1:, 1:].contiguous(), args[3])
+    n = 93                               # a block's shared memory holds n <= 92
+    with pytest.raises(ValueError):
+        ekf_tail(torch.eye(n, device=cuda)[None], torch.ones(1, n, device=cuda),
+                 torch.eye(24 + n, device=cuda)[None], args[3])
+    ekf_tail(*args)                      # the refusal leaves no error behind
+    torch.cuda.synchronize()
+
+
+def _feature_cfg():
+    from rvio_tpu_torch.config import (CameraConfig, ImuConfig, RVIOConfig,
+                                       TpuConfig, TrackerConfig)
+    return RVIOConfig(imu=ImuConfig(rate_hz=100.0), camera=CameraConfig(fps=10.0),
+                      tracker=TrackerConfig(num_features=16,
+                                            max_tracking_length=8),
+                      tpu=TpuConfig(imu_block=16))
+
+
+@pytest.mark.gpu
+def test_fused_filter_step_reads_nothing_back(cuda):
+    """The filter step launches K5 once a frame, decides the fallback on
+    the card and reads nothing back: it runs under
+    set_sync_debug_mode("error")."""
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.filter.propagation import pad_imu
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    from rvio_tpu_torch.runtime import (InitializationGate, SequenceDriver,
+                                        batches_from_sim, bundle_imu,
+                                        make_filter_step)
+    cfg = _feature_cfg()
+    sim = simulate_sequence(cfg, duration=6.0, static_time=1.2, seed=11,
+                            meas_noise=0.0015, imu_noise=True)
+    batches = batches_from_sim(sim)
+    gate = InitializationGate(cfg, torch.float32, cuda)
+    state, rows = None, []
+    for k, (w, a, dts) in enumerate(bundle_imu(sim.imu_t, sim.imu_w,
+                                               sim.imu_a, sim.frame_t)):
+        if len(w) < 2:
+            continue
+        if state is None:
+            state = gate.feed(w, a, dts)
+            continue
+        b = batches[k]
+        rows.append((pad_imu(w, a, dts, cfg.tpu.imu_block),
+                     (b.meas, b.track_len, b.is_type2, b.valid)))
+    bundles = SequenceDriver(cfg, device=cuda)._stack(rows[:30])
+    step = make_filter_step(cfg, cuda)
+    ekf_tail.launches = 0
+    for t in range(30):
+        if t > 0:                            # the first frame warms caches
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out = step(state, bundles.frame(t))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert ekf_tail.launches == 30
+    assert torch.isfinite(out["p_Gk"]).all() and int(out["n_good"]) > 2
+
+
+@pytest.mark.gpu
+def test_fused_matches_unfused_on_card(cuda, monkeypatch):
+    """The feature-level filter on the card with K5 and with the unfused
+    library chain (the plain version) called in its place: K5 runs once a
+    filtered frame, and the two trajectories differ by summation order
+    alone (the card-vs-CPU limit of chip_smoke.py)."""
+    import rvio_tpu_torch.filter.update as update
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
+    sim = simulate_sequence(_feature_cfg(), duration=6.0, static_time=1.2,
+                            seed=11, meas_noise=0.0015, imu_noise=True)
+    args = (sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t, batches_from_sim(sim))
+    res, launches = {}, {}
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(update, "ekf_tail", ekf_tail_plain)
+        ekf_tail.launches = 0
+        res[fused] = SequenceDriver(_feature_cfg(), device=cuda).run(*args)
+        launches[fused] = ekf_tail.launches
+    n = len(res[True].timestamps)
+    assert launches == {False: 0, True: n}
+    np.testing.assert_array_equal(res[True].timestamps, res[False].timestamps)
+    np.testing.assert_allclose(res[True].positions, res[False].positions,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_f64(cuda):
     from rvio_tpu_torch.ops.spd_solve import batched_quadform
     S = torch.eye(4, dtype=torch.float64, device=cuda)[None]
@@ -59,11 +199,12 @@ def test_driver_launches_every_kernel(cuda):
     from rvio_tpu_torch.config import (CameraConfig, ImuConfig, RVIOConfig,
                                        TpuConfig, TrackerConfig)
     from rvio_tpu_torch.dataio import simulate_sequence
-    from rvio_tpu_torch.ops import (jac_project, lm_triangulate,
+    from rvio_tpu_torch.ops import (ekf_tail, jac_project, lm_triangulate,
                                     propagate_block, spd_solve)
     from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
     wrappers = [propagate_block.propagate_block, lm_triangulate.lm_triangulate,
-                jac_project.jac_project, spd_solve.batched_quadform]
+                jac_project.jac_project, spd_solve.batched_quadform,
+                ekf_tail.ekf_tail]
     cfg = RVIOConfig(imu=ImuConfig(rate_hz=100.0), camera=CameraConfig(fps=10.0),
                      tracker=TrackerConfig(num_features=16,
                                            max_tracking_length=8),
@@ -75,7 +216,7 @@ def test_driver_launches_every_kernel(cuda):
         w.launches = 0
     gpu = SequenceDriver(cfg, device=cuda).run(*args)
     n = len(gpu.timestamps)
-    assert [w.launches for w in wrappers] == [n] * 4
+    assert [w.launches for w in wrappers] == [n] * 5
     cpu = SequenceDriver(cfg, device="cpu").run(*args)
     np.testing.assert_allclose(gpu.positions, cpu.positions, atol=1e-4)
 
@@ -182,9 +323,10 @@ def test_pipeline_process_device_does_not_sync(cuda):
 
 
 def _image_launches(cfg, sim, cuda, **kw):
-    from rvio_tpu_torch.ops import (clahe, jac_project, klt_iterate,
-                                    lm_triangulate, propagate_block,
-                                    shi_tomasi, spd_solve, tile_gather)
+    from rvio_tpu_torch.ops import (clahe, ekf_tail, jac_project,
+                                    klt_iterate, lm_triangulate,
+                                    propagate_block, shi_tomasi, spd_solve,
+                                    tile_gather)
     from rvio_tpu_torch.runtime import run_rendered_sequence_scan
     wrappers = {w.__name__: w for w in (
         propagate_block.propagate_block, lm_triangulate.lm_triangulate,
@@ -192,7 +334,7 @@ def _image_launches(cfg, sim, cuda, **kw):
         tile_gather.gather_tiles, klt_iterate.lk_level,
         klt_iterate.subpix_refine, shi_tomasi.shi_tomasi_nms,
         clahe.clahe_luts, clahe.clahe_apply, shi_tomasi.shi_tomasi,
-        tile_gather.gather_tiles_aligned)}
+        tile_gather.gather_tiles_aligned, ekf_tail.ekf_tail)}
     for w in wrappers.values():
         w.launches = 0
     gpu = run_rendered_sequence_scan(cfg, sim, device=cuda, **kw)
@@ -202,7 +344,7 @@ def _image_launches(cfg, sim, cuda, **kw):
     want = dict.fromkeys(KERNEL_NAMES[:4], n)
     want.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
                 shi_tomasi_nms=n + 1, clahe_luts=eq, clahe_apply=eq,
-                shi_tomasi=0, gather_tiles_aligned=0)
+                shi_tomasi=0, gather_tiles_aligned=0, ekf_tail=n)
     assert got == want
     return gpu
 
@@ -267,3 +409,56 @@ def test_image_driver_launches_at_default_config(cuda):
     np.testing.assert_array_equal(cpu.timestamps, gpu.timestamps)
     assert (cpu.active_slots == gpu.active_slots).mean() > 0.99
     np.testing.assert_allclose(gpu.positions, cpu.positions, atol=1e-3)
+
+
+@pytest.fixture
+def asl_folder(tmp_path):
+    """The small config's sequence (CLAHE on) as a EuRoC ASL folder, the
+    folder loaded back and the simulator's sequence on its stamps."""
+    from chip_smoke import write_asl
+    from rvio_tpu_torch.dataio import simulate_sequence
+    cfg = _small_image_cfg(True)
+    sim = simulate_sequence(cfg, duration=6.0, static_time=1.0, ramp_time=1.5,
+                            seed=6, n_landmarks=400, motion_scale=0.5)
+    seq, sim_f = write_asl(str(tmp_path / "asl"), cfg, sim)
+    return cfg, seq, sim_f
+
+
+@pytest.mark.gpu
+def test_folder_replay_matches_rendered_scan(cuda, asl_folder):
+    """The folder replay on the card is the rendered scan: the same frames
+    (PNG is lossless), IMU, stamps and draws give the same run."""
+    from rvio_tpu_torch.runtime import (run_euroc_sequence_scan,
+                                        run_rendered_sequence_scan)
+    cfg, seq, sim_f = asl_folder
+    scan = run_rendered_sequence_scan(cfg, sim_f, device=cuda, chunk_size=16)
+    rep = run_euroc_sequence_scan(cfg, seq, device=cuda, chunk_size=16)
+    np.testing.assert_array_equal(rep.timestamps, scan.timestamps)
+    np.testing.assert_array_equal(rep.active_slots, scan.active_slots)
+    np.testing.assert_allclose(rep.positions, scan.positions, rtol=0,
+                               atol=1e-6)
+    assert rep.decoder == "native" or rep.decoder.startswith("python (")
+
+
+@pytest.mark.gpu
+def test_resume_on_card(cuda, asl_folder, tmp_path):
+    """A replay saved half-way and resumed is the uninterrupted replay
+    (K5 once a frame)."""
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    from rvio_tpu_torch.runtime import run_euroc_sequence_scan
+    cfg, seq, _ = asl_folder
+    ekf_tail.launches = 0
+    full = run_euroc_sequence_scan(cfg, seq, device=cuda, chunk_size=16)
+    assert ekf_tail.launches == len(full.timestamps) > 20
+    ck = str(tmp_path / "session.npz")
+    half = int(np.searchsorted(seq.cam_t, full.timestamps[20])) + 1
+    first = run_euroc_sequence_scan(cfg, seq, device=cuda, chunk_size=16,
+                                    max_frames=half, checkpoint_path=ck)
+    second = run_euroc_sequence_scan(cfg, seq, device=cuda, chunk_size=16,
+                                     resume_from=ck)
+    assert len(first.timestamps) == 21
+    np.testing.assert_array_equal(
+        np.concatenate([first.timestamps, second.timestamps]), full.timestamps)
+    np.testing.assert_allclose(
+        np.concatenate([first.positions, second.positions]), full.positions,
+        rtol=0, atol=1e-6)

@@ -131,7 +131,8 @@ def test_entry_point_refuses_missing_cuda():
 
 @pytest.mark.parametrize("build", ["gate", "initial_state", "static_init",
                                    "imu_block", "tracker", "image_driver",
-                                   "image_pipeline", "online_driver"])
+                                   "image_pipeline", "online_driver",
+                                   "euroc_scan", "euroc_per_frame"])
 def test_public_builders_default_to_cuda(build):
     """Every public function that makes tensors means CUDA by default and
     raises without it, as SequenceDriver does."""
@@ -140,7 +141,8 @@ def test_public_builders_default_to_cuda(build):
     from rvio_tpu_torch.filter.propagation import make_imu_block
     from rvio_tpu_torch.frontend import make_tracker
     from rvio_tpu_torch.runtime import (ImagePipeline, InitializationGate,
-                                        OnlineDriver,
+                                        OnlineDriver, run_euroc_sequence,
+                                        run_euroc_sequence_scan,
                                         run_rendered_sequence_scan)
     from rvio_tpu_torch.state import make_initial_state, static_initialize
     z3 = np.zeros((4, 3))
@@ -158,6 +160,9 @@ def test_public_builders_default_to_cuda(build):
                 _image_cfg(), duration=1.0, static_time=0.5, seed=1)),
         "image_pipeline": lambda: ImagePipeline(_image_cfg()),
         "online_driver": lambda: OnlineDriver(_image_cfg()),
+        # the device is resolved before the sequence is read
+        "euroc_scan": lambda: run_euroc_sequence_scan(_image_cfg(), None),
+        "euroc_per_frame": lambda: run_euroc_sequence(_image_cfg(), None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[build]()
@@ -168,7 +173,12 @@ def _image_cfg():
 
 
 def test_wrappers_refuse_other_devices():
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
     from rvio_tpu_torch.ops.spd_solve import batched_quadform
     S = torch.empty(2, 3, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         batched_quadform(S, torch.empty(2, 3, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ekf_tail(S, torch.empty(2, 3, device="meta"),
+                 torch.empty(2, 27, 27, device="meta"),
+                 torch.empty(2, device="meta"))

@@ -323,24 +323,13 @@ def test_msckf_update_matches_jax_f64(compression, fej, adaptive, sigma):
                                rtol=1e-8)
 
 
-def test_ekf_tail_fused_raises():
-    d, (meas, tlen, typ2, valid) = _scene(seed=1, noise=0.0)
-    with pytest.raises(NotImplementedError):
-        msckf_update(state_from_numpy(d, "cpu", torch.float64),
-                     UpdateBatch(meas=_t(meas), track_len=_t(tlen, torch.int64),
-                                 is_type2=torch.tensor(typ2),
-                                 valid=torch.tensor(valid)),
-                     R_bc=R_BC, t_bc=T_BC, sigma_im=SIGMA, min_clone_states=2,
-                     ekf_tail_fused=True)
-
-
 def test_info_ridge_keeps_f32_cholesky_finite():
     """The cholesky compression's ridge: the JAX package's 1e-8 * trace,
     whose factor ``info_cholesky`` returns unchanged wherever it exists.  In
     f32 a C with two collinear dominant columns (rank-deficient, as three
     image-path features give) can lose more than that to rounding and the
     factorization fails; only then is the factor that of n * eps * trace."""
-    from rvio_tpu_torch.filter.update import info_cholesky
+    from rvio_tpu_torch.ops.ekf_tail import info_cholesky
     old_fail = 0
     for seed in range(20):
         rng = np.random.default_rng(seed)
