@@ -7,7 +7,9 @@ Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from ``rvio_tpu_torch/csrc`` (one nvcc
 per source, all at once), holds each kernel against its plain PyTorch
-version at its main path's operating point and times both, then drives the
+version at its main path's operating point and times both (and, where one
+PyTorch call computes the same function, that call, eager and on the
+device), then drives the
 port's paths over the 60 s synthetic workload of bench.py at the EuRoC
 operating point of ``RVIOConfig()`` (200 feature slots, 15-frame tracks,
 14 clones, 20 Hz camera, 200 Hz IMU, f32), each with every launch count
@@ -165,6 +167,37 @@ def device_ms(fn, reps: int) -> float:
     return _events_ms(graph.replay, reps)
 
 
+def library_device_ms(fn, reps: int):
+    """Device time per call of a library yardstick ``fn``, and how it was
+    taken: a CUDA graph of ``reps`` calls, as a kernel's own time is taken;
+    where the default backend refuses capture (MAGMA's batched
+    ``cholesky_solve`` allocates while capturing), the same graph with the
+    cuSOLVER backend; where the call reads back to the host and cannot be
+    captured at all (``torch.bincount`` with ``minlength``), the sum of its
+    kernels' device times over ``reps`` calls from torch.profiler, which
+    leaves out the gaps between them."""
+    for backend in ("default", "cusolver"):
+        torch.backends.cuda.preferred_linalg_library(backend)
+        try:
+            return device_ms(fn, reps), ("graph" if backend == "default" else
+                                         "graph, cuSOLVER backend")
+        except RuntimeError:
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or e.self_cuda_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA")
+    return us / 1e3 / reps, "profiler kernel sum"
+
+
 def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
     """Largest rotation angle between paired JPL quaternions (rad), from
     the skew part of R1^T R2 in f64 (accurate for small angles)."""
@@ -203,8 +236,9 @@ def expected_launches(n: int, equalizer: bool = True) -> dict:
 def measure(chk, label: str = "") -> dict:
     """Kernel vs plain on the card (raises over the tolerance), the device
     time per launch (a CUDA graph of 200), the eager call, the plain
-    version's and the library call's times, and the bound; prints them and
-    returns the kernel's record (launches 0 until a path sets them)."""
+    version's time, the library call's eager and device times
+    (:func:`library_device_ms`), and the bound; prints them and returns the
+    kernel's record (launches 0 until a path sets them)."""
     err = chk.check()
     torch.cuda.synchronize()
     nbytes = chk.bytes_read + chk.bytes_written
@@ -213,19 +247,23 @@ def measure(chk, label: str = "") -> dict:
     ms = device_ms(chk.run_kernel, reps=200)
     per_call_ms = call_ms(chk.run_kernel, reps=200)
     plain_ms = call_ms(chk.run_plain, reps=10)
-    lib_ms = (call_ms(lambda: chk.library(*chk.args), reps=200)
-              if chk.library else None)
+    lib_ms = lib_dev_ms = how = None
+    if chk.library:
+        lib_ms = call_ms(lambda: chk.library(*chk.args), reps=200)
+        lib_dev_ms, how = library_device_ms(lambda: chk.library(*chk.args),
+                                            reps=200)
     rec = dict(name=chk.name, route="cuda", source=chk.source,
                replaces=chk.replaces, launches=0, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=lib_ms)
+               library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               library_device_how=how)
     info = "".join(f", {k} {v}" for k, v in chk.info.items())
     print(f"kernel {chk.name}{label}: err {err:.3e} (tolerance: "
           f"{chk.tolerance}{info}); {ms * 1e3:.2f} us/launch on the device "
           f"({per_call_ms * 1e3:.1f} us per eager call), plain "
           f"{plain_ms * 1e3:.1f} us, library "
-          f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, "
+          f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us eager, {lib_dev_ms * 1e3:.2f} us on the device ({how})'}, "
           f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}: "
           f"{nbytes} B, {chk.flops:.3g} flop)", flush=True)
     return rec
@@ -468,10 +506,10 @@ def ekf_tail_phase(dev, records, inputs) -> None:
     for _, r in records:
         if r["name"] == TAIL_KERNEL:
             r.update(rec)
-    # what one K5 launch replaces: the unfused chain's device time (a CUDA
-    # graph of its launches, as K5's own time is taken) and its launches
+    # what one K5 launch replaces: the unfused chain's launches (its device
+    # time, a CUDA graph of its launches, is the record's library column)
     from torch.profiler import ProfilerActivity, profile
-    lib_dev_ms = device_ms(lambda: chk.library(*chk.args), reps=200)
+    lib_dev_ms = rec["library_device_ms"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         chk.library(*chk.args)
@@ -483,8 +521,10 @@ def ekf_tail_phase(dev, records, inputs) -> None:
     copies = sum(e.count for e in rows) - kern
     print(f"kernel {TAIL_KERNEL}: one launch replaces the unfused chain's "
           f"{kern} kernel launches and {copies} copies/sets a call "
-          f"(torch.profiler), {lib_dev_ms * 1e3:.2f} us on the device (CUDA "
-          f"graph) against K5's {rec['ms'] * 1e3:.2f} us", flush=True)
+          f"(torch.profiler), {lib_dev_ms * 1e3:.2f} us on the device "
+          f"({rec['library_device_how']}) against K5's {rec['ms'] * 1e3:.2f} "
+          f"us: K5 takes {rec['ms'] / lib_dev_ms:.3f} of the chain's device "
+          f"time", flush=True)
     fb = ekf_tail_case(dev, *ekf_tail_fallback_inputs(
         np.random.default_rng(0)), tol=EKF_TAIL_FALLBACK_TOL,
         what="seeded wider-ridge case",

@@ -24,8 +24,14 @@ the same unfused chain, which is therefore the reference.
 Bound on the H100 at the operating point (B = 1, n = 84, D = 108, f32): the
 call moves about 85 KB and needs about 8 MFLOP (ops/checks.ekf_tail_flops),
 0.03 us and 0.12 us at the card's peaks, far below the latency of its two
-84-step factorizations and two 84-step triangular solves; the design
-(csrc/ekf_tail.cu) keeps every intermediate in one block's shared memory.
+84-step factorizations and two 84-step triangular solves.  The kernel
+(csrc/ekf_tail.cu) runs a cluster of 8 CTAs per system: its inputs arrive
+by multicast bulk copies, both factorizations run blocked (8-column
+panels) and redundantly in every CTA, and the columns of the gain, the
+solves and the rows of the Joseph form are split over the CTAs, which
+exchange S, K^T and G^T through distributed shared memory.  It gives the
+plain version's function to rounding: its sums run in other orders, and
+it factors S's lower triangle without symmetrizing S first.
 """
 
 from __future__ import annotations
@@ -45,8 +51,8 @@ _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
 INFO_RIDGE = 1e-8
 # error-state entries before the clone block
 NX = 24
-# the largest n whose intermediates fit in one block's shared memory on the
-# H100 (227 KB; csrc/ekf_tail.cu smem_bytes and NMAX)
+# the largest n whose intermediates fit in one CTA's shared memory on the
+# H100 (227 KB; csrc/ekf_tail.cu smem_floats and NMAX)
 NMAX = 92
 
 
@@ -126,7 +132,7 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
     """(dx, P_new, fallback) for B systems (see the module docstring).
 
     A CUDA tensor runs the kernel (f32 only; n up to NMAX, so that a
-    block's intermediates fit in shared memory, else it raises); a CPU
+    CTA's intermediates fit in shared memory, else it raises); a CPU
     tensor the plain version."""
     if not _lib.uses_kernel(C, "ekf_tail"):
         return ekf_tail_plain(C, b, P, sig2)

@@ -11,13 +11,15 @@ f32): the call reads z, Rc, tc and track_len once (F*L*14*4 + F*4 B =
 84 KB, 0.025 us at 3.35 TB/s) and does at most 2.3 MFLOP (every feature
 at full length for all 10 iterations; 0.034 us at 67 TFLOP/s; ops/checks.py
 counts the iterations its inputs need): both far below a kernel launch, so
-it is launch- and
-latency-bound, the latency being the serial chain of 10 dependent
-iterations.  The design answers with one launch for the batch and one
-thread per feature holding its whole iteration state in registers, so an
-iteration costs only its own arithmetic (no barrier, no device-memory
-round trip).  The TPU kernel's 128-lane packing is not carried over, and
-the angles are seeded in the kernel (CUDA has atan2f).
+it is bound by latency, the serial chain of 10 dependent iterations, each a
+sum over the measurements.  The design (csrc/lm_triangulate.cu) gives each
+feature a warp: a lane holds a measurement in registers, the ten sums of an
+iteration go through a shuffle butterfly that leaves every lane with the
+same bits, and every lane then solves the same 3x3 system; four features a
+block, so the batch spreads over many SMs.  The sums run in a tree, not in
+measurement order, so the kernel agrees with the plain version to rounding
+(ops/checks.py).  The TPU kernel's 128-lane packing is not carried over,
+and the angles are seeded in the kernel (CUDA has atan2f).
 """
 
 from __future__ import annotations

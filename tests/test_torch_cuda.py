@@ -462,3 +462,170 @@ def test_resume_on_card(cuda, asl_folder, tmp_path):
     np.testing.assert_allclose(
         np.concatenate([first.positions, second.positions]), full.positions,
         rtol=0, atol=1e-6)
+
+
+def _tail_inputs(rng, n, rows=None, masked_frac=0.3, dead=0):
+    """C, b, P, sig2 of one system at any n (not only 6 M): a random row
+    stack of which the last ``masked_frac`` is masked, ``dead`` trailing
+    columns of H and rows and columns of P zero (dead clones), f32."""
+    rows = rows or 3 * n
+    D = 24 + n
+    H = rng.normal(size=(rows, n)) * 0.5
+    H[int(rows * (1 - masked_frac)):] = 0.0
+    if dead:
+        H[:, n - dead:] = 0.0
+    r = rng.normal(size=rows) * 0.01
+    A = rng.normal(size=(D, D)) * 0.02
+    P = A @ A.T + np.eye(D) * 1e-4
+    if dead:
+        P[D - dead:, :] = 0.0
+        P[:, D - dead:] = 0.0
+    return (np.float32(H.T @ H), np.float32(H.T @ r), np.float32(P),
+            np.float32(2.3e-6))
+
+
+def _tail_against_plain(cuda, cases):
+    """K5 on the stacked ``cases`` against the plain version (the limits of
+    ops/checks.py's seeded stack: fallback and NaN identical, dx and P_new
+    within 2e-5 of their largest entry, P_new within 1e-2 scaled by its
+    diagonal) and each entry bitwise its own single launch."""
+    from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
+                                           EKF_TAIL_FALLBACK_TOL,
+                                           EKF_TAIL_SCALED_TOL,
+                                           scaled_cov_err)
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    args = [torch.as_tensor(np.stack(x), device=cuda) for x in zip(*cases)]
+    before = ekf_tail.launches
+    dx, P_new, fb = ekf_tail(*args)
+    assert ekf_tail.launches == before + 1
+    ref = ekf_tail_plain(*args)
+    assert torch.equal(fb, ref[2])
+    for e in range(len(cases)):
+        wide = bool(ref[2][e])
+        tol = EKF_TAIL_FALLBACK_TOL if wide else 2e-5
+        stol = EKF_TAIL_FALLBACK_SCALED_TOL if wide else EKF_TAIL_SCALED_TOL
+        for got, want in ((dx[e], ref[0][e]), (P_new[e], ref[1][e])):
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            scale = want.abs().max().clamp_min(torch.finfo(want.dtype).tiny)
+            err = float((got - want).abs().max() / scale)
+            assert err <= tol, (e, err)
+        scaled = scaled_cov_err(P_new[e].double().cpu().numpy(),
+                                ref[1][e].double().cpu().numpy())
+        assert scaled <= stol, (e, scaled)
+        one = ekf_tail(*(a[e:e + 1].contiguous() for a in args))
+        assert torch.equal(one[0][0], dx[e]) and torch.equal(one[1][0], P_new[e])
+        assert bool(one[2][0]) == bool(fb[e])
+    return ref[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("n", [6, 42, 84, 92])
+def test_ekf_tail_sizes_and_batches(cuda, n, B):
+    """K5 (a cluster of CTAs per system) at window sizes whose rows and
+    columns split over the cluster unevenly (n = 6 leaves most CTAs
+    without columns; n = 92, the largest, fills the shared memory), on
+    batches of one to sixteen systems."""
+    rng = np.random.default_rng(100 * n + B)
+    cases = [_tail_inputs(rng, n, dead=6 * (e % 2) if n > 6 else 0)
+             for e in range(B)]
+    fb = _tail_against_plain(cuda, cases)
+    assert not bool(fb.any())
+
+
+@pytest.mark.gpu
+def test_ekf_tail_wider_ridge_in_one_entry(cuda):
+    """B = 3 with the seeded wider-ridge inputs in the middle entry only:
+    the flag and the ridge are decided per system."""
+    from rvio_tpu_torch.ops.checks import ekf_tail_fallback_inputs
+    rng = np.random.default_rng(3)
+    cases = [_tail_inputs(rng, 84), ekf_tail_fallback_inputs(rng),
+             _tail_inputs(rng, 84)]
+    fb = _tail_against_plain(cuda, cases)
+    assert fb.tolist() == [False, True, False]
+
+
+@pytest.mark.gpu
+def test_ekf_tail_dead_clones(cuda):
+    """Every row masked (C = 0: the ridge alone is factored), and a window
+    whose trailing clones are dead (zero columns in H, zero rows and
+    columns in P), as the growth phase gives."""
+    from rvio_tpu_torch.ops.checks import ekf_tail_stack
+    rng = np.random.default_rng(4)
+    cases = [ekf_tail_stack(rng, 14, 600, masked_frac=1.0),
+             ekf_tail_stack(rng, 14, 600, dead_clones=5),
+             ekf_tail_stack(rng, 14, 600, masked_frac=1.0, dead_clones=14)]
+    fb = _tail_against_plain(cuda, cases)
+    assert not bool(fb.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [2, 15, 40])
+def test_lm_triangulate_lengths(cuda, L):
+    """K2 (a warp per feature) at track lengths below, at and above a warp
+    (L = 40 keeps a second measurement in some lanes), F = 37 (not a
+    multiple of the four warps of a block), tracks of length 2 beside
+    full ones: ok flags identical and phi, psi, rho within 1e-4 of the
+    plain version where ok (the tolerance of ops/checks.py)."""
+    from rvio_tpu_torch.config import RVIOConfig
+    from rvio_tpu_torch.ops.checks import _feature_geometry
+    from rvio_tpu_torch.ops.lm_triangulate import (lm_triangulate,
+                                                   lm_triangulate_plain)
+    cfg = RVIOConfig()
+    F = 37
+    rng = np.random.default_rng(L)
+    _, _, Rc, tc, _, z = _feature_geometry(cfg, rng, F, L)
+    tl = np.where(np.arange(F) % 3 == 0, 2, L)
+    tl[1::3] = rng.integers(2, L + 1, size=len(tl[1::3]))
+    args = [torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+            for x in (z, Rc, tc)] + [torch.as_tensor(tl, device=cuda)]
+    kw = dict(sigma_im=cfg.camera.sigma_image)
+    before = lm_triangulate.launches
+    got = lm_triangulate(*args, **kw)
+    assert lm_triangulate.launches == before + 1
+    want = lm_triangulate_plain(*args, **kw)
+    ok = want[3]
+    assert torch.equal(got[3], ok) and bool(ok.any())
+    for x, y in zip(got[:3], want[:3]):
+        assert float((x - y).abs()[ok].max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_reference_faithful_feature_path_on_card(cuda):
+    """The reference-faithful config of tests/test_strict_parity.py
+    (sigma_v0 = 0, no bias freeze, no forward-rotated attitude, no FEJ, no
+    adaptive noise) through the feature path on the card, where every
+    update runs K2 and K5, against the CPU plain path over 100 frames,
+    within chip_smoke.py's card-vs-CPU limits (1e-4 m, 1e-5 rad)."""
+    from chip_smoke import rotation_gap
+    from rvio_tpu_torch.config import (CameraConfig, ImuConfig, InitConfig,
+                                       RVIOConfig, TpuConfig, TrackerConfig)
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    from rvio_tpu_torch.ops.lm_triangulate import lm_triangulate
+    from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
+    cfg = RVIOConfig(
+        imu=ImuConfig(rate_hz=200.0), camera=CameraConfig(fps=20.0),
+        tracker=TrackerConfig(num_features=200, max_tracking_length=15,
+                              min_tracking_length=3),
+        init=InitConfig(sigma_v0=0.0, freeze_bias_average=False,
+                        forward_rotate_attitude=False),
+        tpu=TpuConfig(imu_block=16, fej=False, adaptive_noise=False))
+    sim = simulate_sequence(cfg, duration=8.0, static_time=1.5,
+                            ramp_time=0.6, rotation_lead=0.1, seed=7,
+                            n_landmarks=600, meas_noise=0.001, imu_noise=True)
+    args = (sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t, batches_from_sim(sim))
+    ekf_tail.launches = lm_triangulate.launches = 0
+    gpu = SequenceDriver(cfg, dtype=torch.float32, device=cuda).run(*args)
+    n = len(gpu.timestamps)
+    assert n >= 100 and ekf_tail.launches == lm_triangulate.launches == n
+    k_end = int(np.searchsorted(sim.frame_t, gpu.timestamps[99])) + 1
+    cpu = SequenceDriver(cfg, dtype=torch.float32, device="cpu").run(
+        sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t[:k_end],
+        batches_from_sim(sim)[:k_end])
+    assert len(cpu.timestamps) == 100
+    np.testing.assert_array_equal(cpu.timestamps, gpu.timestamps[:100])
+    assert gpu.n_good[40:100].mean() > 4
+    dp = float(np.abs(cpu.positions - gpu.positions[:100]).max())
+    dq = rotation_gap(cpu.quaternions, gpu.quaternions[:100])
+    assert dp < 1e-4 and dq < 1e-5, (dp, dq)
