@@ -18,8 +18,8 @@ set to 0 just before it and read just after:
 - the feature-level filter, ``SequenceDriver`` on the simulator's tracks:
   every filter kernel (K5 included) runs once per filtered frame, ATE
   below 0.05 m, and the first 100 frames agree with the port's plain path
-  on the CPU, whose 100th frame gives the inputs of K5's check on a real
-  frame (and of a seeded case that takes the wider ridge);
+  on the CPU, whose 100th frame gives the inputs of K1's and K5's checks
+  on a real frame (and K5 a seeded case that takes the wider ridge);
 - the same with the unfused library chain called in K5's place (a
   yardstick the port never runs on the card): the first 100 frames within
   the card-vs-CPU limits of the K5 run, and the back-end time of the two
@@ -469,25 +469,54 @@ def entries_phase(dev, sim, kernels, records, drv) -> None:
         raise AssertionError("a public entry disagrees with its plain version")
 
 
-def capture_tail_inputs(cfg, args, frame_t, batches):
+def capture_frame_inputs(cfg, args, frame_t, batches):
     """The feature path on the CPU plain path, keeping the inputs of the
-    last K5 call: a real frame's C, b, P and sigma^2.  Returns (result,
-    inputs)."""
+    last K1 and K5 calls: a real frame's IMU block, state and P24, and its
+    C, b, P and sigma^2.  Returns (result, K1 inputs, K5 inputs)."""
     from unittest import mock
 
+    import rvio_tpu_torch.filter.propagation as propagation
     import rvio_tpu_torch.filter.update as update
     from rvio_tpu_torch.ops import ekf_tail as k5
+    from rvio_tpu_torch.ops import propagate_block as k1
     from rvio_tpu_torch.runtime import SequenceDriver
-    captured = []
+    captured = {}
 
-    def record(*tail_args):
-        captured[:] = [a.detach().clone() for a in tail_args]
-        return k5.ekf_tail(*tail_args)
+    def recorder(name, fn):
+        def record(*call_args, **kw):
+            captured[name] = [a.detach().clone() for a in call_args]
+            return fn(*call_args, **kw)
+        return record
 
-    with mock.patch.object(update, "ekf_tail", record):
+    with mock.patch.object(update, "ekf_tail", recorder("k5", k5.ekf_tail)), \
+            mock.patch.object(propagation, "propagate_block",
+                              recorder("k1", k1.propagate_block)):
         res = SequenceDriver(cfg, dtype=torch.float32,
                              device="cpu").run(*args, frame_t, batches)
-    return res, [x[0].numpy() for x in captured]
+    return (res, [x.numpy() for x in captured["k1"]],
+            [x[0].numpy() for x in captured["k5"]])
+
+
+def propagate_frame_phase(dev, records, inputs) -> None:
+    """K1 on a real frame's inputs beside its check case: error and device
+    time go into K1's record as ``frame_max_abs_err`` and ``frame_ms``."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.ops.checks import propagate_case
+    if not all(np.isfinite(x).all() for x in inputs):
+        raise AssertionError("the captured K1 inputs are not finite")
+    chk = propagate_case(RVIOConfig(), dev, inputs,
+                         what=" (the feature path's frame 100)")
+    err = chk.check()
+    torch.cuda.synchronize()
+    ms = device_ms(chk.run_kernel, reps=200)
+    for _, r in records:
+        if r["name"] == "propagate_block":
+            r.update(frame_max_abs_err=err, frame_ms=ms)
+    print(f"kernel propagate_block (the feature path's frame 100, CPU plain "
+          f"path): err {err:.3e} (tolerance: {chk.tolerance}, "
+          f"{chk.info['valid samples']} valid samples of "
+          f"{inputs[2].shape[-1]}); {ms * 1e3:.2f} us/launch on the device",
+          flush=True)
 
 
 def ekf_tail_phase(dev, records, inputs) -> None:
@@ -894,11 +923,11 @@ def main() -> int:
         raise AssertionError(f"ATE {ate:.4f} m over {ATE_LIMIT_M} m")
 
     # ---- the first frames again through the plain path on the CPU, which
-    # captures a frame's K5 inputs ----
+    # captures a frame's K1 and K5 inputs ----
     k_end = int(np.searchsorted(sim.frame_t, res.timestamps[CPU_FRAMES - 1])) + 1
     t0 = time.perf_counter()
-    cpu, tail_inputs = capture_tail_inputs(cfg, args, sim.frame_t[:k_end],
-                                           batches[:k_end])
+    cpu, prop_inputs, tail_inputs = capture_frame_inputs(
+        cfg, args, sim.frame_t[:k_end], batches[:k_end])
     m = len(cpu.timestamps)
     if m != CPU_FRAMES or not np.array_equal(cpu.timestamps, res.timestamps[:m]):
         raise AssertionError("the CPU run filtered other frames")
@@ -910,6 +939,7 @@ def main() -> int:
     if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
         raise AssertionError("card kernel path and CPU plain path disagree")
 
+    propagate_frame_phase(dev, records, prop_inputs)
     ekf_tail_phase(dev, records, tail_inputs)
     library_chain_phase(dev, sim, batches, kernels, res, driver)
 

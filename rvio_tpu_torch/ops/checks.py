@@ -110,11 +110,16 @@ def _propagate_case(cfg, dev, rng) -> KernelCheck:
     g = np.array([0.05, -0.02, 0.998])
     vecs = [rng.normal(size=3), g / np.linalg.norm(g),
             rng.normal(size=3) * 0.01, rng.normal(size=3) * 0.05]
+    return propagate_case(cfg, dev, [x[None] for x in (w, a, dte, R0, *vecs,
+                                                      P0)])
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32)[None], device=dev)
 
-    args = (t(w), t(a), t(dte), t(R0), *(t(v) for v in vecs), t(P0))
+def propagate_case(cfg, dev, inputs, what: str = "") -> KernelCheck:
+    """K1 on ``inputs`` (w, a, dte, R0, vR, gR, bg, ba, P0 with a leading
+    stream axis, arrays or tensors, taken as f32) at ``cfg``'s IMU
+    constants."""
+    args = tuple(torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                 for x in inputs)
     kwargs = dict(gravity=cfg.imu.gravity, small_angle=cfg.imu.small_angle,
                   sigma_g=cfg.imu.sigma_g, sigma_wg=cfg.imu.sigma_wg,
                   sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa)
@@ -128,20 +133,23 @@ def _propagate_case(cfg, dev, rng) -> KernelCheck:
             errs.append(np.abs(x - y).max() / s)
         err = max(errs)
         if not err <= tol:
-            _fail("propagate_block", "max abs (P relative)", err, tol)
+            _fail("propagate_block", f"max abs (P relative){what}", err, tol)
         return float(err)
 
+    dte = _np(args[2])
+    B, K = dte.shape
     n_valid = int((dte > 0).sum())
     # w and a of the samples with dt > 0, dte, R0, four vectors, P0 in;
     # R, p, v, P and Psi out
-    read = F32 * (6 * n_valid + K + 9 + 12 + 24 * 24)
-    written = F32 * (9 + 3 + 3 + 2 * 24 * 24)
+    read = F32 * (6 * n_valid + B * (K + 9 + 12 + 24 * 24))
+    written = F32 * B * (9 + 3 + 3 + 2 * 24 * 24)
     return KernelCheck(
         "propagate_block", "rvio_tpu_torch/csrc/propagate_block.cu",
         "rvio_tpu/ops/propagate_block.py:212", k1.propagate_block,
         k1.propagate_block_plain, args, kwargs,
         "max abs 1e-5 (P relative to max|P|)", compare,
-        float(propagate_flops(n_valid)), read, written)
+        float(propagate_flops(n_valid)), read, written,
+        info={"valid samples": n_valid})
 
 
 def _feature_geometry(cfg, rng, F, L):

@@ -4,8 +4,10 @@ Replaces rvio_tpu/ops/propagate_block.py (``propagate_block_pallas``,
 ``_propagate_kernel``); CUDA source ``csrc/propagate_block.cu``.  The plain
 version is the sequential recursion of filter/propagation.
 _propagate_sequential in the JAX package (reference: PreIntegrator.cc:
-97-191), the fp-order oracle, with padded samples carrying dt = 0 (an exact
-identity step: dR = I, f1..f4 = 0, Phi = I, Q = 0).
+97-191), the fp-order oracle, with padded samples carrying dt = 0: after
+the last sample with dt > 0 such a step is a bitwise identity on every
+output (dR = I, f1..f4 = 0, Phi = I, Q = 0, and vk, gk already rotated);
+as the first step it still sets vk = R0 vR and gk = normalize(R0 gR).
 
 Inputs carry a leading stream axis B (B = 1 for one filter): w/a (B, K, 3),
 dte (B, K), R0 (B, 3, 3), vR/gR/bg/ba (B, 3), P0 (B, 24, 24).  Returns
@@ -17,13 +19,15 @@ needs about 12.4 kFLOP: P <- Phi P Phi^T and Psi <- Phi Psi as products
 with the 81 nonzeros of Phi (3 x 2 x 24 x 81 = 11.7 kFLOP), plus Q and the
 3-vector state; a padded sample needs none (ops/checks.propagate_flops).
 Ten samples, a 20 Hz frame at 200 Hz, are 0.12 MFLOP (1.9 ns at
-67 TFLOP/s).  So it is launch- and latency-bound, the latency being K
-dependent steps of 24x24 products.  The design keeps every step on
-chip: one block per stream with P, Phi, Psi and the products in shared
-memory, one thread per matrix entry, Phi and G written from their sparse
-3x3 blocks (no dense F), so a sample costs a few barriers.  The TPU
-kernel's ones-matmul scalar broadcasts and selection-matmul skew are not
-carried over.
+67 TFLOP/s).  So it is bound by latency: the samples' dependent steps.
+The design (csrc/propagate_block.cu) runs only up to the last sample with
+dt != 0 (the trailing padding is a bitwise identity; the first step of a
+frame is not, so at least one runs), computes the state recursion, which
+does not depend on P, in one warp ahead of the covariance, and updates P
+and Psi only in the nine rows (and columns) where Phi differs from the
+identity, one block barrier a sample; one block of 224 threads per
+stream.  It takes 1 <= K <= KMAX.  The TPU kernel's ones-matmul scalar
+broadcasts and selection-matmul skew are not carried over.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from rvio_tpu_torch.ops import _lib
 
 _LIB = "propagate_block"
 _ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 2 + [ctypes.c_float] * 6
+KMAX = 128     # samples a frame (the per-sample state is in shared memory)
 
 
 def _sig(sigma_g, sigma_wg, sigma_a, sigma_wa):
@@ -125,8 +130,8 @@ def propagate_block(w, a, dte, R0, vR, gR, bg, ba, P0, *,
                     sigma_wg: float, sigma_a: float, sigma_wa: float):
     """One frame's propagation for B streams (see the module docstring).
 
-    A CUDA tensor runs the kernel (f32 only); a CPU tensor the plain
-    version."""
+    A CUDA tensor runs the kernel (f32, 1 <= K <= KMAX); a CPU tensor the
+    plain version."""
     kw = dict(gravity=gravity, small_angle=small_angle, sigma_g=sigma_g,
               sigma_wg=sigma_wg, sigma_a=sigma_a, sigma_wa=sigma_wa)
     if not _lib.uses_kernel(P0, "propagate_block"):
@@ -142,11 +147,16 @@ def propagate_block(w, a, dte, R0, vR, gR, bg, ba, P0, *,
     for arg, t in (("vR", vR), ("gR", gR), ("bg", bg), ("ba", ba)):
         _lib.check(name, arg, t, (B, 3), f32, dev)
     _lib.check(name, "P0", P0, (B, 24, 24), f32, dev)
+    if not 1 <= K <= KMAX:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 <= K <= {KMAX} "
+                         f"samples, got K = {K}")
     Rk = torch.empty(B, 3, 3, dtype=f32, device=dev)
     pk = torch.empty(B, 3, dtype=f32, device=dev)
     vk = torch.empty(B, 3, dtype=f32, device=dev)
     P = torch.empty(B, 24, 24, dtype=f32, device=dev)
     Psi = torch.empty(B, 24, 24, dtype=f32, device=dev)
+    if B == 0:
+        return Rk, pk, vk, P, Psi
     fn = _lib.function(_LIB, "rvio_propagate_block", _ARGS)
     _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (
         w, a, dte, R0, vR, gR, bg, ba, P0, Rk, pk, vk, P, Psi)),

@@ -4,17 +4,20 @@ Replaces rvio_tpu/ops/spd_solve.py (``batched_quadform_pallas``,
 ``_quadform_kernel``); CUDA source ``csrc/spd_solve.cu``.
 
 Bound on the H100 at the operating point (F=100, m=2L=30, f32): the call
-reads S and r once (F*m*(m+1)*4 B = 372 KB, about 0.11 us at 3.35 TB/s)
-and does about F*(m^3/3 + m^2) = 1 MFLOP (0.015 us at 67 TFLOP/s): both are
-far below a kernel launch, so it is launch- and latency-bound.  The design
-answers the latency: one launch for the whole batch, one block per feature
-with S in shared memory (no device-memory round trip between the m
-Cholesky steps), and the trailing update of each step spread over the
-block, so a step costs one barrier.  The TPU kernel's 128-lane packing and
-transposes are not carried over.
+reads the lower triangle of S and r once and writes D (198 KB, 0.059 us at
+3.35 TB/s) and does about F*(m^3/3 + m^2) = 1 MFLOP (0.015 us at
+67 TFLOP/s): both are far below a kernel launch, so it is bound by the
+latency of the m dependent Cholesky steps.  The design gives each feature
+one warp with S in registers (lane i holds row i of the lower triangle,
+and row i + 32 for m > 32): a step is one rsqrtf, a few shuffles and the
+column's broadcast from a per-warp buffer, with no division and no block
+barrier; four features a block.  It takes 1 <= m <= MAX_M.  The TPU
+kernel's 128-lane packing and transposes are not carried over.
 
-NaN semantics (the gate relies on them): an indefinite or zero S gives a
-NaN D for that feature alone, so ``D < threshold`` rejects it.
+NaN semantics (the gate relies on them): an indefinite S gives a NaN D
+for that feature alone, so ``D < threshold`` rejects it (a pivot of
+exactly zero gives NaN in the plain version and +inf or NaN in the
+kernel, rejected alike).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from rvio_tpu_torch.ops import _lib
 
 _LIB = "spd_solve"
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+MAX_M = 64     # two rows of S a lane
 
 
 def batched_quadform_plain(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -41,15 +45,20 @@ def batched_quadform_plain(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def batched_quadform(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """D[f] = r[f]^T S[f]^-1 r[f] for S (F, m, m), r (F, m) -> (F,).
 
-    A CUDA tensor runs the kernel (f32 only); a CPU tensor the plain
-    version."""
+    A CUDA tensor runs the kernel (f32, 1 <= m <= MAX_M); a CPU tensor the
+    plain version."""
     if not _lib.uses_kernel(S, "batched_quadform"):
         return batched_quadform_plain(S, r)
     F, m = S.shape[0], S.shape[-1]
     dev = S.device
     _lib.check("batched_quadform", "S", S, (F, m, m), torch.float32, dev)
     _lib.check("batched_quadform", "r", r, (F, m), torch.float32, dev)
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"batched_quadform: the CUDA kernel takes 1 <= m <= "
+                         f"{MAX_M}, got m = {m}")
     D = torch.empty(F, dtype=torch.float32, device=dev)
+    if F == 0:
+        return D
     fn = _lib.function(_LIB, "rvio_spd_quadform", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(S), _lib.ptr(r), _lib.ptr(D), F, m, device=dev)
     batched_quadform.launches += 1

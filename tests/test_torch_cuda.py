@@ -15,7 +15,9 @@ the small config, as accurate as it); a frame of images -> poses (CLAHE
 off and on), ``ImagePipeline.process_device`` and the filter step with
 K5 make no synchronizing call; K5 takes the wider ridge where its plain
 version does, and the filter with K5 stays with the filter that runs the
-library chain in its place;
+library chain in its place; K1 at every trip count, for several streams
+and past a warp's lanes of samples, and K4 at every order it takes, for
+feature counts that do not fill a block, with an indefinite lane;
 the replay of an ASL folder is the rendered scan of the same frames, and
 a resumed replay the uninterrupted one.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -588,6 +590,122 @@ def test_lm_triangulate_lengths(cuda, L):
     assert torch.equal(got[3], ok) and bool(ok.any())
     for x, y in zip(got[:3], want[:3]):
         assert float((x - y).abs()[ok].max()) <= 1e-4
+
+
+def _k1_stream(rng, dte):
+    """One stream's K1 inputs (numpy) for the sample steps ``dte``: the
+    draws of ops/checks.py's case, R0 != I, one small-angle sample."""
+    from rvio_tpu_torch.core.so3 import rodrigues_np
+    K = len(dte)
+    A = rng.normal(size=(24, 24)) * 0.01
+    ax = rng.normal(size=3)
+    w = rng.normal(size=(K, 3)) * 0.4
+    w[1] = 1e-8
+    a = rng.normal(size=(K, 3)) * 2.0 + [0, 0, 9.8]
+    g = np.array([0.05, -0.02, 0.998])
+    return [w, a, dte, rodrigues_np(ax / np.linalg.norm(ax), 1.0),
+            rng.normal(size=3), g / np.linalg.norm(g),
+            rng.normal(size=3) * 0.01, rng.normal(size=3) * 0.05,
+            A @ A.T + np.eye(24) * 1e-4]
+
+
+def _k1_check(cuda, streams):
+    from rvio_tpu_torch.config import RVIOConfig
+    from rvio_tpu_torch.ops.checks import propagate_case
+    chk = propagate_case(RVIOConfig(), cuda,
+                         [np.stack(x) for x in zip(*streams)])
+    before = chk.kernel.launches
+    chk.check()                    # the check's 1e-5, P relative to max|P|
+    torch.cuda.synchronize()
+    assert chk.kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_valid", [0, 1, 7, 11, 16])
+def test_propagate_block_trip_counts(cuda, n_valid):
+    """K1 runs up to the last sample with dt > 0 (one step when there is
+    none) and agrees with the plain version, which runs all 16."""
+    dte = np.where(np.arange(16) < n_valid, 0.005, 0.0)
+    _k1_check(cuda, [_k1_stream(np.random.default_rng(n_valid), dte)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [32, 40])
+def test_propagate_block_streams(cuda, K):
+    """B = 3 streams of K samples (static and dynamic shared memory past
+    48 KB; K = 40 past one sample a lane) with 11, 0 and K - 3 valid
+    samples, the third with dt = 0 at two samples inside its valid range
+    (steps that must run), in one launch."""
+    dtes = [np.where(np.arange(K) < n, 0.005, 0.0) for n in (11, 0, K - 3)]
+    dtes[2][[3, 20]] = 0.0
+    rng = np.random.default_rng(K)
+    _k1_check(cuda, [_k1_stream(rng, d) for d in dtes])
+
+
+@pytest.mark.gpu
+def test_propagate_block_refuses_long_blocks(cuda):
+    from rvio_tpu_torch.ops.propagate_block import KMAX
+    dte = np.full(KMAX + 1, 0.005)
+    with pytest.raises(ValueError):
+        _k1_check(cuda, [_k1_stream(np.random.default_rng(0), dte)])
+
+
+def _spd_stack(rng, F, m, bad=None):
+    """F symmetric positive definite m x m systems (cond(S) at most about
+    400), lane ``bad`` made indefinite, and right-hand sides."""
+    A = rng.normal(size=(F, m, m)) / np.sqrt(m)
+    S = A @ np.transpose(A, (0, 2, 1)) + 1e-2 * np.eye(m)
+    if bad is not None:
+        S[bad] -= 2 * np.abs(np.linalg.eigvalsh(S[bad])).max() * np.eye(m)
+    return S, rng.normal(size=(F, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 30, 32, 33, 40, 64])
+def test_batched_quadform_orders(cuda, m):
+    """K4 at every padded order it takes (8, 16, 32 with a row a lane; 64
+    with two), at F = 1, 3, 100 and 257 features (not all multiples of
+    the four warps a block): within the check's rtol 2e-3 of the plain
+    version, and with three or more features one indefinite lane, NaN in
+    both and only it."""
+    from rvio_tpu_torch.ops.spd_solve import (batched_quadform,
+                                              batched_quadform_plain)
+    rng = np.random.default_rng(m)
+    for F in (1, 3, 100, 257):
+        bad = F // 2 if F >= 3 else None
+        S, r = (torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+                for x in _spd_stack(rng, F, m, bad))
+        before = batched_quadform.launches
+        got = batched_quadform(S, r)
+        torch.cuda.synchronize()
+        assert batched_quadform.launches == before + 1
+        want = batched_quadform_plain(S, r)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert int(nan.sum()) == (bad is not None)
+        if bad is not None:
+            assert bool(nan[bad])
+        rel = ((got - want).abs() / want.abs())[~nan].max()
+        assert float(rel) <= 2e-3, (F, float(rel))
+
+
+@pytest.mark.gpu
+def test_batched_quadform_refuses_large_orders(cuda):
+    from rvio_tpu_torch.ops.spd_solve import MAX_M, batched_quadform
+    m = MAX_M + 1
+    S = torch.eye(m, device=cuda)[None].contiguous()
+    with pytest.raises(ValueError):
+        batched_quadform(S, torch.ones(1, m, device=cuda))
+
+
+@pytest.mark.gpu
+def test_batched_quadform_no_features(cuda):
+    """F = 0: an empty D, and no launch."""
+    from rvio_tpu_torch.ops.spd_solve import batched_quadform
+    before = batched_quadform.launches
+    D = batched_quadform(torch.zeros(0, 30, 30, device=cuda),
+                         torch.zeros(0, 30, device=cuda))
+    assert D.shape == (0,) and batched_quadform.launches == before
 
 
 @pytest.mark.gpu
