@@ -33,6 +33,10 @@ set to 0 just before it and read just after:
   kernel launches as often as the path implies, ATE below 0.05 m, the
   front-end acceptance gates of tests/test_flagship_image_ate.py hold, and
   the first 50 frames agree with the CPU plain path;
+- K8 and K6 on the tracker's inputs at tracked frame 100 of the CLAHE-on
+  path (captured on the card), at each of the four pyramid levels: each
+  against its plain version, with T (the largest trip count) and the
+  device time;
 - the public entries that no path reaches, the detector's
   ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
   workload's frames and the tracker's live positions, each against its
@@ -120,6 +124,9 @@ WRITE_THREADS = 6
 REPLAY_SCAN_FRAMES = 300
 BAG_FRAMES = 200
 REPLAY_GAP_M = 1e-6
+# K8 and K6 on a real frame: the tracker's calls at this tracked frame of
+# the CLAHE-on image path
+KLT_FRAME = 100
 # front-end acceptance gates of tests/test_flagship_image_ate.py:49-53
 ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
                 "gate_reject_rate": ("<", 0.50),
@@ -233,6 +240,15 @@ def expected_launches(n: int, equalizer: bool = True) -> dict:
     return out
 
 
+def bound_ms(chk):
+    """The least time the card could take for a check's work, in ms, and
+    what bounds it: its bytes at the memory rate or its operations at the
+    f32 rate, whichever is larger."""
+    t_bytes = (chk.bytes_read + chk.bytes_written) / PEAK_BYTES_PER_S * 1e3
+    t_ops = chk.flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def measure(chk, label: str = "") -> dict:
     """Kernel vs plain on the card (raises over the tolerance), the device
     time per launch (a CUDA graph of 200), the eager call, the plain
@@ -242,8 +258,7 @@ def measure(chk, label: str = "") -> dict:
     err = chk.check()
     torch.cuda.synchronize()
     nbytes = chk.bytes_read + chk.bytes_written
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = chk.flops / PEAK_F32_FLOP_PER_S * 1e3
+    bound, bound_by = bound_ms(chk)
     ms = device_ms(chk.run_kernel, reps=200)
     per_call_ms = call_ms(chk.run_kernel, reps=200)
     plain_ms = call_ms(chk.run_plain, reps=10)
@@ -254,8 +269,7 @@ def measure(chk, label: str = "") -> dict:
                                             reps=200)
     rec = dict(name=chk.name, route="cuda", source=chk.source,
                replaces=chk.replaces, launches=0, max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                library_ms=lib_ms, library_device_ms=lib_dev_ms,
                library_device_how=how)
     info = "".join(f", {k} {v}" for k, v in chk.info.items())
@@ -293,15 +307,12 @@ def image_phase(dev, sim, kernels, records, equalizer: bool,
     or all), then its first frames on the CPU.  With the equalizer on, the
     image kernels' launches go to ``records``.  Returns the card run."""
     from rvio_tpu_torch.eval.ate import ate_rmse
-    from rvio_tpu_torch.runtime import bundle_imu, run_rendered_sequence_scan
-    from rvio_tpu_torch.runtime.image_driver import _find_init_frame
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
 
     cfg = image_config(equalizer)
     label = "image path (equalizer on)" if equalizer else \
         "image path (equalizer off)"
-    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
-    _, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
-                             "cpu")
+    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
     k_end = len(sim.frame_t) if n_frames is None else k0 + 1 + n_frames
     # warm-up: library handles and the allocator's pool
     run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 9)
@@ -364,6 +375,105 @@ def image_phase(dev, sim, kernels, records, equalizer: bool,
     if not (agree >= IMG_CPU_ACTIVE_AGREE and dp < IMG_CPU_GAP_POS_M):
         raise AssertionError("card image path and CPU plain path disagree")
     return res
+
+
+def workload_sim():
+    """bench.py's 60 s synthetic sequence at ``RVIOConfig()``."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.dataio import simulate_sequence
+    return simulate_sequence(RVIOConfig(), duration=60.0, static_time=1.5,
+                             ramp_time=5.0, seed=7, n_landmarks=2000,
+                             motion_scale=0.8, meas_noise=0.001,
+                             imu_noise=True)
+
+
+def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
+    """The inputs of the tracker's K6 and K8 calls at tracked frame
+    ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``, CLAHE
+    on).  Per pyramid level, coarsest first: (level, the template gather's
+    (image, origins), the search gather's, K8's args, K8's kwargs)."""
+    from unittest import mock
+
+    import rvio_tpu_torch.frontend.klt as klt
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    cfg = image_config(True) if cfg is None else cfg
+    levels = cfg.tracker.klt_levels + 1
+    calls = {"lk_level": [], "gather_tiles": []}
+
+    def recorder(name, keep):
+        fn = getattr(klt, name)
+
+        def record(*args, **kw):
+            kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            calls[name] = (calls[name] + [(kept, dict(kw))])[-keep:]
+            return fn(*args, **kw)
+        return record
+
+    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    with mock.patch.object(klt, "lk_level", recorder("lk_level", levels)), \
+            mock.patch.object(klt, "gather_tiles",
+                              recorder("gather_tiles", 2 * levels)):
+        res = run_rendered_sequence_scan(cfg, sim, device=dev,
+                                         max_frames=k0 + 1 + frame)
+    if len(res.timestamps) != frame:
+        raise AssertionError(f"the capture run tracked {len(res.timestamps)} "
+                             f"frames, not {frame}")
+    out = []
+    for i in range(levels):
+        tmpl, search = (calls["gather_tiles"][2 * i + k][0][:2] for k in (0, 1))
+        args, kw = calls["lk_level"][i]
+        out.append((levels - 1 - i, tmpl, search, args, kw))
+    return out
+
+
+def klt_frame_phase(dev, sim, records) -> None:
+    """K8 and K6 on the tracker's inputs at tracked frame KLT_FRAME of the
+    CLAHE-on image path, at each pyramid level: each against its plain
+    version (raises over the check's tolerance), T and the trip counts of
+    the live features (plain version), the device time a launch (a CUDA
+    graph of 200); into each kernel's record as ``frame_levels``."""
+    from rvio_tpu_torch.ops.checks import lk_case, tile_case
+    t0 = time.perf_counter()
+    captured = capture_klt_frame(dev, sim)
+    print(f"KLT inputs of tracked frame {KLT_FRAME} (CLAHE on) captured on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    k8_levels, k6_levels = [], []
+    for lvl, tmpl, search, args, kw in captured:
+        what = f" (frame {KLT_FRAME}, level {lvl})"
+        lk = lk_case(dev, args, kw, what=what)
+        err = lk.check()
+        tiles = [tile_case(dev, img, o, what=what) for img, o in (tmpl, search)]
+        for chk in tiles:
+            chk.check()
+        torch.cuda.synchronize()
+        H, W = tmpl[0].shape
+        live = args[5].cpu().numpy()
+        trips = lk.trips[live]
+        T = int(lk.trips.max(initial=0))
+        hist = {int(k): int(v) for k, v in
+                zip(*np.unique(trips, return_counts=True))}
+        ms = device_ms(lk.run_kernel, reps=200)
+        ms6 = [device_ms(chk.run_kernel, reps=200) for chk in tiles]
+        k8_levels.append(dict(level=lvl, hw=[H, W], n_live=int(live.sum()),
+                              T=T, trips=hist, max_abs_err=err,
+                              alive_agree=lk.info["alive_agree"], ms=ms))
+        k6_levels.append(dict(level=lvl, hw=[H, W], max_abs_err=0.0,
+                              ms_template=ms6[0], ms_search=ms6[1]))
+        print(f"kernel lk_level{what}: {H}x{W}, {int(live.sum())} live of "
+              f"{len(live)}, trips of the live {hist}, T {T}; err {err:.3e} "
+              f"(tolerance: {lk.tolerance}, alive agree "
+              f"{lk.info['alive_agree']:.4f}); {ms * 1e3:.2f} us/launch on "
+              f"the device, bound {bound_ms(lk)[0] * 1e3:.3f} us", flush=True)
+        print(f"kernel gather_tiles{what}: exact; template tiles "
+              f"{ms6[0] * 1e3:.2f} us/launch, search tiles "
+              f"{ms6[1] * 1e3:.2f} us/launch on the device, bounds "
+              f"{bound_ms(tiles[0])[0] * 1e3:.3f} and "
+              f"{bound_ms(tiles[1])[0] * 1e3:.3f} us", flush=True)
+    for _, r in records:
+        if r["name"] == "lk_level":
+            r["frame_levels"] = k8_levels
+        elif r["name"] == "gather_tiles":
+            r["frame_levels"] = k6_levels
 
 
 def _render_u8(cfg, sim, k):
@@ -687,11 +797,11 @@ def write_asl(root, cfg, sim):
     return seq, dataclasses.replace(sim, imu_t=seq.imu_t, frame_t=seq.cam_t)
 
 
-def _init_frame(cfg, seq) -> int:
+def _init_frame(cfg, imu_t, imu_w, imu_a, frame_t) -> int:
     from rvio_tpu_torch.runtime import bundle_imu
     from rvio_tpu_torch.runtime.image_driver import _find_init_frame
-    groups = bundle_imu(seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t)
-    return _find_init_frame(cfg, groups, len(seq.cam_t), torch.float32,
+    groups = bundle_imu(imu_t, imu_w, imu_a, frame_t)
+    return _find_init_frame(cfg, groups, len(frame_t), torch.float32,
                             "cpu")[1]
 
 
@@ -765,7 +875,7 @@ def replay_checks(dev, seq, kernels, scan, tmp) -> None:
     from rvio_tpu_torch.runtime import run_euroc_sequence_scan
 
     cfg = RVIOConfig()
-    k0 = _init_frame(cfg, seq)
+    k0 = _init_frame(cfg, seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t)
     m = REPLAY_SCAN_FRAMES
     _zero(kernels)
     rep = run_euroc_sequence_scan(cfg, seq, device=dev, max_frames=k0 + 1 + m)
@@ -847,7 +957,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from rvio_tpu_torch import RVIOConfig
-    from rvio_tpu_torch.dataio import simulate_sequence
     from rvio_tpu_torch.eval.ate import ate_rmse
     from rvio_tpu_torch.ops import _lib
     from rvio_tpu_torch.ops.checks import kernel_checks
@@ -881,9 +990,7 @@ def main() -> int:
     # ---- main path: SequenceDriver on the card, bench.py's workload ----
     cfg = RVIOConfig()
     t0 = time.perf_counter()
-    sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,
-                            ramp_time=5.0, seed=7, n_landmarks=2000,
-                            motion_scale=0.8, meas_noise=0.001, imu_noise=True)
+    sim = workload_sim()
     batches = batches_from_sim(sim)
     print(f"workload: {len(sim.frame_t)} frames simulated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -958,6 +1065,7 @@ def main() -> int:
         image_phase(dev, sim_f, kernels, records, equalizer=False,
                     n_frames=IMG_OFF_FRAMES)
         scan = image_phase(dev, sim_f, kernels, records, equalizer=True)
+        klt_frame_phase(dev, sim_f, records)
         drv = online_phase(dev, sim_f, kernels, scan)
         entries_phase(dev, sim_f, kernels, records, drv)
         replay_phase(dev, root, seq, kernels, records, tmp)

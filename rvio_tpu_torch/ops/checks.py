@@ -431,11 +431,19 @@ def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
 
 
 def _tile_case(cfg, dev, rng) -> KernelCheck:
-    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
-    from rvio_tpu_torch.ops import tile_gather as k6
+    from rvio_tpu_torch.frontend.klt import tile_origins
     img, _, pts = _frame_pair(cfg, rng)
     H, W = img.shape
-    o = tile_origins(torch.as_tensor(pts), H, W).to(dev)
+    return tile_case(dev, img, tile_origins(torch.as_tensor(pts), H, W))
+
+
+def tile_case(dev, img, o, what: str = "") -> KernelCheck:
+    """K6 on an (H, W) f32 image and (N, 2) int32 origins (any device; the
+    check runs on ``dev``), compared bitwise."""
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H
+    from rvio_tpu_torch.ops import tile_gather as k6
+    H, W = img.shape
+    o = o.to(dev)
     img = img.to(dev)
     rows = (o[:, 1, None] + torch.arange(TILE_H, device=dev)).long()
     cols = (o[:, 0, None] + torch.arange(TILE, device=dev)).long()
@@ -446,14 +454,15 @@ def _tile_case(cfg, dev, rng) -> KernelCheck:
 
     def compare(ko, po):
         if not torch.equal(ko, po):
-            raise AssertionError("gather_tiles: kernel and plain differ")
+            raise AssertionError(f"gather_tiles{what}: kernel and plain "
+                                 f"differ")
         return 0.0
 
     # the image pixels the clamped tiles cover (their union: tiles may
     # overlap) and the origins in; the tiles out
     oc = o.cpu().numpy()
-    y0 = np.clip(oc[:, 1], 0, H - TILE_H)
-    x0 = np.clip(oc[:, 0], 0, W - TILE)
+    y0 = np.clip(oc[:, 1], 0, max(H - TILE_H, 0))
+    x0 = np.clip(oc[:, 0], 0, max(W - TILE, 0))
     covered = np.zeros((H, W), bool)
     for y, x in zip(y0, x0):
         covered[y:y + TILE_H, x:x + TILE] = True
@@ -467,13 +476,20 @@ def _tile_case(cfg, dev, rng) -> KernelCheck:
 
 
 def _lk_inputs(cfg, rng):
+    img1, img2, pts = _frame_pair(cfg, rng)
+    return lk_inputs(img1, img2, pts, cfg.tracker.klt_window)
+
+
+def lk_inputs(img1, img2, pts, win: int):
+    """K8's arguments at level 0 for points ``pts`` (N, 2) xy of ``img1``
+    tracked into ``img2`` from their own positions: the tiles around them,
+    status the in-bounds test.  Returns (args, (H, W))."""
     from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
     from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
-    img1, img2, pts = _frame_pair(cfg, rng)
     H, W = img1.shape
     p = torch.as_tensor(pts, dtype=torch.float32)
     o = tile_origins(p, H, W)
-    r = cfg.tracker.klt_window // 2 + 1
+    r = win // 2 + 1
     inb = ((p[:, 0] > r) & (p[:, 0] < W - r - 1)
            & (p[:, 1] > r) & (p[:, 1] < H - r - 1))
     t_tiles = gather_tiles_plain(img1, o, TILE_H, TILE)
@@ -504,13 +520,10 @@ def lk_level_reads(args, kwargs) -> int:
     N, TH, TW = t_tiles.shape
     win = kwargs["win"]
     r = win // 2
-    l0 = loc0.double().numpy()
-    ty0, ty1 = _tap_span(l0[:, 1], win, r, TH)
-    tx0, tx1 = _tap_span(l0[:, 0], win, r, TW)
     every = np.ones(N, bool)
     pixels = _box_union((N, TH, TW), [(
-        np.maximum(ty0 - 1, 0), np.minimum(ty1 + 1, TH - 1),
-        np.maximum(tx0 - 1, 0), np.minimum(tx1 + 1, TW - 1), every)])
+        *(x.numpy() for x in k8.template_support(loc0, win, TH, TW)),
+        every)])
 
     def after(k):
         kw = dict(kwargs, max_iters=k, last=False)
@@ -542,43 +555,70 @@ def lk_level_reads(args, kwargs) -> int:
 
 def _lk_case(cfg, dev, rng) -> KernelCheck:
     from rvio_tpu_torch.frontend.klt import TILE
-    from rvio_tpu_torch.ops import klt_iterate as k8
     args, hw = _lk_inputs(cfg, rng)
     win = cfg.tracker.klt_window
     kwargs = dict(win=win, max_iters=cfg.tracker.klt_max_iters,
                   eps=cfg.tracker.klt_eps, min_eig=cfg.tracker.klt_min_eig,
                   wander=float(TILE - win) / 2.0 - 1.0, last=True, hw=hw)
+    return lk_case(dev, args, kwargs)
+
+
+LK_POS_TOL = 1e-3
+LK_ALIVE_AGREE = 0.995
+
+
+def compare_lk(ko, po, what: str = "", info=None) -> float:
+    """K8's outputs (guess, status, err) against its plain version's: the
+    status flags agree on at least LK_ALIVE_AGREE of the features, and
+    where both are alive positions and errors within LK_POS_TOL px (two
+    summation orders; a feature whose trips end at the wander or eps test
+    may part).  Returns that error, raises over the tolerance; ``info``
+    gets the agreement and the alive count."""
+    info = {} if info is None else info
+    (gk, sk, ek), (gp, sp, ep) = ([_np(x) for x in o] for o in (ko, po))
+    sk, sp = sk.astype(bool), sp.astype(bool)
+    info["alive_agree"] = float((sk == sp).mean()) if len(sp) else 1.0
+    info["alive"] = int(sp.sum())
+    if not info["alive_agree"] >= LK_ALIVE_AGREE:
+        raise AssertionError(f"lk_level{what}: alive flags agree on "
+                             f"{info['alive_agree']:.3f} < {LK_ALIVE_AGREE}")
+    both = sk & sp
+    err = float(max(np.abs(gk - gp)[both].max(initial=0.0),
+                    np.abs(ek - ep)[both].max(initial=0.0)))
+    if not err <= LK_POS_TOL:
+        _fail(f"lk_level{what}", "position/err max abs (alive in both)",
+              err, LK_POS_TOL)
+    return err
+
+
+def lk_case(dev, args, kwargs, what: str = "") -> KernelCheck:
+    """K8 on ``args`` (t_tiles, n_tiles, loc0, g_init, o1, status; any
+    device, the check runs on ``dev``) and ``kwargs``; ``info["trips"]``
+    holds each feature's trip count from the plain version."""
+    from rvio_tpu_torch.ops import klt_iterate as k8
+    args = tuple(x.cpu() for x in args)
     N, TH, TW = args[0].shape
-    trips = _np(k8.lk_level_trips(*args, **kwargs)[3])
+    win = kwargs["win"]
+    trips = _np(k8.lk_level_trips(*args, **kwargs)[3]).astype(np.int64)
     # tile pixels, then loc0, g_init, o1 and status in; the guess, the
     # status and err out
     read = F32 * (lk_level_reads(args, kwargs) + 6 * N) + N
     written = (3 * F32 + 1) * N
     args = tuple(x.to(dev) for x in args)
-    tol, agree = 1e-3, 0.995
     info = {}
 
     def compare(ko, po):
-        (gk, sk, ek), (gp, sp, ep) = ([_np(x) for x in o] for o in (ko, po))
-        sk, sp = sk.astype(bool), sp.astype(bool)
-        info["alive_agree"] = float((sk == sp).mean())
-        info["alive"] = int(sp.sum())
-        if not info["alive_agree"] >= agree:
-            raise AssertionError(f"lk_level: alive flags agree on "
-                                 f"{info['alive_agree']:.3f} < {agree}")
-        both = sk & sp
-        err = float(max(np.abs(gk - gp)[both].max(initial=0.0),
-                        np.abs(ek - ep)[both].max(initial=0.0)))
-        if not err <= tol:
-            _fail("lk_level", "position/err max abs (alive in both)", err, tol)
-        return err
+        return compare_lk(ko, po, what, info)
 
-    return KernelCheck(
+    chk = KernelCheck(
         "lk_level", "rvio_tpu_torch/csrc/lk_level.cu",
         "rvio_tpu/ops/klt_iterate.py:265", k8.lk_level, k8.lk_level_plain,
         args, kwargs, "alive agree >= 99.5 %; position and err 1e-3 where "
-        "both alive", compare, float(lk_level_flops(trips, TH, TW, win, True)),
-        read, written, info=info)
+        "both alive", compare,
+        float(lk_level_flops(trips, TH, TW, win, kwargs["last"])), read,
+        written, info=info)
+    chk.trips = trips
+    return chk
 
 
 def subpix_flops(n: int, win: int, iters: int) -> int:

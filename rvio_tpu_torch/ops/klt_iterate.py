@@ -27,23 +27,29 @@ The oracle's LK loop is a batch ``while`` that stops when no feature is
 live.  A feature that converged keeps being tested against the wander
 bound on the trips other features still run, so its final status depends
 on T, the largest trip count in the call.  The kernel runs each feature's
-own trips in its block, counts them, and a second one-block pass takes T
-and applies that last wander test; the plain version runs all
-``max_iters`` trips with the test gated on "some feature still live".
+own trips, counts them, and the block that finishes last (a ticket drawn
+by every block, one counter per CUDA stream, kept here) takes T and
+applies that last wander test in the same launch; the plain version runs
+all ``max_iters`` trips with the test gated on "some feature still live".
 
 Bounds on the H100 at the operating point (200 features, 40 x 32 f32
 tiles, win 15, 30 iterations at most; 10 iterations of a 17 x 17 patch for
 subpix), counting only the tile pixels the function samples
 (``ops/checks.py``: ``lk_level_reads``, ``subpix_reads``): K8 reads each
-template's window support with its Scharr halo and the search-tile
-windows its live trips visit, about 0.48 MB in the check, 0.14 us at
-3.35 TB/s, more than its operations (6.8 MFLOP, 0.10 us at 67 TFLOP/s);
-K9 reads the patch supports of its iterations, 0.35 MB or 0.10 us, and
-its 15.5 MFLOP take 0.23 us: it is bound by operations.  Both bounds are
-far under a launch.  They are latency-bound chains of dependent iterations;
-the design answers that with one block per feature, its tiles in shared
-memory (about 20 KB for K8), one thread per window tap, and a block
-reduction per step, so an iteration never touches device memory.
+template's window support with its Scharr halo (:func:`template_support`)
+and the search-tile windows its live trips visit, about 0.48 MB in the
+check, 0.14 us at 3.35 TB/s, more than its operations (6.8 MFLOP, 0.10 us
+at 67 TFLOP/s); K9 reads the patch supports of its iterations, 0.35 MB or
+0.10 us, and its 15.5 MFLOP take 0.23 us: it is bound by operations.  Both
+bounds are far under a launch.  They are latency-bound chains of dependent
+iterations.  K8 answers that with a warp per feature: both tiles arrive by
+one bulk copy each, the template's gradients are formed over its support
+box only, a lane keeps a strip of eight window taps (and the search
+pixels under it) in registers and every sum is a warp shuffle, so a
+Gauss-Newton step never waits on a block barrier or touches device memory;
+the block that finishes last applies the T rule in the same launch
+(csrc/lk_level.cu).  K9 keeps one block per corner,
+one thread per patch tap and a block reduction per step.
 """
 
 from __future__ import annotations
@@ -56,11 +62,14 @@ import torch.nn.functional as F
 from rvio_tpu_torch.ops import _lib
 
 _LK_LIB = "lk_level"
-_LK_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+_LK_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
             + [ctypes.c_int] * 3)
+# K8's finish tickets: per device a buffer of counters, one per stream
+_TICKET_SLOTS = 1024
+_tickets: dict = {}
 _SP_LIB = "subpix_refine"
 _SP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-_MAX_TAPS = 256     # one thread per window tap
+_MAX_TAPS = 256     # K8: eight taps a lane; K9: one thread per patch tap
 
 
 # --- sampling primitives of the oracle (frontend/klt.py:96-147) -------------
@@ -191,8 +200,9 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     (H, W)) adds the in-bounds test of the result and the mean-abs error.
     Returns (guess (N, 2), status (N,) bool, err (N,)).
 
-    A CUDA tensor runs the kernel (f32 tiles and points, int32 origins);
-    a CPU tensor the plain version."""
+    A CUDA tensor runs the kernel (f32 tiles and points, int32 origins;
+    tiles of a multiple of 4 pixels starting on 16-byte boundaries, a
+    window of at most 256 taps); a CPU tensor the plain version."""
     kw = dict(win=win, max_iters=max_iters, eps=eps, min_eig=min_eig,
               wander=wander, last=last, hw=hw)
     if not _lib.uses_kernel(t_tiles, "lk_level"):
@@ -210,22 +220,73 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     if win * win > _MAX_TAPS:
         raise ValueError(f"lk_level: a {win}x{win} window exceeds "
                          f"{_MAX_TAPS} taps")
+    if TH < 2 or TW < 2 or (TH * TW) % 4:
+        raise ValueError(f"lk_level: a {TH}x{TW} tile is not one bulk copy "
+                         f"(at least 2 x 2, a multiple of 4 pixels)")
+    if t_tiles.data_ptr() % 16 or n_tiles.data_ptr() % 16:
+        raise ValueError("lk_level: the tiles must start on 16-byte "
+                         "boundaries (bulk copies)")
     g = torch.empty((N, 2), dtype=f32, device=dev)
     out_status = torch.empty(N, dtype=torch.bool, device=dev)
     err = torch.empty(N, dtype=f32, device=dev)
-    # per-feature scratch between the level pass and the one-block finish
-    trips = torch.empty(N, dtype=torch.int32, device=dev)
-    alive = torch.empty(N, dtype=torch.bool, device=dev)
-    dok = torch.empty(N, dtype=torch.bool, device=dev)
+    # per-feature trips and flags, for the block that finishes last
+    scratch = torch.empty(N, dtype=torch.int32, device=dev)
     fn = _lib.function(_LK_LIB, "rvio_lk_level", _LK_ARGS)
     H, W = hw
     _lib.call(_LK_LIB, fn, *map(_lib.ptr, (
         t_tiles, n_tiles, loc0, g_init, o1, status, g, out_status, err,
-        trips, alive, dok)), N, TH, TW, win, max_iters, ctypes.c_float(eps),
-        ctypes.c_float(min_eig), ctypes.c_float(wander), int(last), H, W,
-        device=dev)
+        scratch)), _ticket(dev), N, TH, TW, win, max_iters,
+        ctypes.c_float(eps), ctypes.c_float(min_eig), ctypes.c_float(wander),
+        int(last), H, W, device=dev)
     lk_level.launches += 1
     return g, out_status, err
+
+
+def _ticket(dev: torch.device) -> ctypes.c_void_p:
+    """Address of K8's finish ticket for the current stream on ``dev``.
+
+    The kernel counts its blocks on it and leaves it at 0, so launches on
+    one stream, which run one after another, reuse it; launches on two
+    streams may overlap, so each stream has its own.  The counters are
+    allocated, zeroed, at the first call on a device, which must not be
+    captured into a CUDA graph.  A graph keeps the counter of the stream
+    it was captured on: two graphs captured on one stream must be replayed
+    on one stream."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pool = _tickets.get(dev.index)
+    if pool is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("lk_level: the first call on a device must "
+                               "not be captured (it allocates the tickets)")
+        pool = _tickets[dev.index] = (
+            torch.zeros(_TICKET_SLOTS, dtype=torch.int32, device=dev), {})
+    counters, slots = pool
+    slot = slots.get(stream)
+    if slot is None:
+        if len(slots) == _TICKET_SLOTS:
+            raise RuntimeError(f"lk_level: more than {_TICKET_SLOTS} streams")
+        slot = slots[stream] = len(slots)
+    return ctypes.c_void_p(counters.data_ptr() + 4 * slot)
+
+
+def template_support(loc0: torch.Tensor, win: int, TH: int, TW: int):
+    """Inclusive box ``(y0, y1, x0, x1)``, each (N,) int64, of the
+    template-tile pixels one LK level reads around ``loc0`` (N, 2) xy: the
+    2 x 2 supports of the window's clipped taps (``_window_indices``) and
+    the one-pixel halo of their Scharr gradients, within the tile.  No
+    pixel outside it reaches the outputs (tests/test_torch_lk_support.py);
+    K8 forms its gradients over the box without the halo."""
+    r = win // 2
+
+    def span(loc, size):
+        f = torch.floor(loc).long()
+        lo = torch.clamp(f - r, 0, size - 2)
+        hi = torch.clamp(f - r + win - 1, 0, size - 2) + 1
+        return torch.clamp(lo - 1, min=0), torch.clamp(hi + 1, max=size - 1)
+
+    y0, y1 = span(loc0[:, 1], TH)
+    x0, x1 = span(loc0[:, 0], TW)
+    return y0, y1, x0, x1
 
 
 lk_level.launches = 0

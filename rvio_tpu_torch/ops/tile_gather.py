@@ -13,10 +13,16 @@ Bound on the H100 at the tracker's operating point (N = 200 tiles of
 its clamped tiles cover, once (their union: about 0.99 MB for the 200
 grid-spaced tiles of ``ops/checks.py``, not the whole 1.44 MB image), and
 writes the tiles once (200 * 40 * 32 * 4 B = 1.0 MB), about 2.0 MB or
-0.60 us at 3.35 TB/s, with no arithmetic: bound by bytes.  The design
-answers that: one thread per output pixel, neighbouring threads on
-neighbouring columns of one tile row, so reads and writes coalesce; each
-block reads its own tile's origin.
+0.60 us at 3.35 TB/s, with no arithmetic: bound by bytes, and in practice
+by the latency of a launch and two dependent round trips (the origin,
+then the pixels).  The tracker's one shape, 40 x 32, is specialised at
+compile time: a block a tile, a lane a column (32 = a warp), each of 8
+warps copies 5 rows with every load started before its first store, the
+stores whole aligned 128-byte rows; a tile that cannot fit the image
+(H < 40 or W < 32) takes edge-clamped addresses inside the same kernel.
+Other shapes take a generic kernel, one thread a pixel.  No TMA tensor
+map: the pyramid levels are new allocations every frame, so one would be
+encoded on the host at every call.
 
 K7 (``gather_tiles_aligned``) replaces ``gather_tiles_pallas``
 (``_gather_kernel``) and computes that kernel's own function, which no

@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
-"""Where the time of K1 (csrc/propagate_block.cu) and K4 (csrc/spd_solve.cu)
-goes, phase by phase, on the card.
+"""Where the time of K1 (csrc/propagate_block.cu), K4 (csrc/spd_solve.cu),
+K8 (csrc/lk_level.cu) and K6 (csrc/tile_gather.cu) goes, phase by phase,
+on the card.
 
-    python3 scripts/filter_kernel_phases.py [--kernel k1|k4|both]
-        [--k1-source FILE] [--k4-source FILE] [--reps 50]
+    python3 scripts/filter_kernel_phases.py [--kernel k1|k4|k8|k6|both|all]...
+        [--k1-source FILE] [--k4-source FILE] [--k8-source FILE]
+        [--k6-source FILE] [--frame N] [--reps 50]
 
-For each kernel it builds two throwaway copies of the source into the
-git-ignored ``rvio_tpu_torch/build/phases/``: the source as it is, and one
-with a ``clock64()`` stamp at each ``// phase: <name>`` comment and at the
-kernel's end.  A stamp waits at a barrier (``__syncthreads()``, or
-``__syncwarp()`` in a kernel that has no block barrier), then thread 0 of
-the first block adds the cycles since the previous stamp to the phase that
-was running; a phase inside a loop adds up over its trips.  A source
-without phase comments is taken to be the design of commit a8e45c3 (K1 one
-block of 576 threads, K4 one block of 256 threads a feature), whose phase
-boundaries the script knows; save it with its ``common.cuh`` beside it
-(``git show a8e45c3:rvio_tpu_torch/csrc/propagate_block.cu``).
+Each ``--kN-source`` may be given more than once: every source is split on
+the same inputs in the same call (an old design beside the new one).  For
+each source it builds throwaway copies into the git-ignored
+``rvio_tpu_torch/build/phases/``: the source as it is (with an empty
+kernel beside it), one with a ``clock64()`` stamp at each ``// phase:
+<name>`` comment and at the kernel's end, and, where the design has one,
+a copy without its finish (K8).  A stamp waits at a barrier
+(``__syncthreads()``, or ``__syncwarp()`` in a kernel that has no block
+barrier or whose source says ``// phase sync: __syncwarp()``), then the
+thread that runs the stamped feature (block 0's first thread for K1 and
+K4; for K8 the slowest of the features with the most trips, found by
+timing each) adds the cycles since the
+previous stamp to the phase that was running; a phase inside a loop adds
+up over its trips.  A phase that the stamped feature's block never reaches
+(K8's finish runs in the block that draws the last ticket) reads 0: the
+copy without the finish gives its device time instead.  K6 has no phases:
+its time is set beside an empty kernel's, both CUDA graphs of 200
+launches.
 
-Inputs: the check cases of ``rvio_tpu_torch/ops/checks.py``, K1 at B = 1,
-K = 16 with 11 valid samples and K4 at F = 100, m = 30.  It prints the
-card, each copy's error against the plain version, the unstamped copy's
-device time (a CUDA graph of 200 launches), the stamped copy's, whether
-the two copies' outputs are bitwise equal (the script exits 1 if not), and
-each phase's mean cycles over ``--reps`` launches, its share, and that
-share of the unstamped device time.
+A source without phase comments is taken to be an earlier design whose
+phase boundaries the script knows: for K1 and K4 the designs of commit
+a8e45c3 (K1 one block of 576 threads, K4 one block of 256 threads a
+feature), for K8 that of commit 243dc0e (one block of 256 threads a
+feature, two block barriers a trip, a second one-block launch for the
+finish).  Save it with its ``common.cuh`` beside it (``git show
+243dc0e:rvio_tpu_torch/csrc/lk_level.cu``).
+
+Inputs: the check cases of ``rvio_tpu_torch/ops/checks.py`` (K1 at B = 1,
+K = 16 with 11 valid samples, K4 at F = 100, m = 30, K8 and K6 at 200
+features of a 752 x 480 frame), and with ``--frame N`` also K8's and K6's
+inputs at tracked frame N of the CLAHE-on image path at each pyramid level
+(``chip_smoke.capture_klt_frame``).  It prints the card, each copy's error
+against the plain version, the unstamped copy's device time (a CUDA graph
+of 200 launches), the stamped copy's, whether the two copies' outputs are
+bitwise equal (the script exits 1 if not), and each phase's mean cycles
+over ``--reps`` launches, its share, and that share of the unstamped
+device time; for K8 also the trip counts (T and the stamped feature's).
 """
 
 from __future__ import annotations
@@ -33,7 +53,9 @@ import ctypes
 import re
 import subprocess
 import sys
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +64,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "rvio_tpu_torch" / "csrc"
 MAX_PHASES = 32
+CANDIDATES = 24     # K8: features timed to find the slowest
 
-# Phase comments for the designs of commit a8e45c3: a comment line before
-# each anchor.
+# Phase comments for the earlier designs: a comment line before each anchor.
 OLD_DESIGN = {
     "k1": [("  P[i][j] = P0[(size_t)b * N * N + tid];\n", "load P0, Psi = I"),
            ("    Phi[i][j] = i == j ? 1.f : 0.f;\n", "per-sample reset"),
@@ -56,15 +78,50 @@ OLD_DESIGN = {
             "load S, r"),
            ("  float acc = 0.f;", "30 Cholesky and substitution steps"),
            ("  if (tid == 0) D[f] = acc;", "store D")],
+    "k8": [("  for (int idx = tid; idx < TT; idx += NT) {\n    Tt[idx]",
+            "load both tiles"),
+           ("  // Scharr /32 of the template tile", "whole-tile Scharr"),
+           ("  const int r = win / 2, area = win * win;\n  const bool tap",
+            "template taps, 3-value block_sums"),
+           ("  for (int it = 0; it < max_iters && alive && !conv; ++it) {",
+            "Gauss-Newton trips"),
+           ("  float e = 0.f;\n  if (last) {", "last-level error"),
+           ("  if (tid == 0) {\n    g_out[2 * n] = px;", "store")],
 }
-# The kernel is the last definition of the anonymous namespace.
-KERNEL_END = "}\n\n}  // namespace"
+# The stamped kernel ends where its body closes: before the next definition.
+KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
+              "k8": "}\n\ntemplate <int KT>\nvoid launch(",
+              "k8_old": "}\n\n__global__ void __launch_bounds__(NT)\n"
+                        "lk_finish_kernel"}
+# Which feature a thread stamps for (-1: none).
+BLOCK0 = "(threadIdx.x == 0 && blockIdx.x == 0 ? 0 : -1)"
+STAMPER = {"k1": BLOCK0, "k4": BLOCK0,
+           "k8": "((threadIdx.x & 31) == 0 ? (int)(blockIdx.x * "
+                 "(blockDim.x >> 5) + (threadIdx.x >> 5)) : -1)",
+           "k8_old": "(threadIdx.x == 0 ? (int)blockIdx.x : -1)"}
+# The finish, taken out of a copy: (what, pattern, replacement).
+FINISH = {"k8": ("the last block's finish", r"  if \(!last_block\) return;",
+                 "  return;"),
+          "k8_old": ("the one-block lk_finish_kernel launch",
+                     r"  lk_finish_kernel<<<[^;]*;\n", "")}
 INCLUDE = '#include "common.cuh"\n'
 IO = """
 extern "C" int rvio_phase_io(long long* host, int n, int read) {
   return static_cast<int>(
       read ? cudaMemcpyFromSymbol(host, rvio_st, n * sizeof(long long))
            : cudaMemcpyToSymbol(rvio_st, host, n * sizeof(long long)));
+}
+
+extern "C" int rvio_phase_who(int who) {
+  return static_cast<int>(cudaMemcpyToSymbol(rvio_who, &who, sizeof(int)));
+}
+"""
+EMPTY = """
+__global__ void rvio_empty_kernel() {}
+
+extern "C" int rvio_phase_empty(int grid, int block, cudaStream_t stream) {
+  rvio_empty_kernel<<<grid, block, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 """
 
@@ -77,14 +134,16 @@ def add_old_markers(src: str, kernel: str) -> str:
     return src
 
 
-def instrument(src: str):
+def instrument(src: str, end: str, stamper: str):
     """(stamped source, phase names).  Phase k accumulates into rvio_st[k]."""
-    sync = "__syncthreads()" if "__syncthreads" in src else "__syncwarp()"
+    m = re.search(r"// phase sync: (\S+)\(\)", src)
+    sync = (m.group(1) + "()" if m else
+            "__syncthreads()" if "__syncthreads" in src else "__syncwarp()")
 
     def stamp(k):
         close = (f"if (rvio_ph >= 0) rvio_st[rvio_ph] += rvio_now - rvio_t; "
                  f"rvio_t = rvio_now;")
-        return (f"{sync}; if (threadIdx.x == 0 && blockIdx.x == 0) "
+        return (f"{sync}; if ({stamper} == rvio_who) "
                 f"{{ long long rvio_now = clock64(); {close} }}"
                 + ("" if k is None else f" rvio_ph = {k};"))
 
@@ -99,17 +158,34 @@ def instrument(src: str):
         names.append(m.group(2).strip())
     out.append(src[pos:])
     src = "".join(out)
-    i = src.rindex(KERNEL_END)
+    i = src.rindex(end)
     src = src[:i] + "  " + stamp(None) + "\n" + src[i:]
     i = src.index(INCLUDE) + len(INCLUDE)
     src = (src[:i] + f"\n__device__ long long rvio_st[{MAX_PHASES}];\n"
-           + src[i:] + IO)
+           "__device__ int rvio_who;\n" + src[i:] + IO)
     if len(names) > MAX_PHASES:
         raise ValueError("too many phases")
     return src, names
 
 
-def _k1_call(chk):
+# --- each kernel's C call on a check case ------------------------------------
+
+@dataclass
+class Call:
+    symbol: str
+    argtypes: list
+    ins: List[torch.Tensor]
+    outs: List[torch.Tensor]
+    extra: List[torch.Tensor]      # pointers after the outputs (a ticket)
+    scalars: list
+    n_result: int                  # leading outputs the check compares
+
+    def pointers(self):
+        return [ctypes.c_void_p(t.data_ptr())
+                for t in self.ins + self.outs + self.extra]
+
+
+def _k1_call(chk, text):
     from rvio_tpu_torch.ops import propagate_block as k1
     w, a, dte, R0, vR, gR, bg, ba, P0 = chk.args
     kw = chk.kwargs
@@ -120,119 +196,278 @@ def _k1_call(chk):
     scalars = [B, K, float(kw["gravity"]), float(kw["small_angle"]),
                *k1._sig(kw["sigma_g"], kw["sigma_wg"], kw["sigma_a"],
                         kw["sigma_wa"])]
-    return "rvio_propagate_block", k1._ARGS, [w, a, dte, R0, vR, gR, bg, ba,
-                                              P0], outs, scalars
+    return Call("rvio_propagate_block", k1._ARGS,
+                [w, a, dte, R0, vR, gR, bg, ba, P0], outs, [], scalars, 5)
 
 
-def _k4_call(chk):
+def _k4_call(chk, text):
     from rvio_tpu_torch.ops import spd_solve as k4
     S, r = chk.args
     F, m = S.shape[0], S.shape[-1]
     D = torch.empty(F, device=S.device)
-    return "rvio_spd_quadform", k4._ARGS, [S, r], [D], [F, m]
+    return Call("rvio_spd_quadform", k4._ARGS, [S, r], [D], [], [F, m], 1)
 
 
-KERNELS = {"k1": ("propagate_block", 0, _k1_call),
-           "k4": ("spd_solve", 3, _k4_call)}
+def _k8_call(chk, text):
+    from rvio_tpu_torch.ops import klt_iterate as k8
+    t_tiles, n_tiles, loc0, g_init, o1, status = chk.args
+    kw = chk.kwargs
+    N, TH, TW = t_tiles.shape
+    dev = t_tiles.device
+
+    def flags():
+        return torch.empty(N, dtype=torch.bool, device=dev)
+
+    outs = [torch.empty((N, 2), device=dev), flags(),
+            torch.empty(N, device=dev),
+            torch.empty(N, dtype=torch.int32, device=dev)]
+    if "lk_finish_kernel" in text:        # 243dc0e: trips, alive, dok
+        outs += [flags(), flags()]
+        extra = []
+        argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 3)
+    else:                                 # scratch, then the ticket
+        extra = [torch.zeros(1, dtype=torch.int32, device=dev)]
+        argtypes = k8._LK_ARGS
+    H, W = kw["hw"]
+    scalars = [N, TH, TW, kw["win"], kw["max_iters"], kw["eps"],
+               kw["min_eig"], kw["wander"], int(kw["last"]), H, W]
+    return Call("rvio_lk_level", argtypes,
+                [t_tiles, n_tiles, loc0, g_init, o1, status], outs, extra,
+                scalars, 3)
+
+
+def _k6_call(chk, text):
+    from rvio_tpu_torch.ops import tile_gather as k6
+    img, o, th, tw = chk.args
+    H, W = img.shape
+    N = o.shape[0]
+    out = torch.empty((N, th, tw), device=img.device)
+    return Call("rvio_gather_tiles", k6._ARGS, [img, o], [out], [],
+                [H, W, N, th, tw], 1)
+
+
+@dataclass
+class Kernel:
+    lib: str
+    check: str                     # its name in checks.kernel_checks
+    call: Callable
+    stamps: bool = True
+
+
+KERNELS = {"k1": Kernel("propagate_block", "propagate_block", _k1_call),
+           "k4": Kernel("spd_solve", "batched_quadform", _k4_call),
+           "k8": Kernel("lk_level", "lk_level", _k8_call),
+           "k6": Kernel("tile_gather", "gather_tiles", _k6_call,
+                        stamps=False)}
 
 
 def bitwise_equal(xs, ys) -> bool:
-    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return all(torch.equal(*(t.view(torch.int32) if t.is_floating_point()
+                             else t for t in (x, y)))
                for x, y in zip(xs, ys))
 
 
-def split(kernel: str, source: Path, checks, reps: int) -> bool:
-    from chip_smoke import device_ms
-    from rvio_tpu_torch.ops import _lib
-    lib, index, call = KERNELS[kernel]
-    chk = checks[index]
-    text = source.read_text()
-    design = "its phase comments"
-    if "// phase:" not in text:
-        text = add_old_markers(text, kernel)
-        design = "the phase boundaries of commit a8e45c3's design"
-    stamped, names = instrument(text)
+class Build:
+    """The copies of one source: unstamped (with the empty kernel),
+    stamped, and without its finish, built and loaded."""
 
-    out = _lib.BUILD / "phases"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / _lib.HEADER).write_text((source.parent / _lib.HEADER).read_text())
-    procs = {}
-    for tag, code in (("unstamped", text), ("stamped", stamped)):
-        cu = out / f"{lib}_{tag}.cu"
-        cu.write_text(code)
-        so = out / f"lib{lib}_{tag}.so"
-        procs[tag] = (so, subprocess.Popen(
-            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    symbol, argtypes, ins, _, scalars = call(chk)
-    fns, io = {}, None
-    for tag, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the {tag} copy:\n{log}")
-        regs = [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"  {tag} copy: {'; '.join(regs)}")
-        handle = ctypes.CDLL(str(so))
-        fn = getattr(handle, symbol)
-        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    def __init__(self, kernel: str, source: Path, tag: str):
+        spec = KERNELS[kernel]
+        text = source.read_text()
+        self.design = "its phase comments"
+        key = kernel
+        if spec.stamps and "// phase:" not in text:
+            text = add_old_markers(text, kernel)
+            self.design = "the phase boundaries of an earlier design"
+            key = kernel + "_old" if kernel + "_old" in KERNEL_END else kernel
+        self.text, self.kernel, self.source = text, kernel, source
+        codes = {"unstamped": text + EMPTY}
+        self.names = []
+        if spec.stamps:
+            codes["stamped"], self.names = instrument(
+                text, KERNEL_END[key], STAMPER[key])
+        self.finish = FINISH.get(key)
+        if self.finish:
+            codes["no finish"] = re.sub(self.finish[1], self.finish[2], text,
+                                        count=1)
+        from rvio_tpu_torch.ops import _lib
+        out = _lib.BUILD / "phases"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / _lib.HEADER).write_text((source.parent / _lib.HEADER)
+                                       .read_text())
+        procs = {}
+        for name, code in codes.items():
+            stem = f"{spec.lib}_{tag}_{name.replace(' ', '_')}"
+            cu = out / f"{stem}.cu"
+            cu.write_text(code)
+            so = out / f"lib{stem}.so"
+            procs[name] = (so, subprocess.Popen(
+                [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        self.handles = {}
+        for name, (so, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the {name} copy of "
+                                   f"{source}:\n{log}")
+            regs = [ln.strip() for ln in log.splitlines() if "Used" in ln
+                    or re.search(r"[1-9]\d* bytes spill", ln)]
+            print(f"  {source} {name} copy: {'; '.join(regs)}", flush=True)
+            self.handles[name] = ctypes.CDLL(str(so))
+
+    def fn(self, copy: str, call: Call):
+        fn = getattr(self.handles[copy], call.symbol)
+        fn.argtypes = list(call.argtypes) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[tag] = fn
-        if tag == "stamped":
-            io = handle.rvio_phase_io
-            io.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            io.restype = ctypes.c_int
-    outs = {tag: call(chk)[3] for tag in fns}
+        return fn
 
-    def launcher(tag):
+
+def _launcher(fn, call: Call):
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*call.pointers(), *call.scalars, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"launch failed ({err})")
+    return run
+
+
+def split(build: Build, label: str, chk, reps: int) -> bool:
+    """One source's split on one check case; True when the stamped copy's
+    outputs are bitwise the unstamped copy's (or there is no stamped
+    copy)."""
+    from chip_smoke import device_ms
+    spec = KERNELS[build.kernel]
+    calls = {copy: spec.call(chk, build.text) for copy in build.handles}
+    runs = {copy: _launcher(build.fn(copy, calls[copy]), calls[copy])
+            for copy in build.handles}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    result = calls["unstamped"].outs[:calls["unstamped"].n_result]
+    err = chk.compare(result if len(result) > 1 else result[0],
+                      chk.run_plain())
+    times = {copy: device_ms(run, 200) for copy, run in runs.items()}
+    empty = build.handles["unstamped"].rvio_phase_empty
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+
+    def empty_run(grid, block):
         def run():
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fns[tag](*(ctypes.c_void_p(t.data_ptr())
-                             for t in ins + outs[tag]), *scalars,
-                           ctypes.c_void_p(stream))
-            if err:
-                raise RuntimeError(f"{tag} launch failed ({err})")
+            if empty(grid, block,
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)):
+                raise RuntimeError("the empty kernel failed")
         return run
 
-    zero = np.zeros(MAX_PHASES, np.int64)
-    run_copy, run_stamped = launcher("unstamped"), launcher("stamped")
-    run_copy()
-    run_stamped()
-    torch.cuda.synchronize()
-    result = outs["unstamped"]
-    result = result if len(result) > 1 else result[0]
-    err = chk.compare(result, chk.run_plain())
-    same = bitwise_equal(outs["unstamped"], outs["stamped"])
-    t_copy = device_ms(run_copy, 200)
-    t_stamped = device_ms(run_stamped, 200)
-    acc = np.zeros(MAX_PHASES)
-    buf = np.zeros(MAX_PHASES, np.int64)
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        if io(zero.ctypes.data, MAX_PHASES, 0):
-            raise RuntimeError("resetting the stamps failed")
-        run_stamped()
-        torch.cuda.synchronize()
-        if io(buf.ctypes.data, MAX_PHASES, 1):
-            raise RuntimeError("reading the stamps failed")
-        acc += buf
-    cyc = acc[:len(names)] / reps
+    n = len(calls["unstamped"].ins[1]) if build.kernel == "k6" else 1
+    t_empty = {(1, 32): device_ms(empty_run(1, 32), 200),
+               (n, 256): device_ms(empty_run(n, 256), 200)}
+    t_copy = times["unstamped"]
+    line = (f"{chk.name}{label}, source {build.source} ({build.design}): "
+            f"{t_copy * 1e3:.2f} us a launch on the device (error against "
+            f"the plain version {err:.3e}; {chk.tolerance}); an empty kernel "
+            + ", ".join(f"<<<{g}, {b}>>> {t * 1e3:.2f} us"
+                        for (g, b), t in t_empty.items()))
+    if build.finish:
+        line += (f"; without {build.finish[0]} "
+                 f"{times['no finish'] * 1e3:.2f} us (the finish: "
+                 f"{(t_copy - times['no finish']) * 1e3:.2f} us)")
+    trips = getattr(chk, "trips", None)
+    if "stamped" not in runs:
+        print(line, flush=True)
+        return True
+    same = bitwise_equal(calls["unstamped"].outs, calls["stamped"].outs)
+    line += (f"; stamped copy {times['stamped'] * 1e3:.2f} us (outputs "
+             f"{'bitwise the unstamped copy' if same else 'DIFFER'})")
+    io = build.handles["stamped"].rvio_phase_io
+    io.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    io.restype = ctypes.c_int
+    set_who = build.handles["stamped"].rvio_phase_who
+    set_who.argtypes = [ctypes.c_int]
+    set_who.restype = ctypes.c_int
+
+    def stamps(who, n):
+        """Mean cycles of each phase over n launches, feature ``who``."""
+        if set_who(who):
+            raise RuntimeError("choosing the stamped feature failed")
+        zero = np.zeros(MAX_PHASES, np.int64)
+        acc = np.zeros(MAX_PHASES)
+        buf = np.zeros(MAX_PHASES, np.int64)
+        for _ in range(n):
+            torch.cuda.synchronize()
+            if io(zero.ctypes.data, MAX_PHASES, 0):
+                raise RuntimeError("resetting the stamps failed")
+            runs["stamped"]()
+            torch.cuda.synchronize()
+            if io(buf.ctypes.data, MAX_PHASES, 1):
+                raise RuntimeError("reading the stamps failed")
+            acc += buf
+        return acc[:len(build.names)] / n
+
+    who = 0
+    if trips is not None:
+        # the slowest of the features with the most trips, by their cycles
+        # up to the last block's finish (which only that block runs)
+        T = int(trips.max(initial=0))
+        cands = np.flatnonzero(trips >= max(T - 1, 0))[:CANDIDATES]
+        upto = [i for i, nm in enumerate(build.names)
+                if not nm.startswith("finish")]
+        own = {int(c): stamps(int(c), max(reps // 10, 3))[upto].sum()
+               for c in cands}
+        who = max(own, key=own.get)
+        line += (f"; T {T}, stamped the slowest of {len(cands)} features "
+                 f"with T - 1 trips or more: {who} ({int(trips[who])} trips; "
+                 f"the others {min(own.values()):.0f}-"
+                 f"{max(own.values()):.0f} cycles before the finish)")
+    cyc = stamps(who, reps)
     total = cyc.sum()
-    print(f"{chk.name}, source {source} ({design}): {t_copy * 1e3:.2f} us a "
-          f"launch on the device (error against the plain version "
-          f"{err:.3e}; {chk.tolerance}), stamped copy {t_stamped * 1e3:.2f} "
-          f"us (outputs {'bitwise the unstamped copy' if same else 'DIFFER'}"
-          f"), {total:.0f} cycles between the first and the last stamp")
-    for name, c in zip(names, cyc):
-        print(f"  {name:36s} {c:9.0f} cycles {100 * c / total:5.1f} %  "
-              f"{c / total * t_copy * 1e3:8.2f} us of the unstamped time")
+    print(f"{line}; {total:.0f} cycles between the first and the last stamp",
+          flush=True)
+    for name, c in zip(build.names, cyc):
+        extra = ""
+        if trips is not None and "trips" in name and trips[who]:
+            extra = f"  ({c / trips[who]:.0f} cycles a trip)"
+        print(f"  {name:36s} {c:9.0f} cycles {100 * c / max(total, 1):5.1f} "
+              f"%  {c / max(total, 1) * t_copy * 1e3:8.2f} us of the "
+              f"unstamped time{extra}")
     return same
+
+
+_CAPTURED: dict = {}
+
+
+def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
+    """K8's or K6's cases at tracked frame ``frame`` of the CLAHE-on image
+    path, one a pyramid level (K6: its template and its search gather)."""
+    from chip_smoke import capture_klt_frame, workload_sim
+    from rvio_tpu_torch.ops.checks import lk_case, tile_case
+    if frame not in _CAPTURED:
+        _CAPTURED[frame] = capture_klt_frame(dev, workload_sim(), frame=frame)
+    out = []
+    for lvl, tmpl, search, args, kw in _CAPTURED[frame]:
+        what = f" (frame {frame}, level {lvl})"
+        if kernel == "k8":
+            out.append((what, lk_case(dev, args, kw, what=what)))
+        else:
+            out += [(what[:-1] + f", {which} tiles)",
+                     tile_case(dev, img, o, what=what))
+                    for which, (img, o) in (("template", tmpl),
+                                            ("search", search))]
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("k1", "k4", "both"), default="both")
-    ap.add_argument("--k1-source", default=str(CSRC / "propagate_block.cu"))
-    ap.add_argument("--k4-source", default=str(CSRC / "spd_solve.cu"))
+    ap.add_argument("--kernel", choices=("k1", "k4", "k8", "k6", "both",
+                                         "all"), action="append",
+                    help="may repeat; both (the default): k1 and k4; all: "
+                         "every kernel")
+    for k, name in (("k1", "propagate_block"), ("k4", "spd_solve"),
+                    ("k8", "lk_level"), ("k6", "tile_gather")):
+        ap.add_argument(f"--{k}-source", action="append", default=None,
+                        help=f"default csrc/{name}.cu; may repeat")
+    ap.add_argument("--frame", type=int, default=None,
+                    help="K8 and K6 also on this tracked frame's inputs")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -243,11 +478,24 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
-    checks = kernel_checks(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    checks = {c.name: c for c in kernel_checks(dev)}
+    groups = {"both": ("k1", "k4"), "all": ("k1", "k4", "k8", "k6")}
+    kernels = [k for arg in args.kernel or ["both"]
+               for k in groups.get(arg, (arg,))]
     ok = True
-    for kernel in (("k1", "k4") if args.kernel == "both" else (args.kernel,)):
-        source = Path(getattr(args, f"{kernel}_source"))
-        ok &= split(kernel, source, checks, args.reps)
+    for kernel in kernels:
+        spec = KERNELS[kernel]
+        sources = getattr(args, f"{kernel}_source") or [
+            str(CSRC / f"{spec.lib}.cu")]
+        builds = [Build(kernel, Path(s), f"s{i}")
+                  for i, s in enumerate(sources)]
+        cases: List[Tuple[str, Optional[object]]] = [("", checks[spec.check])]
+        if args.frame is not None and kernel in ("k8", "k6"):
+            cases += frame_cases(dev, kernel, args.frame)
+        for label, chk in cases:
+            for build in builds:
+                ok &= split(build, label, chk, args.reps)
     return 0 if ok else 1
 
 

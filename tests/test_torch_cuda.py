@@ -18,6 +18,11 @@ version does, and the filter with K5 stays with the filter that runs the
 library chain in its place; K1 at every trip count, for several streams
 and past a warp's lanes of samples, and K4 at every order it takes, for
 feature counts that do not fill a block, with an indefinite lane;
+K8 at feature counts around a warp and a block, every window size, one
+trip and thirty, near the tile edges, with every status false, with the
+T rule of its finish, in a replayed CUDA graph and on two streams at
+once, and K6 bitwise at every pyramid level, on images smaller than the
+tile, past every side and at other tile shapes;
 the replay of an ASL folder is the rendered scan of the same frames, and
 a resumed replay the uninterrupted one.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -747,3 +752,270 @@ def test_reference_faithful_feature_path_on_card(cuda):
     dp = float(np.abs(cpu.positions - gpu.positions[:100]).max())
     dq = rotation_gap(cpu.quaternions, gpu.quaternions[:100])
     assert dp < 1e-4 and dq < 1e-5, (dp, dq)
+
+
+# --- K8 (one LK level) and K6 (the KLT tile gather) ---------------------------
+
+_LK_FRAMES = {}
+
+
+def _lk_frame(shift=(3.3, -2.1), noise=0.0):
+    """A 752 x 480 textured frame and the next one moved by ``shift`` px
+    (plus Gaussian noise of ``noise`` gray), f32 on the CPU; cached."""
+    key = (shift, noise)
+    if key not in _LK_FRAMES:
+        from rvio_tpu_torch.config import RVIOConfig
+        from rvio_tpu_torch.ops.checks import _frame_pair
+        rng = np.random.default_rng(11)
+        img1, img2, _ = _frame_pair(RVIOConfig(), rng, shift=shift)
+        if noise:
+            img2 = img2 + torch.as_tensor(rng.normal(0, noise, img2.shape),
+                                          dtype=torch.float32)
+        _LK_FRAMES[key] = (img1, img2)
+    return _LK_FRAMES[key]
+
+
+def _lk_kwargs(win, max_iters=30, last=True, hw=(480, 752)):
+    from rvio_tpu_torch.frontend.klt import TILE
+    return dict(win=win, max_iters=max_iters, eps=1e-2, min_eig=1e-3,
+                wander=float(TILE - win) / 2.0 - 1.0, last=last, hw=hw)
+
+
+def _lk_against_plain(cuda, args, kw):
+    """K8 on ``args`` (CPU tensors) against its plain version on the card,
+    under ops/checks.py's tolerances, on the features where the function
+    is well posed in f32: its plain version in f32 keeps the f64 status
+    and lands within a quarter of the 1e-3 px tolerance of the f64 result
+    (CPU).  A feature that oscillates through all its trips parts by more
+    than that between any two f32 summation orders (at win 5 and 30 trips
+    the plain f32 and f64 part by up to 0.14 px); at most a tenth of the
+    features live in f64 are set aside (the most, 7 of 96, at win 5 with
+    templates at the tile edges).  One launch.  Returns both outputs."""
+    from rvio_tpu_torch.ops.checks import LK_POS_TOL, compare_lk
+    from rvio_tpu_torch.ops.klt_iterate import lk_level, lk_level_plain
+    g32, s32, _ = lk_level_plain(*args, **kw)
+    g64, s64, _ = lk_level_plain(*(x.double() if x.is_floating_point() else x
+                                   for x in args), **kw)
+    off = (g32.double() - g64).abs().amax(dim=1) > LK_POS_TOL / 4
+    posed = (s32 == s64) & ~(s64 & off)
+    assert int((~posed).sum()) <= 0.1 * max(int(s64.sum()), 1)
+    args = tuple(x.to(cuda) for x in args)
+    before = lk_level.launches
+    got = lk_level(*args, **kw)
+    torch.cuda.synchronize()
+    assert lk_level.launches == before + 1
+    want = lk_level_plain(*args, **kw)
+    keep = posed.to(cuda)
+    compare_lk(tuple(x[keep] for x in got), tuple(x[keep] for x in want))
+    return got, want
+
+
+def _lk_points(rng, N, H=480, W=752, margin=3):
+    return np.stack([rng.uniform(margin, W - 1 - margin, N),
+                     rng.uniform(margin, H - 1 - margin, N)], -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_iters", [1, 30])
+@pytest.mark.parametrize("win", [5, 7, 15])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 200, 1000])
+def test_lk_level_sizes(cuda, N, win, max_iters):
+    """K8 at feature counts around a warp and the blocks' four warps, at
+    every window the tracker may take (one to eight taps a lane), with one
+    trip and with the tracker's 30."""
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    args, hw = lk_inputs(img1, img2, _lk_points(np.random.default_rng(N), N),
+                         win)
+    _lk_against_plain(cuda, args, _lk_kwargs(win, max_iters, hw=hw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("last", [False, True])
+def test_lk_level_last(cuda, last):
+    """The last level's in-bounds test and error on (``hw`` set, points
+    reaching the image border) and off (err zero)."""
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    args, hw = lk_inputs(img1, img2, _lk_points(np.random.default_rng(5), 200,
+                                                margin=0.5), 15)
+    got, _ = _lk_against_plain(cuda, args, _lk_kwargs(15, last=last, hw=hw))
+    if not last:
+        assert not bool(got[2].any())
+
+
+@pytest.mark.gpu
+def test_lk_level_all_dead(cuda):
+    """Every status false: no feature moves or lives."""
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    args, hw = lk_inputs(img1, img2, _lk_points(np.random.default_rng(6), 200),
+                         15)
+    args = args[:5] + (torch.zeros(200, dtype=torch.bool),)
+    got, _ = _lk_against_plain(cuda, args, _lk_kwargs(15, hw=hw))
+    assert not bool(got[1].any())
+    assert torch.equal(got[0].cpu(), args[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [5, 15])
+def test_lk_level_tile_edges(cuda, win):
+    """Template centres within 2 px of each tile edge (taps clip one by
+    one), guesses near the search tiles' edges."""
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    rng = np.random.default_rng(win)
+    args, hw = lk_inputs(img1, img2, _lk_points(rng, 200, margin=40), win)
+    t_tiles, n_tiles, loc0, g_init, o1, status = args
+    N = 200
+    side = np.arange(N) % 4
+    near = rng.uniform(0, 2, N)
+    ly = np.where(side == 0, near, np.where(side == 1, TILE_H - 1 - near,
+                                            rng.uniform(0, TILE_H - 1, N)))
+    lx = np.where(side == 2, near, np.where(side == 3, TILE - 1 - near,
+                                            rng.uniform(0, TILE - 1, N)))
+    loc0 = torch.as_tensor(np.stack([lx, ly], -1), dtype=torch.float32)
+    g_init = o1.float() + loc0 + torch.as_tensor(
+        rng.uniform(-1, 1, (N, 2)), dtype=torch.float32)
+    _lk_against_plain(cuda, (t_tiles, n_tiles, loc0, g_init, o1, status),
+                      _lk_kwargs(win, hw=hw))
+
+
+@pytest.mark.gpu
+def test_lk_level_finish_rule(cuda):
+    """The finish's T rule: one feature converges at trip 2 and another
+    runs all 30 in the same call, so T = 30 and the first is tested
+    against the wander bound once more; picked from a noisy pair by the
+    plain version, the 30-trip one where f32 and f64 agree best."""
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    from rvio_tpu_torch.ops.klt_iterate import lk_level_trips
+    img1, img2 = _lk_frame(shift=(0.4, -0.3), noise=60.0)
+    rng = np.random.default_rng(3)
+    args, hw = lk_inputs(img1, img2, _lk_points(rng, 1000, margin=20), 15)
+    kw = _lk_kwargs(15, hw=hw)
+    g, alive, _, trips = lk_level_trips(*args, **kw)
+    g64 = lk_level_trips(*(x.double() if x.is_floating_point() else x
+                           for x in args), **kw)[0]
+    two = np.flatnonzero((trips == 2).numpy() & alive.numpy())
+    full = np.flatnonzero((trips == 30).numpy() & alive.numpy())
+    assert len(two) and len(full)
+    gap = (g64 - g.double()).abs().max(dim=1).values.numpy()
+    pick = [int(two[0]), int(full[np.argmin(gap[full])])]
+    sub = tuple(x[pick].contiguous() for x in args)
+    t = lk_level_trips(*sub, **kw)[3]
+    assert t.tolist() == [2, 30]
+    got, _ = _lk_against_plain(cuda, sub, kw)
+    assert bool(got[1].all())
+
+
+def _lk_case_on(cuda, seed=7):
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    args, hw = lk_inputs(img1, img2,
+                         _lk_points(np.random.default_rng(seed), 200), 15)
+    return tuple(x.to(cuda) for x in args), _lk_kwargs(15, hw=hw)
+
+
+@pytest.mark.gpu
+def test_lk_level_graph_replays(cuda):
+    """A CUDA graph of the call replayed three times gives the eager
+    call's outputs each time: the finish ticket is back at 0 after every
+    launch."""
+    from rvio_tpu_torch.ops.klt_iterate import lk_level
+    args, kw = _lk_case_on(cuda)
+    want = lk_level(*args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lk_level(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lk_level(*args, **kw)
+    for _ in range(3):
+        for o in out:
+            o.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(out, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_lk_level_two_streams(cuda):
+    """Calls on two streams at once (each stream its own ticket) give the
+    outputs of the same calls on one stream."""
+    from rvio_tpu_torch.ops.klt_iterate import lk_level
+    cases = [_lk_case_on(cuda, seed) for seed in (7, 8)]
+    want = [lk_level(*a, **kw) for a, kw in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for k, (s, (a, kw)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[k].append(lk_level(*a, **kw))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for outs in got[k]:
+            for x, y in zip(outs, want[k]):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_lk_level_refuses(cuda):
+    """What K8 does not take raises: a window over 256 taps, a tile of
+    pixels not a multiple of 4, tiles off a 16-byte boundary."""
+    from rvio_tpu_torch.ops.klt_iterate import lk_level
+    args, kw = _lk_case_on(cuda)
+    with pytest.raises(ValueError):
+        lk_level(*args, **dict(kw, win=17))
+    t, n = (x[:, :39, :31].contiguous() for x in args[:2])
+    with pytest.raises(ValueError):
+        lk_level(t, n, *args[2:], **kw)
+    flat = torch.empty(200 * 1280 + 1, device=cuda)
+    t = flat[1:].view(200, 40, 32)
+    t.copy_(args[0])
+    with pytest.raises(ValueError):
+        lk_level(t, *args[1:], **kw)
+
+
+_PYRAMID = [(480, 752), (240, 376), (120, 188), (60, 94)]
+
+
+def _gather_against_plain(cuda, H, W, N, th=40, tw=32, seed=0):
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles, gather_tiles_plain
+    rng = np.random.default_rng(seed)
+    img = torch.as_tensor(rng.uniform(0, 255, (H, W)), dtype=torch.float32,
+                          device=cuda)
+    # origins past every side of the image, and inside it
+    o = torch.as_tensor(np.stack([rng.integers(-60, W + 60, N),
+                                  rng.integers(-60, H + 60, N)], -1),
+                        dtype=torch.int32, device=cuda)
+    before = gather_tiles.launches
+    got = gather_tiles(img, o, th, tw)
+    torch.cuda.synchronize()
+    assert gather_tiles.launches == before + 1
+    assert got.shape == (N, th, tw)
+    assert torch.equal(got, gather_tiles_plain(img, o, th, tw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", _PYRAMID + [(30, 40), (24, 20)])
+@pytest.mark.parametrize("N", [0, 1, 200, 1000])
+def test_gather_tiles_levels(cuda, N, hw):
+    """K6 bitwise at every pyramid level of RVIOConfig() and on images
+    smaller than the 40 x 32 tile (the edge-clamped path), origins out of
+    bounds on every side."""
+    _gather_against_plain(cuda, *hw, N, seed=N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("th,tw", [(17, 24), (40, 64), (8, 8), (40, 33)])
+def test_gather_tiles_other_shapes(cuda, th, tw):
+    """Tiles other than 40 x 32 take the generic instantiation."""
+    for hw in ((480, 752), (30, 20)):
+        _gather_against_plain(cuda, *hw, 200, th, tw, seed=th * tw)
