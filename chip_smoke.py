@@ -18,8 +18,9 @@ set to 0 just before it and read just after:
 - the feature-level filter, ``SequenceDriver`` on the simulator's tracks:
   every filter kernel (K5 included) runs once per filtered frame, ATE
   below 0.05 m, and the first 100 frames agree with the port's plain path
-  on the CPU, whose 100th frame gives the inputs of K1's and K5's checks
-  on a real frame (and K5 a seeded case that takes the wider ridge);
+  on the CPU, whose 100th frame gives the inputs of K1's, K3's and K5's
+  checks on a real frame (and K5 a seeded case that takes the wider
+  ridge);
 - the same with the unfused library chain called in K5's place (a
   yardstick the port never runs on the card): the first 100 frames within
   the card-vs-CPU limits of the K5 run, and the back-end time of the two
@@ -36,7 +37,8 @@ set to 0 just before it and read just after:
 - K8 and K6 on the tracker's inputs at tracked frame 100 of the CLAHE-on
   path (captured on the card), at each of the four pyramid levels: each
   against its plain version, with T (the largest trip count) and the
-  device time;
+  device time; K10 on the same frame's image, LUTs bitwise with the CPU
+  plain version;
 - the public entries that no path reaches, the detector's
   ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
   workload's frames and the tracker's live positions, each against its
@@ -388,20 +390,23 @@ def workload_sim():
 
 
 def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
-    """The inputs of the tracker's K6 and K8 calls at tracked frame
+    """The inputs of the tracker's K6, K8 and K10 calls at tracked frame
     ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``, CLAHE
-    on).  Per pyramid level, coarsest first: (level, the template gather's
-    (image, origins), the search gather's, K8's args, K8's kwargs)."""
+    on).  Returns (levels, K10's image): per pyramid level, coarsest first,
+    (level, the template gather's (image, origins), the search gather's,
+    K8's args, K8's kwargs); and the image of the last ``clahe_luts`` call
+    (None with the equalizer off)."""
     from unittest import mock
 
+    import rvio_tpu_torch.frontend.image as image
     import rvio_tpu_torch.frontend.klt as klt
     from rvio_tpu_torch.runtime import run_rendered_sequence_scan
     cfg = image_config(True) if cfg is None else cfg
     levels = cfg.tracker.klt_levels + 1
-    calls = {"lk_level": [], "gather_tiles": []}
+    calls = {"lk_level": [], "gather_tiles": [], "clahe_luts": []}
 
-    def recorder(name, keep):
-        fn = getattr(klt, name)
+    def recorder(module, name, keep):
+        fn = getattr(module, name)
 
         def record(*args, **kw):
             kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
@@ -410,9 +415,11 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
         return record
 
     k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
-    with mock.patch.object(klt, "lk_level", recorder("lk_level", levels)), \
+    with mock.patch.object(klt, "lk_level", recorder(klt, "lk_level", levels)), \
             mock.patch.object(klt, "gather_tiles",
-                              recorder("gather_tiles", 2 * levels)):
+                              recorder(klt, "gather_tiles", 2 * levels)), \
+            mock.patch.object(image, "clahe_luts",
+                              recorder(image, "clahe_luts", 1)):
         res = run_rendered_sequence_scan(cfg, sim, device=dev,
                                          max_frames=k0 + 1 + frame)
     if len(res.timestamps) != frame:
@@ -423,7 +430,8 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
         tmpl, search = (calls["gather_tiles"][2 * i + k][0][:2] for k in (0, 1))
         args, kw = calls["lk_level"][i]
         out.append((levels - 1 - i, tmpl, search, args, kw))
-    return out
+    eq = calls["clahe_luts"]
+    return out, eq[-1][0][0] if eq else None
 
 
 def klt_frame_phase(dev, sim, records) -> None:
@@ -431,10 +439,11 @@ def klt_frame_phase(dev, sim, records) -> None:
     CLAHE-on image path, at each pyramid level: each against its plain
     version (raises over the check's tolerance), T and the trip counts of
     the live features (plain version), the device time a launch (a CUDA
-    graph of 200); into each kernel's record as ``frame_levels``."""
-    from rvio_tpu_torch.ops.checks import lk_case, tile_case
+    graph of 200); into each kernel's record as ``frame_levels``.  K10 on
+    the same frame's image (:func:`frame_check`)."""
+    from rvio_tpu_torch.ops.checks import clahe_luts_case, lk_case, tile_case
     t0 = time.perf_counter()
-    captured = capture_klt_frame(dev, sim)
+    captured, eq_img = capture_klt_frame(dev, sim)
     print(f"KLT inputs of tracked frame {KLT_FRAME} (CLAHE on) captured on "
           f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
     k8_levels, k6_levels = [], []
@@ -474,6 +483,9 @@ def klt_frame_phase(dev, sim, records) -> None:
             r["frame_levels"] = k8_levels
         elif r["name"] == "gather_tiles":
             r["frame_levels"] = k6_levels
+    frame_check(records, clahe_luts_case(
+        dev, eq_img, what=f" (frame {KLT_FRAME}'s image)"),
+        f"tracked frame {KLT_FRAME}'s image, CLAHE on")
 
 
 def _render_u8(cfg, sim, k):
@@ -581,52 +593,71 @@ def entries_phase(dev, sim, kernels, records, drv) -> None:
 
 def capture_frame_inputs(cfg, args, frame_t, batches):
     """The feature path on the CPU plain path, keeping the inputs of the
-    last K1 and K5 calls: a real frame's IMU block, state and P24, and its
-    C, b, P and sigma^2.  Returns (result, K1 inputs, K5 inputs)."""
+    last K1, K3 and K5 calls: a real frame's IMU block, state and P24; its
+    update features' measurements, chains and triangulation; and its C, b,
+    P and sigma^2.  Returns (result, K1 inputs, K5 inputs, K3 inputs)."""
     from unittest import mock
 
     import rvio_tpu_torch.filter.propagation as propagation
     import rvio_tpu_torch.filter.update as update
     from rvio_tpu_torch.ops import ekf_tail as k5
+    from rvio_tpu_torch.ops import jac_project as k3
     from rvio_tpu_torch.ops import propagate_block as k1
     from rvio_tpu_torch.runtime import SequenceDriver
     captured = {}
 
     def recorder(name, fn):
         def record(*call_args, **kw):
-            captured[name] = [a.detach().clone() for a in call_args]
+            captured[name] = [a.detach().clone() if torch.is_tensor(a) else a
+                              for a in call_args]
             return fn(*call_args, **kw)
         return record
 
     with mock.patch.object(update, "ekf_tail", recorder("k5", k5.ekf_tail)), \
+            mock.patch.object(update, "jac_project",
+                              recorder("k3", k3.jac_project)), \
             mock.patch.object(propagation, "propagate_block",
                               recorder("k1", k1.propagate_block)):
         res = SequenceDriver(cfg, dtype=torch.float32,
                              device="cpu").run(*args, frame_t, batches)
     return (res, [x.numpy() for x in captured["k1"]],
-            [x[0].numpy() for x in captured["k5"]])
+            [x[0].numpy() for x in captured["k5"]], captured["k3"])
 
 
-def propagate_frame_phase(dev, records, inputs) -> None:
-    """K1 on a real frame's inputs beside its check case: error and device
-    time go into K1's record as ``frame_max_abs_err`` and ``frame_ms``."""
-    from rvio_tpu_torch import RVIOConfig
-    from rvio_tpu_torch.ops.checks import propagate_case
-    if not all(np.isfinite(x).all() for x in inputs):
-        raise AssertionError("the captured K1 inputs are not finite")
-    chk = propagate_case(RVIOConfig(), dev, inputs,
-                         what=" (the feature path's frame 100)")
+def frame_check(records, chk, label: str) -> None:
+    """A kernel's check on a real frame's inputs beside its check case:
+    error (raises over the tolerance), device time a launch (a CUDA graph of
+    200) and bound go into its record as ``frame_max_abs_err``,
+    ``frame_ms`` and ``frame_bound_ms``."""
     err = chk.check()
     torch.cuda.synchronize()
     ms = device_ms(chk.run_kernel, reps=200)
+    bound, bound_by = bound_ms(chk)
     for _, r in records:
-        if r["name"] == "propagate_block":
-            r.update(frame_max_abs_err=err, frame_ms=ms)
-    print(f"kernel propagate_block (the feature path's frame 100, CPU plain "
-          f"path): err {err:.3e} (tolerance: {chk.tolerance}, "
-          f"{chk.info['valid samples']} valid samples of "
-          f"{inputs[2].shape[-1]}); {ms * 1e3:.2f} us/launch on the device",
-          flush=True)
+        if r["name"] == chk.name:
+            r.update(frame_max_abs_err=err, frame_ms=ms, frame_bound_ms=bound)
+    info = "".join(f", {k} {v}" for k, v in chk.info.items())
+    print(f"kernel {chk.name} ({label}): err {err:.3e} (tolerance: "
+          f"{chk.tolerance}{info}); {ms * 1e3:.2f} us/launch on the device, "
+          f"bound {bound * 1e3:.3f} us ({bound_by})", flush=True)
+
+
+def filter_frame_phase(dev, records, k1_inputs, k3_inputs) -> None:
+    """K1 and K3 on the feature path's frame 100 (captured from the CPU
+    plain path; :func:`frame_check`)."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.ops.checks import jac_case, propagate_case
+    if not all(np.isfinite(x).all() for x in k1_inputs):
+        raise AssertionError("the captured K1 inputs are not finite")
+    label = "the feature path's frame 100, CPU plain path"
+    frame_check(records, propagate_case(RVIOConfig(), dev, k1_inputs,
+                                        what=" (the feature path's frame 100)"),
+                f"{label}; {k1_inputs[2].shape[-1]} samples")
+    t_eff = k3_inputs[10]
+    frame_check(records, jac_case(dev, k3_inputs,
+                                  what=" (the feature path's frame 100)"),
+                f"{label}; F {len(t_eff)}, t_eff sum {int(t_eff.sum())}, "
+                f"M {k3_inputs[-1]}")
 
 
 def ekf_tail_phase(dev, records, inputs) -> None:
@@ -1030,10 +1061,10 @@ def main() -> int:
         raise AssertionError(f"ATE {ate:.4f} m over {ATE_LIMIT_M} m")
 
     # ---- the first frames again through the plain path on the CPU, which
-    # captures a frame's K1 and K5 inputs ----
+    # captures a frame's K1, K3 and K5 inputs ----
     k_end = int(np.searchsorted(sim.frame_t, res.timestamps[CPU_FRAMES - 1])) + 1
     t0 = time.perf_counter()
-    cpu, prop_inputs, tail_inputs = capture_frame_inputs(
+    cpu, prop_inputs, tail_inputs, jac_inputs = capture_frame_inputs(
         cfg, args, sim.frame_t[:k_end], batches[:k_end])
     m = len(cpu.timestamps)
     if m != CPU_FRAMES or not np.array_equal(cpu.timestamps, res.timestamps[:m]):
@@ -1046,7 +1077,7 @@ def main() -> int:
     if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
         raise AssertionError("card kernel path and CPU plain path disagree")
 
-    propagate_frame_phase(dev, records, prop_inputs)
+    filter_frame_phase(dev, records, prop_inputs, jac_inputs)
     ekf_tail_phase(dev, records, tail_inputs)
     library_chain_phase(dev, sim, batches, kernels, res, driver)
 

@@ -217,32 +217,52 @@ def _lm_case(cfg, dev, rng) -> KernelCheck:
         read, written)
 
 
-def _jac_case(cfg, dev, rng) -> KernelCheck:
-    F, L = cfg.tracker.max_update_features, cfg.tracker.max_tracking_length
-    M = cfg.window_size
-    J = L - 1
+def jac_inputs(cfg, rng, F: int, L: int, M: int, t_eff=None, c0=None):
+    """K3's arguments (numpy, f32 values as f64 arrays, then t_eff, c0 as
+    int64, then R_bc, t_bc, M) for F features of track length L in a
+    window of M clones: small-motion chains, points at 2-8 m, triangulated
+    angles and inverse depth with small errors; ``t_eff`` (F,) uniform in
+    [2, L] and ``c0`` (F,) uniform with c0 + t_eff - 1 <= M unless given."""
     Rrel, trel, Rc, tc, pts, z = _feature_geometry(cfg, rng, F, L)
     nrm = np.linalg.norm(pts, axis=1)
     phi = np.arcsin(pts[:, 1] / nrm) + rng.normal(size=F) * 1e-3
     psi = np.arctan2(pts[:, 0], pts[:, 2]) + rng.normal(size=F) * 1e-3
     rho = 1.0 / nrm * (1 + rng.normal(size=F) * 1e-2)
-    t_eff = rng.integers(2, L + 1, size=F)
-    c0 = rng.integers(0, M - t_eff + 2)           # c0 + t_eff - 1 <= M
+    if t_eff is None:
+        t_eff = rng.integers(2, L + 1, size=F)
+    if c0 is None:
+        c0 = rng.integers(0, M - t_eff + 2)       # c0 + t_eff - 1 <= M
+    return [z, Rc, tc, Rrel, trel, Rc, tc, phi, psi, rho,
+            np.asarray(t_eff, np.int64), np.asarray(c0, np.int64),
+            cfg.camera.R_bc, cfg.camera.t_bc, M]
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    args = (t(z), t(Rc), t(tc), t(Rrel), t(trel), t(Rc), t(tc), t(phi),
-            t(psi), t(rho), torch.as_tensor(t_eff, device=dev),
-            torch.as_tensor(c0, device=dev), t(cfg.camera.R_bc),
-            t(cfg.camera.t_bc), M)
+def _jac_case(cfg, dev, rng) -> KernelCheck:
+    F, L = cfg.tracker.max_update_features, cfg.tracker.max_tracking_length
+    return jac_case(dev, jac_inputs(cfg, rng, F, L, cfg.window_size))
+
+
+def jac_case(dev, inputs, what: str = "") -> KernelCheck:
+    """K3 on ``inputs`` (the 14 arrays or tensors of ``jac_project``, any
+    device, floats taken as f32, t_eff and c0 as integers, then M)."""
+    *arrays, M = inputs
+
+    def t(x, dtype=np.float32):
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else x
+        return torch.as_tensor(np.asarray(x, dtype), device=dev)
+
+    args = tuple(t(x, np.int64 if i in (10, 11) else np.float32)
+                 for i, x in enumerate(arrays)) + (M,)
+    t_eff = _np(args[10]).astype(np.int64)
+    F, L = args[0].shape[:2]
     tol_inv, tol_hfn = 1e-3, 1e-4
 
     def compare(ko, po):
         (rk, hk, fk), (rp, hp, fp) = ([_np(x) for x in o] for o in (ko, po))
-        err_h = np.max(np.abs(fk - fp) / np.maximum(np.abs(fp), 1.0))
+        err_h = np.max(np.abs(fk - fp) / np.maximum(np.abs(fp), 1.0),
+                       initial=0.0)
         if not err_h <= tol_hfn:
-            _fail("jac_project", "hfn relative", err_h, tol_hfn)
+            _fail("jac_project", f"hfn relative{what}", err_h, tol_hfn)
         err = 0.0
         for a, b in ((np.einsum("frc,frd->fcd", hp, hp),
                       np.einsum("frc,frd->fcd", hk, hk)),
@@ -250,10 +270,11 @@ def _jac_case(cfg, dev, rng) -> KernelCheck:
                       np.einsum("frc,fr->fc", hk, rk)),
                      (np.einsum("fr,fr->f", rp, rp),
                       np.einsum("fr,fr->f", rk, rk))):
-            sc = max(np.abs(a).max(), 1.0)
-            err = max(err, np.abs(a - b).max() / sc)
+            sc = max(np.abs(a).max(initial=0.0), 1.0)
+            err = max(err, np.abs(a - b).max(initial=0.0) / sc)
         if not err <= tol_inv:
-            _fail("jac_project", "H^T H / H^T r / r^T r scaled", err, tol_inv)
+            _fail("jac_project", f"H^T H / H^T r / r^T r scaled{what}", err,
+                  tol_inv)
         return float(max(err, err_h))
 
     # for each feature's t_eff measurements z (2 floats) and six chain
@@ -273,9 +294,12 @@ def _jac_case(cfg, dev, rng) -> KernelCheck:
 def jac_project_flops(t_eff) -> int:
     """Operations of K3 for features using ``t_eff`` measurements each: the
     rows of those measurements and the chain columns they reach; the rows
-    and columns beyond are zero and need no work."""
+    and columns beyond are zero and need no work, nor does a feature with
+    fewer than two measurements (its outputs are all masked)."""
     total = 0
     for te in np.asarray(t_eff, np.int64):
+        if te < 2:              # every row masked: no work
+            continue
         rows, cols = 2 * te, 3 + 6 * (te - 1) + 1
         total += 150 * te               # chain point, residual, Hf rows
         total += 80 * (te - 1)          # dpx and subH per chain column
@@ -722,10 +746,17 @@ CLAHE_AXIS_FLOPS = 10
 
 
 def _clahe_luts_case(cfg, dev, rng) -> KernelCheck:
+    img = _checker_frame(rng, cfg.camera.height, cfg.camera.width)
+    return clahe_luts_case(dev, img)
+
+
+def clahe_luts_case(dev, img, clip: float = 3.0, g: int = 5,
+                    what: str = "") -> KernelCheck:
+    """K10 on the (H, W) image ``img`` (any device; f32): LUTs bitwise and
+    histograms exact against the plain versions run on the CPU."""
     from rvio_tpu_torch.ops import clahe as k10
-    H, W = cfg.camera.height, cfg.camera.width
-    g, clip = 5, 3.0
-    img = _checker_frame(rng, H, W)
+    img = img.detach().float().cpu()
+    H, W = img.shape
     cpu_luts = k10.clahe_luts_plain(img, clip, g)
     cpu_hist = k10.clahe_hist_plain(img, g)
     img = img.to(dev)
@@ -746,8 +777,8 @@ def _clahe_luts_case(cfg, dev, rng) -> KernelCheck:
         # the timed call is the tracker's, which writes the LUTs alone
         hist = k10._luts_and_hist(img, clip, g)[1].cpu()
         if not torch.equal(hist.long(), cpu_hist):
-            raise AssertionError("clahe_luts: histograms differ from the "
-                                 "plain version's")
+            raise AssertionError(f"clahe_luts: histograms differ from the "
+                                 f"plain version's{what}")
         luts = ko.cpu()
         info["lut_entries_differing_from_cpu_plain"] = int(
             (luts != cpu_luts).sum())
@@ -755,7 +786,8 @@ def _clahe_luts_case(cfg, dev, rng) -> KernelCheck:
             (luts != po.cpu()).sum())
         if info["lut_entries_differing_from_cpu_plain"]:
             raise AssertionError(f"clahe_luts: {info['lut_entries_differing_from_cpu_plain']}"
-                                 " LUT entries differ from the CPU plain version")
+                                 f" LUT entries differ from the CPU plain "
+                                 f"version{what}")
         return float((luts - cpu_luts).abs().max())
 
     return KernelCheck(

@@ -24,20 +24,29 @@ Bounds on the H100 at the tracker's operating point (one 480 x 752 f32
 frame, g = 5: 25 tiles of 96 x 151, area 14 496): K10 reads the image
 once (1.44 MB) and writes the 25 x 256 LUTs (25.6 kB), about 0.44 us at
 3.35 TB/s (the check's launch also writes the histograms, as much
-again).  K11 reads
-the image and the LUTs and writes the output, 2.9 MB, about 0.87 us.  A
-few operations a pixel each, so both are bound by bytes.  K10 gives each
-tile one block and a shared-memory histogram filled by atomicAdd, then
-clips, sums and rounds in the same block: one launch where the TPU
-version ran a host epilogue.  K11 stages the LUTs in shared memory and
-gives each output pixel one thread.  Where the two would differ from
-these plain versions:
+again).  K11 reads the image and the LUTs and writes the output, 2.9 MB,
+about 0.87 us.  A few operations a pixel each, so both are bound by
+bytes, and both are latency-bound in fact.  K10 runs a thread block
+cluster of 8 CTAs a tile (200 CTAs at g = 5), each counting a band of
+the tile's rows with a lane a column into a histogram a warp; the bands
+go to the cluster's first CTA over distributed shared memory, which
+clips, sums, scans and rounds: one launch where the TPU version ran a
+host epilogue.  K11 stages the LUTs in shared memory and gives each
+output pixel one thread.  Where the two would differ from these plain
+versions:
 
 - the CDF: in f32 the clipped bins are multiples of 1/2048 and partial
-  sums above 8192 round, so the order of the sum matters.  K10 sums in
-  bin order in double and rounds each entry to f32, as ``torch.cumsum``
-  does on the CPU; its LUTs are bitwise those of the plain version on the
-  CPU (``torch.cumsum`` on the card sums in another order);
+  sums above 8192 round, so the order of the sum matters.  The plain
+  version's ``torch.cumsum`` on the CPU sums in bin order in double and
+  rounds each entry to f32.  Where the f32 clip limit lies on a grid
+  2^-k with area 2^k < 2^24 and the clipped bins fit f32 on the same
+  grid (:func:`cdf_any_order`; true at the clip limit the tracker uses at
+  every image size the repo runs), every partial sum of the clipped bins
+  is exact in double, so K10's parallel scan gives those sums bitwise;
+  elsewhere K10 sums in bin order.  Its LUTs are bitwise those of the
+  plain version on the CPU (``torch.cumsum`` on the card sums in another
+  order), off the grid wherever the plain version's f32 sum of the excess
+  is exact (K10 rounds the exact sum once);
 - K11 follows the oracle's arithmetic: a row blend whose second product
   is fused into the sum (the oracle's CPU contraction does the same, so
   the f64 plain version is bitwise the oracle), then a column blend
@@ -49,7 +58,10 @@ these plain versions:
 from __future__ import annotations
 
 import ctypes
+import functools
+from fractions import Fraction
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,13 +70,39 @@ from rvio_tpu_torch.ops import _lib
 _LIB = "clahe"
 # both entries: three pointers, H, W, grid, two floats (then the stream)
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+_LUT_ARGS = _ARGS + [ctypes.c_int]     # K10 also takes cdf_any_order
 KERNEL_BINS = 256
+# K10's cluster: the CTAs of a tile, each counting a band of its rows, and
+# the threads of each (csrc/clahe.cu CL, LUT_THREADS)
+CTAS_PER_TILE = 8
+LUT_THREADS = 256
 
 
 def tile_shape(H: int, W: int, grid: int):
     """(th, tw): the tile size, the image's ceil-divided by the grid (OpenCV
     extends the border)."""
     return -(-H // grid), -(-W // grid)
+
+
+def clip_limit_count(clip_limit: float, area: int, n_bins: int = 256) -> float:
+    """The clip limit in counts, as the plain version computes it:
+    max(clip_limit * area / n_bins, 1)."""
+    return max(clip_limit * area / n_bins, 1.0)
+
+
+@functools.lru_cache(maxsize=64)
+def cdf_any_order(limit: float, area: int) -> bool:
+    """True when K10 may sum the CDF in any order: the f32 ``limit`` lies
+    on a grid 2^-k with area * 2^k < 2^24 and (limit + area / 256) *
+    2^(k+8) < 2^24.  Then every h - c (h <= area, c = min(h, limit)) and
+    the excess e are exact in f32, e / 256 and every clipped bin c + e / 256
+    are multiples of 2^-(k+8) and exact in f32, and every partial sum of
+    the bins (at most about area) is exact in double, whatever the order;
+    so the CDF is the scan of c plus (b + 1) e / 256, bitwise."""
+    lim = Fraction(float(np.float32(limit)))
+    den = lim.denominator                                    # 2^k
+    return (area * den < 2 ** 24
+            and (lim * 256 + area) * den < 2 ** 24)
 
 
 def _bins(x: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -163,11 +201,12 @@ def _launch_luts(img: torch.Tensor, clip_limit: float, grid: int,
     area = th * tw
     luts = torch.empty((grid * grid, KERNEL_BINS), dtype=torch.float32,
                        device=img.device)
-    fn = _lib.function(_LIB, "rvio_clahe_luts", _ARGS)
+    limit = clip_limit_count(clip_limit, area)
+    fn = _lib.function(_LIB, "rvio_clahe_luts", _LUT_ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts),
               ctypes.c_void_p(None) if hist is None else _lib.ptr(hist), H, W,
-              grid, max(clip_limit * area / KERNEL_BINS, 1.0),
-              (KERNEL_BINS - 1.0) / area, device=img.device)
+              grid, limit, (KERNEL_BINS - 1.0) / area,
+              int(cdf_any_order(limit, area)), device=img.device)
     clahe_luts.launches += 1
     return luts
 

@@ -18,10 +18,14 @@ call reads 7 chains, z and 5 per-feature scalars (F*L*47*4 + F*20 B =
 284 KB) and writes r, Hx and hfn (F*2L*(6M+1)*4 + F*4 B = 1.02 MB), 1.3 MB
 in all, 0.39 us at 3.35 TB/s; its arithmetic (at most 4.1 MFLOP, every
 feature at full length, dominated by the 3 reflections over the 30 x 88
-system; ops/checks.jac_project_flops) is 0.06 us at 67 TFLOP/s.  It
-is launch- and latency-bound: one launch for the batch, one block per
-feature with its 10.5 KB system in shared memory, so the three dependent
-reflections cost barriers, not device-memory round trips.
+system; ops/checks.jac_project_flops) is 0.06 us at 67 TFLOP/s.  It is
+latency-bound: three dependent reflections a feature.  The kernel uses
+that the reflectors depend on Hf (2L x 3) alone: one warp a feature
+holds Hf and r with a measurement a lane and forms the reflectors by
+warp sums, while 96 lanes each own an output column of Hx, which they
+build in registers from the left factors, reflect and store at its
+absolute clone column; one barrier a feature.  The row count is a
+compile-time bound (32 rows for L <= 16, 128 for L <= 64).
 
 Depth guard: the kernel clamps |h_z| at ``KERNEL_EPS`` = 1e-6 (as the TPU
 kernel does: f32 reflector norms square the perspective rows, and 1e-12
@@ -158,8 +162,8 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     F, L, _ = z.shape
     dev = z.device
     f32 = torch.float32
-    te = t_eff.to(torch.int32)
-    c0i = c0.to(torch.int32)
+    te = t_eff.to(torch.int64)
+    c0i = c0.to(torch.int64)
     name = "jac_project"
     _lib.check(name, "z", z, (F, L, 2), f32, dev)
     for arg, t in (("Rc_lin", Rc_lin), ("Rrel_lin", Rrel_lin),
@@ -170,8 +174,8 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
         _lib.check(name, arg, t, (F, L, 3), f32, dev)
     for arg, t in (("phi", phi), ("psi", psi), ("rho", rho)):
         _lib.check(name, arg, t, (F,), f32, dev)
-    _lib.check(name, "t_eff", te, (F,), torch.int32, dev)
-    _lib.check(name, "c0", c0i, (F,), torch.int32, dev)
+    _lib.check(name, "t_eff", te, (F,), torch.int64, dev)
+    _lib.check(name, "c0", c0i, (F,), torch.int64, dev)
     _lib.check(name, "R_bc", R_bc, (3, 3), f32, dev)
     _lib.check(name, "t_bc", t_bc, (3,), f32, dev)
     if not 2 <= L <= 64:
@@ -179,6 +183,8 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     r = torch.empty(F, 2 * L, dtype=f32, device=dev)
     Hx = torch.empty(F, 2 * L, 6 * M, dtype=f32, device=dev)
     hfn = torch.empty(F, dtype=f32, device=dev)
+    if F == 0:                  # nothing to launch
+        return r, Hx, hfn
     fn = _lib.function(_LIB, "rvio_jac_project", _ARGS)
     _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (
         z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res, phi, psi, rho,

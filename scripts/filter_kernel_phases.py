@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of K1 (csrc/propagate_block.cu), K4 (csrc/spd_solve.cu),
-K8 (csrc/lk_level.cu) and K6 (csrc/tile_gather.cu) goes, phase by phase,
-on the card.
+K8 (csrc/lk_level.cu), K6 (csrc/tile_gather.cu), K10 (csrc/clahe.cu's
+clahe_luts_kernel) and K3 (csrc/jac_project.cu) goes, phase by phase, on
+the card.
 
-    python3 scripts/filter_kernel_phases.py [--kernel k1|k4|k8|k6|both|all]...
+    python3 scripts/filter_kernel_phases.py
+        [--kernel k1|k4|k8|k6|k10|k3|both|all]...
         [--k1-source FILE] [--k4-source FILE] [--k8-source FILE]
-        [--k6-source FILE] [--frame N] [--reps 50]
+        [--k6-source FILE] [--k10-source FILE] [--k3-source FILE]
+        [--frame N] [--reps 50]
 
 Each ``--kN-source`` may be given more than once: every source is split on
 the same inputs in the same call (an old design beside the new one).  For
@@ -16,9 +19,11 @@ kernel beside it), one with a ``clock64()`` stamp at each ``// phase:
 a copy without its finish (K8).  A stamp waits at a barrier
 (``__syncthreads()``, or ``__syncwarp()`` in a kernel that has no block
 barrier or whose source says ``// phase sync: __syncwarp()``), then the
-thread that runs the stamped feature (block 0's first thread for K1 and
-K4; for K8 the slowest of the features with the most trips, found by
-timing each) adds the cycles since the
+thread that runs the stamped feature (block 0's first thread for K1, K4
+and K10, K10's block 0 being the first CTA of tile 0's cluster, the one
+that finishes; block 0's first column lane, thread 32, for K3, whose
+warp 0 leaves after the barrier; for K8 the slowest of the features with
+the most trips, found by timing each) adds the cycles since the
 previous stamp to the phase that was running; a phase inside a loop adds
 up over its trips.  A phase that the stamped feature's block never reaches
 (K8's finish runs in the block that draws the last ticket) reads 0: the
@@ -31,14 +36,19 @@ phase boundaries the script knows: for K1 and K4 the designs of commit
 a8e45c3 (K1 one block of 576 threads, K4 one block of 256 threads a
 feature), for K8 that of commit 243dc0e (one block of 256 threads a
 feature, two block barriers a trip, a second one-block launch for the
-finish).  Save it with its ``common.cuh`` beside it (``git show
-243dc0e:rvio_tpu_torch/csrc/lk_level.cu``).
+finish), for K10 and K3 those of commit fe8cabf (K10 one block of 1024
+threads a tile, K3 one block of 128 threads a feature with its system in
+shared memory).  Save it with its ``common.cuh`` beside it (``git show
+fe8cabf:rvio_tpu_torch/csrc/clahe.cu``).
 
 Inputs: the check cases of ``rvio_tpu_torch/ops/checks.py`` (K1 at B = 1,
 K = 16 with 11 valid samples, K4 at F = 100, m = 30, K8 and K6 at 200
-features of a 752 x 480 frame), and with ``--frame N`` also K8's and K6's
-inputs at tracked frame N of the CLAHE-on image path at each pyramid level
-(``chip_smoke.capture_klt_frame``).  It prints the card, each copy's error
+features of a 752 x 480 frame, K10 on its checker frame of 752 x 480 at
+g = 5, K3 at F = 100, L = 15, M = 14), and with ``--frame N`` also K8's
+and K6's inputs at tracked frame N of the CLAHE-on image path at each
+pyramid level and K10's image there (``chip_smoke.capture_klt_frame``),
+and K3's inputs at the feature path's frame N, captured from its plain
+path on the CPU (``chip_smoke.capture_frame_inputs``).  It prints the card, each copy's error
 against the plain version, the unstamped copy's device time (a CUDA graph
 of 200 launches), the stamped copy's, whether the two copies' outputs are
 bitwise equal (the script exits 1 if not), and each phase's mean cycles
@@ -87,15 +97,33 @@ OLD_DESIGN = {
             "Gauss-Newton trips"),
            ("  float e = 0.f;\n  if (last) {", "last-level error"),
            ("  if (tid == 0) {\n    g_out[2 * n] = px;", "store")],
+    "k10": [("  const int area = th * tw;\n  for (int idx = tid;",
+             "histogram loop"),
+            ("  // clip; the excess summed", "clip and excess, two barriers"),
+            ("  // the CDF in bin order", "one-thread CDF"),
+            ("  if (tid < NBINS) {\n    const float v = __fmul_rn(cdf[tid]",
+             "LUT store")],
+    "k3": [("  if (tid < L) {                   // ---- measurement l",
+            "measurement and chain-column setup"),
+           ("  // ---- Hx blocks", "Hx fill"),
+           ("  // ---- rank check on the rho column", "rank check, three "
+            "reflections"),
+           ("  // ---- masks, absolute clone columns, outputs", "masked store")],
 }
 # The stamped kernel ends where its body closes: before the next definition.
 KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
               "k8": "}\n\ntemplate <int KT>\nvoid launch(",
               "k8_old": "}\n\n__global__ void __launch_bounds__(NT)\n"
-                        "lk_finish_kernel"}
+                        "lk_finish_kernel",
+              "k10": "}\n\n// The two tiles along one axis",
+              "k10_old": "}\n\n// The two tiles along one axis",
+              "k3": "}\n\ntemplate <int LMAX>\nint launch(",
+              "k3_old": "}\n\n}  // namespace"}
 # Which feature a thread stamps for (-1: none).
 BLOCK0 = "(threadIdx.x == 0 && blockIdx.x == 0 ? 0 : -1)"
-STAMPER = {"k1": BLOCK0, "k4": BLOCK0,
+STAMPER = {"k1": BLOCK0, "k4": BLOCK0, "k10": BLOCK0, "k10_old": BLOCK0,
+           "k3": "(threadIdx.x == 32 && blockIdx.x == 0 ? 0 : -1)",
+           "k3_old": BLOCK0,
            "k8": "((threadIdx.x & 31) == 0 ? (int)(blockIdx.x * "
                  "(blockDim.x >> 5) + (threadIdx.x >> 5)) : -1)",
            "k8_old": "(threadIdx.x == 0 ? (int)blockIdx.x : -1)"}
@@ -176,12 +204,12 @@ class Call:
     argtypes: list
     ins: List[torch.Tensor]
     outs: List[torch.Tensor]
-    extra: List[torch.Tensor]      # pointers after the outputs (a ticket)
-    scalars: list
+    extra: list                    # pointers after the outputs (a ticket;
+    scalars: list                  # None: a null pointer)
     n_result: int                  # leading outputs the check compares
 
     def pointers(self):
-        return [ctypes.c_void_p(t.data_ptr())
+        return [ctypes.c_void_p(None if t is None else t.data_ptr())
                 for t in self.ins + self.outs + self.extra]
 
 
@@ -247,6 +275,38 @@ def _k6_call(chk, text):
                 [H, W, N, th, tw], 1)
 
 
+def _k10_call(chk, text):
+    from rvio_tpu_torch.ops import clahe as k10
+    img, = chk.args
+    g, clip = chk.kwargs["grid"], chk.kwargs["clip_limit"]
+    H, W = img.shape
+    th, tw = k10.tile_shape(H, W, g)
+    limit = k10.clip_limit_count(clip, th * tw)
+    luts = torch.empty((g * g, k10.KERNEL_BINS), device=img.device)
+    scalars = [H, W, g, limit, (k10.KERNEL_BINS - 1.0) / (th * tw)]
+    argtypes = k10._ARGS
+    if "any_order" in text:               # since fe8cabf: the CDF's branch
+        scalars.append(int(k10.cdf_any_order(limit, th * tw)))
+        argtypes = k10._LUT_ARGS
+    # the tracker's call: the LUTs alone (a null histogram pointer)
+    return Call("rvio_clahe_luts", argtypes, [img], [luts], [None], scalars,
+                1)
+
+
+def _k3_call(chk, text):
+    from rvio_tpu_torch.ops import jac_project as k3
+    *arrays, M = chk.args
+    if "long long* teff" not in text:     # fe8cabf's design: int32
+        arrays[10:12] = [x.to(torch.int32) for x in arrays[10:12]]
+    F, L = arrays[0].shape[:2]
+    dev = arrays[0].device
+    outs = [torch.empty((F, 2 * L), device=dev),
+            torch.empty((F, 2 * L, 6 * M), device=dev),
+            torch.empty(F, device=dev)]
+    return Call("rvio_jac_project", k3._ARGS, arrays, outs, [],
+                [F, L, M, k3.KERNEL_EPS], 3)
+
+
 @dataclass
 class Kernel:
     lib: str
@@ -259,7 +319,9 @@ KERNELS = {"k1": Kernel("propagate_block", "propagate_block", _k1_call),
            "k4": Kernel("spd_solve", "batched_quadform", _k4_call),
            "k8": Kernel("lk_level", "lk_level", _k8_call),
            "k6": Kernel("tile_gather", "gather_tiles", _k6_call,
-                        stamps=False)}
+                        stamps=False),
+           "k10": Kernel("clahe", "clahe_luts", _k10_call),
+           "k3": Kernel("jac_project", "jac_project", _k3_call)}
 
 
 def bitwise_equal(xs, ys) -> bool:
@@ -436,15 +498,44 @@ def split(build: Build, label: str, chk, reps: int) -> bool:
 _CAPTURED: dict = {}
 
 
+def feature_frame_case(dev, frame: int):
+    """K3's case at the feature path's frame ``frame`` (the ``frame``-th
+    filtered frame), captured from its plain path on the CPU."""
+    from chip_smoke import _init_frame, capture_frame_inputs, workload_sim
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.ops.checks import jac_case
+    from rvio_tpu_torch.runtime import batches_from_sim
+    cfg, sim = RVIOConfig(), workload_sim()
+    k_end = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a,
+                        sim.frame_t) + frame
+    res, _, _, inputs = capture_frame_inputs(
+        cfg, (sim.imu_t, sim.imu_w, sim.imu_a), sim.frame_t[:k_end],
+        batches_from_sim(sim)[:k_end])
+    if len(res.timestamps) != frame:
+        raise AssertionError(f"the feature path filtered "
+                             f"{len(res.timestamps)} frames, not {frame}")
+    t_eff = inputs[10]
+    what = (f" (the feature path's frame {frame}: t_eff sum "
+            f"{int(t_eff.sum())} over {int((t_eff >= 2).sum())} features)")
+    return [(what, jac_case(dev, inputs, what=what))]
+
+
 def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
-    """K8's or K6's cases at tracked frame ``frame`` of the CLAHE-on image
-    path, one a pyramid level (K6: its template and its search gather)."""
+    """K8's, K6's or K10's cases at tracked frame ``frame`` of the CLAHE-on
+    image path, one a pyramid level (K6: its template and its search
+    gather; K10: the frame's image); K3's at the feature path's frame."""
     from chip_smoke import capture_klt_frame, workload_sim
-    from rvio_tpu_torch.ops.checks import lk_case, tile_case
+    from rvio_tpu_torch.ops.checks import clahe_luts_case, lk_case, tile_case
+    if kernel == "k3":
+        return feature_frame_case(dev, frame)
     if frame not in _CAPTURED:
         _CAPTURED[frame] = capture_klt_frame(dev, workload_sim(), frame=frame)
+    levels, eq_img = _CAPTURED[frame]
+    if kernel == "k10":
+        what = f" (frame {frame}'s image)"
+        return [(what, clahe_luts_case(dev, eq_img, what=what))]
     out = []
-    for lvl, tmpl, search, args, kw in _CAPTURED[frame]:
+    for lvl, tmpl, search, args, kw in levels:
         what = f" (frame {frame}, level {lvl})"
         if kernel == "k8":
             out.append((what, lk_case(dev, args, kw, what=what)))
@@ -458,16 +549,19 @@ def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("k1", "k4", "k8", "k6", "both",
-                                         "all"), action="append",
+    ap.add_argument("--kernel", choices=("k1", "k4", "k8", "k6", "k10",
+                                         "k3", "both", "all"),
+                    action="append",
                     help="may repeat; both (the default): k1 and k4; all: "
                          "every kernel")
     for k, name in (("k1", "propagate_block"), ("k4", "spd_solve"),
-                    ("k8", "lk_level"), ("k6", "tile_gather")):
+                    ("k8", "lk_level"), ("k6", "tile_gather"),
+                    ("k10", "clahe"), ("k3", "jac_project")):
         ap.add_argument(f"--{k}-source", action="append", default=None,
                         help=f"default csrc/{name}.cu; may repeat")
     ap.add_argument("--frame", type=int, default=None,
-                    help="K8 and K6 also on this tracked frame's inputs")
+                    help="K8, K6 and K10 also on this tracked frame's "
+                         "inputs, K3 on this filtered frame's")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -480,7 +574,8 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     dev = torch.device("cuda", 0)
     checks = {c.name: c for c in kernel_checks(dev)}
-    groups = {"both": ("k1", "k4"), "all": ("k1", "k4", "k8", "k6")}
+    groups = {"both": ("k1", "k4"),
+              "all": ("k1", "k4", "k8", "k6", "k10", "k3")}
     kernels = [k for arg in args.kernel or ["both"]
                for k in groups.get(arg, (arg,))]
     ok = True
@@ -491,7 +586,7 @@ def main() -> int:
         builds = [Build(kernel, Path(s), f"s{i}")
                   for i, s in enumerate(sources)]
         cases: List[Tuple[str, Optional[object]]] = [("", checks[spec.check])]
-        if args.frame is not None and kernel in ("k8", "k6"):
+        if args.frame is not None and kernel != "k1" and kernel != "k4":
             cases += frame_cases(dev, kernel, args.frame)
         for label, chk in cases:
             for build in builds:

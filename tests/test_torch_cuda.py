@@ -23,6 +23,10 @@ trip and thirty, near the tile edges, with every status false, with the
 T rule of its finish, in a replayed CUDA graph and on two streams at
 once, and K6 bitwise at every pyramid level, on images smaller than the
 tile, past every side and at other tile shapes;
+K10 at seven frame sizes, on and off the clip limit's grid, on a constant
+and a random frame, in a replayed CUDA graph, and K3 at both compiled row
+bounds and their edges, F = 0 to 200, t_eff = 2 and L, c0 at both ends of
+the window, a feature of rank two and one with a single measurement;
 the replay of an ASL folder is the rendered scan of the same frames, and
 a resumed replay the uninterrupted one.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -1019,3 +1023,166 @@ def test_gather_tiles_other_shapes(cuda, th, tw):
     """Tiles other than 40 x 32 take the generic instantiation."""
     for hw in ((480, 752), (30, 20)):
         _gather_against_plain(cuda, *hw, 200, th, tw, seed=th * tw)
+
+
+# ---- K10: the CLAHE LUTs (a cluster of CTAs a tile) ----
+
+def _clahe_frame(H, W, seed=0):
+    from rvio_tpu_torch.ops.checks import _checker_frame
+    return _checker_frame(np.random.default_rng(seed), H, W)
+
+
+def _clahe_exact_excess(img, clip, g=5):
+    """The plain version's LUTs with each tile's excess summed exactly (in
+    f64, then rounded to f32 once) where the plain version sums it in f32,
+    and the tiles whose f32 sum is that exact one."""
+    from rvio_tpu_torch.ops.clahe import (clahe_hist_plain, clip_limit_count,
+                                          tile_shape)
+    th, tw = tile_shape(*img.shape, g)
+    area = th * tw
+    hist = clahe_hist_plain(img, g).float()
+    clipped = torch.clamp(hist, max=clip_limit_count(clip, area))
+    terms = hist - clipped
+    excess = terms.double().sum(dim=1, keepdim=True).float()
+    exact = (terms.sum(dim=1, keepdim=True) == excess)[:, 0]
+    cdf = torch.cumsum(clipped + excess / 256, dim=1)
+    return (cdf * (255.0 / area)).to(torch.bfloat16).float(), exact
+
+
+def _clahe_against_plain(cuda, img, clip):
+    """K10's LUTs and histograms on the card against the plain versions on
+    the CPU, one launch each (LUTs; LUTs and histograms): the histograms
+    exact; the LUTs bitwise those of the plain version with the excess
+    summed exactly, and bitwise the plain version's own on every tile whose
+    f32 excess sum is exact (every tile on the clip limit's grid,
+    cdf_any_order; off it the plain version's f32 sum may round, in an
+    order the CPU's vector width sets)."""
+    from rvio_tpu_torch.ops.clahe import (_luts_and_hist, cdf_any_order,
+                                          clahe_hist_plain, clahe_luts,
+                                          clahe_luts_plain, clip_limit_count,
+                                          tile_shape)
+    before = clahe_luts.launches
+    luts = clahe_luts(img.to(cuda), clip)
+    luts2, hist = _luts_and_hist(img.to(cuda), clip)
+    torch.cuda.synchronize()
+    assert clahe_luts.launches == before + 2
+    assert torch.equal(hist.cpu().long(), clahe_hist_plain(img))
+    assert torch.equal(luts.cpu(), luts2.cpu())
+    ref, exact = _clahe_exact_excess(img, clip)
+    th, tw = tile_shape(*img.shape, 5)
+    if cdf_any_order(clip_limit_count(clip, th * tw), th * tw):
+        assert bool(exact.all())
+    assert torch.equal(luts.cpu(), ref)
+    want = clahe_luts_plain(img, clip)
+    assert torch.equal(luts.cpu()[exact], want[exact])
+    return int(exact.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [3.0, 2.7])
+@pytest.mark.parametrize("hw", [(480, 752), (440, 750), (750, 440),
+                                (240, 320), (120, 130), (130, 120),
+                                (20, 1400)])
+def test_clahe_luts_sizes_and_limits(cuda, hw, clip):
+    """K10 at RVIOConfig()'s frame, the CLAHE tests' 440 x 750 and 120 x
+    130 frames and their transposes (tiles of 88 columns: two row phases
+    a CTA; tiles of 24 and 26 rows: bands of 2-4 rows, and at 26 a CTA
+    with none), the small config's 320 x 240, and tiles of 4 x 280 (two
+    column passes a thread, half the cluster without a band); at clip 3.0
+    (on the grid everywhere: the parallel scan) and 2.7 (off it at 752 x
+    480, 320 x 240 and 120 x 130: the bin-order scan)."""
+    from rvio_tpu_torch.ops.clahe import (cdf_any_order, clip_limit_count,
+                                          tile_shape)
+    th, tw = tile_shape(*hw, 5)
+    any_order = cdf_any_order(clip_limit_count(clip, th * tw), th * tw)
+    assert any_order == (clip == 3.0 or th * tw in (13200, 1120))
+    _clahe_against_plain(cuda, _clahe_frame(*hw, seed=hw[0]), clip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [3.0, 2.7])
+def test_clahe_luts_constant_frame(cuda, clip):
+    """Every pixel in one bin (every lane's run one atomic on one address,
+    and one bin clipped holding the whole excess), and a frame of random
+    bins (runs of one pixel)."""
+    _clahe_against_plain(cuda, torch.full((480, 752), 77.3), clip)
+    rng = np.random.default_rng(1)
+    _clahe_against_plain(cuda, torch.as_tensor(
+        rng.uniform(-20, 280, (480, 752)), dtype=torch.float32), clip)
+
+
+@pytest.mark.gpu
+def test_clahe_luts_graph_replays(cuda):
+    """A CUDA graph of the call replayed three times gives the eager
+    call's LUTs each time (the kernel keeps no state between launches)."""
+    from rvio_tpu_torch.ops.clahe import clahe_luts
+    img = _clahe_frame(480, 752).to(cuda)
+    want = clahe_luts(img)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        clahe_luts(img)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = clahe_luts(img)
+    for _ in range(3):
+        out.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+# ---- K3: per-feature Jacobians and the nullspace projection ----
+
+def _jac_against_plain(cuda, inputs):
+    """K3 on ``inputs`` (ops/checks.jac_inputs) against its plain version
+    at the check's tolerances, one launch (none for F = 0)."""
+    from rvio_tpu_torch.ops.checks import jac_case
+    chk = jac_case(cuda, inputs)
+    before = chk.kernel.launches
+    got = chk.run_kernel()
+    torch.cuda.synchronize()
+    F = inputs[0].shape[0]
+    assert chk.kernel.launches == before + (F > 0)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    chk.compare(got, chk.run_plain())
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [2, 15, 16, 17, 64])
+@pytest.mark.parametrize("F", [0, 1, 100, 200])
+def test_jac_project_lengths_and_counts(cuda, L, F):
+    """K3 at both compiled row bounds (L <= 16: 32 rows, L <= 64: 128) and
+    at their edges, for F features with t_eff = 2 and t_eff = L in turn
+    and c0 at 0 and at M - t_eff + 1 in turn (a window of M = L - 1
+    clones, as RVIOConfig() has it)."""
+    from rvio_tpu_torch.config import RVIOConfig
+    from rvio_tpu_torch.ops.checks import jac_inputs
+    M = max(L - 1, 2)
+    t_eff = np.where(np.arange(F) % 2 == 0, 2, L)
+    c0 = np.where(np.arange(F) % 4 < 2, 0, M - t_eff + 1)
+    _jac_against_plain(cuda, jac_inputs(RVIOConfig(), np.random.default_rng(L),
+                                        F, L, M, t_eff, c0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [15, 40])
+def test_jac_project_rank_two_feature(cuda, L):
+    """A feature seen from one camera centre (tc = 0 at the linearization
+    point: ||Hf[:, rho]|| = 0 < 1e-4, so Ncols = 2) beside ordinary ones;
+    and a feature with fewer than two measurements (every row masked)."""
+    from rvio_tpu_torch.config import RVIOConfig
+    from rvio_tpu_torch.ops.checks import jac_inputs
+    F, M = 9, 14
+    t_eff = np.full(F, min(L, 15))
+    c0 = np.zeros(F, np.int64)
+    t_eff[5] = 1
+    inputs = jac_inputs(RVIOConfig(), np.random.default_rng(3), F, L, M,
+                        t_eff, c0)
+    inputs[2] = inputs[2].copy()
+    inputs[2][3] = 0.0
+    r, Hx, hfn = _jac_against_plain(cuda, inputs)
+    assert float(hfn[3]) < 1e-4 and float(hfn.max()) > 1e-4
+    assert float(r[3, 2].abs()) > 0 and float(Hx[5].abs().max()) == 0.0
