@@ -38,7 +38,9 @@ set to 0 just before it and read just after:
   path (captured on the card), at each of the four pyramid levels: each
   against its plain version, with T (the largest trip count) and the
   device time; K10 on the same frame's image, LUTs bitwise with the CPU
-  plain version;
+  plain version; K9 and K13 on the same frame's refill detection (its
+  corners and tiles, and its level-0 image), each against its plain
+  version, with the device time;
 - the public entries that no path reaches, the detector's
   ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
   workload's frames and the tracker's live positions, each against its
@@ -390,20 +392,24 @@ def workload_sim():
 
 
 def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
-    """The inputs of the tracker's K6, K8 and K10 calls at tracked frame
-    ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``, CLAHE
-    on).  Returns (levels, K10's image): per pyramid level, coarsest first,
-    (level, the template gather's (image, origins), the search gather's,
-    K8's args, K8's kwargs); and the image of the last ``clahe_luts`` call
-    (None with the equalizer off)."""
+    """The inputs of the tracker's K6, K8, K10, K9 and K13 calls at tracked
+    frame ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``,
+    CLAHE on), in one run.  Returns (levels, K10's image, K9's call, K13's
+    image): per pyramid level, coarsest first, (level, the template
+    gather's (image, origins), the search gather's, K8's args, K8's
+    kwargs); the image of the last ``clahe_luts`` call (None with the
+    equalizer off); the (args, kwargs) of the frame's refill
+    ``subpix_refine`` and the image of its ``shi_tomasi_nms``."""
     from unittest import mock
 
+    import rvio_tpu_torch.frontend.detector as detector
     import rvio_tpu_torch.frontend.image as image
     import rvio_tpu_torch.frontend.klt as klt
     from rvio_tpu_torch.runtime import run_rendered_sequence_scan
     cfg = image_config(True) if cfg is None else cfg
     levels = cfg.tracker.klt_levels + 1
-    calls = {"lk_level": [], "gather_tiles": [], "clahe_luts": []}
+    calls = {"lk_level": [], "gather_tiles": [], "clahe_luts": [],
+             "subpix_refine": [], "shi_tomasi_nms": []}
 
     def recorder(module, name, keep):
         fn = getattr(module, name)
@@ -419,7 +425,11 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
             mock.patch.object(klt, "gather_tiles",
                               recorder(klt, "gather_tiles", 2 * levels)), \
             mock.patch.object(image, "clahe_luts",
-                              recorder(image, "clahe_luts", 1)):
+                              recorder(image, "clahe_luts", 1)), \
+            mock.patch.object(detector, "subpix_refine",
+                              recorder(detector, "subpix_refine", 1)), \
+            mock.patch.object(detector, "shi_tomasi_nms",
+                              recorder(detector, "shi_tomasi_nms", 1)):
         res = run_rendered_sequence_scan(cfg, sim, device=dev,
                                          max_frames=k0 + 1 + frame)
     if len(res.timestamps) != frame:
@@ -431,7 +441,8 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
         args, kw = calls["lk_level"][i]
         out.append((levels - 1 - i, tmpl, search, args, kw))
     eq = calls["clahe_luts"]
-    return out, eq[-1][0][0] if eq else None
+    return (out, eq[-1][0][0] if eq else None, calls["subpix_refine"][-1],
+            calls["shi_tomasi_nms"][-1][0][0])
 
 
 def klt_frame_phase(dev, sim, records) -> None:
@@ -440,10 +451,13 @@ def klt_frame_phase(dev, sim, records) -> None:
     version (raises over the check's tolerance), T and the trip counts of
     the live features (plain version), the device time a launch (a CUDA
     graph of 200); into each kernel's record as ``frame_levels``.  K10 on
-    the same frame's image (:func:`frame_check`)."""
-    from rvio_tpu_torch.ops.checks import clahe_luts_case, lk_case, tile_case
+    the same frame's image, K9 and K13 on that frame's refill detection
+    (:func:`frame_check`), all captured in the same run."""
+    from rvio_tpu_torch.ops.checks import (clahe_luts_case, lk_case,
+                                           shi_nms_case, subpix_case,
+                                           tile_case)
     t0 = time.perf_counter()
-    captured, eq_img = capture_klt_frame(dev, sim)
+    captured, eq_img, subpix, nms_img = capture_klt_frame(dev, sim)
     print(f"KLT inputs of tracked frame {KLT_FRAME} (CLAHE on) captured on "
           f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
     k8_levels, k6_levels = [], []
@@ -486,6 +500,15 @@ def klt_frame_phase(dev, sim, records) -> None:
     frame_check(records, clahe_luts_case(
         dev, eq_img, what=f" (frame {KLT_FRAME}'s image)"),
         f"tracked frame {KLT_FRAME}'s image, CLAHE on")
+    (tiles, origin, pts), kw = subpix
+    frame_check(records, subpix_case(
+        dev, tiles, origin, pts, **kw, what=f" (frame {KLT_FRAME}'s refill)"),
+        f"tracked frame {KLT_FRAME}'s refill, {len(pts)} corners, win "
+        f"{kw['win']}, {kw['iters']} iterations")
+    frame_check(records, shi_nms_case(
+        dev, nms_img, what=f" (frame {KLT_FRAME}'s level 0)"),
+        f"tracked frame {KLT_FRAME}'s level 0, CLAHE on, "
+        f"{nms_img.shape[0]}x{nms_img.shape[1]}")
 
 
 def _render_u8(cfg, sim, k):

@@ -71,49 +71,11 @@ __device__ __forceinline__ int reflect(int k, int n) {
   return k < 0 ? -k : (k >= n ? 2 * n - 2 - k : k);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One 1-D bulk copy of `bytes` (16-byte aligned, a multiple of 16) from
-// device memory into this CTA's shared memory, reporting to `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_expect(uint64_t* bar,
-                                                 uint32_t bytes) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("{\n\t.reg .b64 st;\n\t"
-               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
-  asm volatile("{\n\t.reg .pred p;\n\tWAIT:\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n\t"
-               "@!p bra WAIT;\n\t}" ::"r"(smem_addr(bar)) : "memory");
-}
-
 // This lane's strip of KT window taps (window column b, rows a0 ..
 // a0 + KT - 1): each tap's 2 x 2 pixels, read from T (row stride ld) for
 // the window whose first tap lies at row iy, column jx of T, each tap's
-// top-left pixel clipped to [0, imax] x [0, jmax] as rvio::sample_tap
-// clips it.  Where no row of the strip clips and its last row,
+// top-left pixel clipped to [0, imax] x [0, jmax] as the oracle's
+// _sample_patches clips it.  Where no row of the strip clips and its last row,
 // iy + a0 + KT, lies in T (`whole`, uniform over the warp), the strip's
 // KT + 1 rows are read once each.
 template <int KT>
@@ -236,9 +198,9 @@ lk_level_kernel(const float* __restrict__ t_tiles,
   // phase: bulk copies of both tiles, the feature's scalars
   if (n < N) {
     if (lane == 0) {
-      mbar_init_expect(bar, 8u * TT);
-      bulk_copy(Tt, t_tiles + (size_t)n * TT, 4 * TT, bar);
-      bulk_copy(Ts, n_tiles + (size_t)n * TT, 4 * TT, bar);
+      rvio::mbar_init_expect(bar, 8u * TT);
+      rvio::bulk_copy(Tt, t_tiles + (size_t)n * TT, 4 * TT, bar);
+      rvio::bulk_copy(Ts, n_tiles + (size_t)n * TT, 4 * TT, bar);
     }
     __syncwarp();
     const float l0x = loc0[2 * n], l0y = loc0[2 * n + 1];
@@ -257,7 +219,7 @@ lk_level_kernel(const float* __restrict__ t_tiles,
     const int bx0 = min(max(jx0, 0), TW - 2);
     const int bx1 = min(max(jx0 + win - 1, 0), TW - 2) + 1;
     const int bw = bx1 - bx0 + 1, bh = by1 - by0 + 1, ld = win + 1;
-    mbar_wait(bar);
+    rvio::mbar_wait(bar);
 
     // phase: Scharr /32 over the support box, reflect-padded
     // lane -> (row parity, column) for a box up to 16 wide, (row, column)
@@ -318,9 +280,9 @@ lk_level_kernel(const float* __restrict__ t_tiles,
       gxy += gx[m] * gy[m];
       gyy += gy[m] * gy[m];
     }
-    gxx = warp_sum(gxx);
-    gxy = warp_sum(gxy);
-    gyy = warp_sum(gyy);
+    gxx = rvio::warp_sum(gxx);
+    gxy = rvio::warp_sum(gxy);
+    gyy = rvio::warp_sum(gyy);
     const float det = gxx * gyy - gxy * gxy;
     const float tr = gxx + gyy;
     const float meig =
@@ -358,8 +320,8 @@ lk_level_kernel(const float* __restrict__ t_tiles,
       }
       bx += bx2;
       by += by2;
-      bx = warp_sum(bx);
-      by = warp_sum(by);
+      bx = rvio::warp_sum(bx);
+      by = rvio::warp_sum(by);
       if (wandered) {
         alive = false;
         break;
@@ -380,7 +342,7 @@ lk_level_kernel(const float* __restrict__ t_tiles,
 #pragma unroll
       for (int m = 0; m < KT; ++m)
         s += lane_on && a0 + m < win ? fabsf(cur[m] - tm[m]) : 0.f;
-      e = warp_sum(s) / (float)area;
+      e = rvio::warp_sum(s) / (float)area;
     }
 
     // phase: store

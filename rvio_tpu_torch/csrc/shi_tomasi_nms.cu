@@ -5,7 +5,7 @@
 // (shi_tomasi_nms_pallas / _shi_nms_kernel) and computes its oracle,
 // detector.nms_masked_response, on the whole map; rvio_shi_tomasi replaces
 // shi_tomasi_pallas / _shi_kernel and computes detector.shi_tomasi_response,
-// the same kernel without the NMS stage (the response written where it is
+// the same function without the NMS stage (the response written where it is
 // formed, 0 on the 2-px border; the TPU kernel's lane-roll wrap has no
 // counterpart here):
 //   ix = Sobel/8 in x, iy = Sobel/8 in y (reflect border, never reached:
@@ -13,12 +13,27 @@
 //   s** = 3x3 box sums of ix*ix, ix*iy, iy*iy,
 //   resp = (tr - sqrt(max(tr^2 - 4 det, 0))) / 2, zero on the 2-px border,
 //   out  = resp where resp >= all 8 neighbours (-inf outside), else -inf.
-// Bound by bytes: one read of the image, one write of the map.  A block
-// owns a TY x TX output tile; it loads the tile with a 3-px halo into
-// shared memory once, forms the gradient products (TY+4 x TX+4), the
-// response (TY+2 x TX+2) and the NMS there.  Every product and sum rounds
-// on its own (__fmul_rn / __fadd_rn, no FMA contraction) in the plain
-// version's order, so kernel and plain version agree bitwise.
+// Every product and sum rounds on its own (__fmul_rn / __fadd_rn, no FMA
+// contraction) in the plain version's order (frontend/image.py
+// _sep_filter: rows first, then columns), so kernel and plain version agree
+// bitwise.  Bound by bytes: one read of the image, one write of the map.
+//
+// K12 (shi_kernel<false>): a block owns a TY x TX output tile; it loads the
+// tile with a halo into shared memory once and forms the gradient products
+// and the response there, a block barrier between the stages.
+//
+// K13 (shi_nms_kernel): what one block's chain of four stages cost above is
+// the whole time of a one-wave grid, so K13 has no shared memory and no
+// barrier.  A warp owns a strip of NMS_ROWS output rows by 26 columns: lane
+// l holds image column x = 26 s - 3 + l, issues the loads of its NMS_ROWS +
+// 6 image rows before any arithmetic, and keeps every row of its column in
+// registers.  Horizontal neighbours come from the adjacent lanes by
+// __shfl_up_sync / __shfl_down_sync: each stage is valid one lane further
+// in from each side (gradients 1..30, box sums and responses 2..29, the
+// NMS 3..28), so the warp writes its inner 26 columns.  The 3x3 test is
+// resp >= the NaN-propagating maximum of its 3x3 neighbourhood, taken as
+// each lane's column maximum and two shuffles: the same decision as the 8
+// comparisons (a NaN anywhere fails both).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -30,9 +45,9 @@ namespace {
 constexpr int TX = 32;
 constexpr int TY = 16;
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+using rvio::add;
+using rvio::mul;
+using rvio::sub;
 
 // NMS false: the response alone, written from the response stage.
 template <bool NMS>
@@ -124,14 +139,112 @@ __global__ void shi_kernel(const float* __restrict__ img,
   }
 }
 
+// K13 (see the head of the file).  NMS_ROWS by measurement
+// (scripts/filter_kernel_phases.py --kernel k13).
+constexpr int NMS_COLS = 26;
+constexpr int NMS_ROWS = 6;
+constexpr int NMS_WARPS = 4;    // warps a block, each on its own strip
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
+}
+
+// The value of lane l - 1 (left) and of lane l + 1 (right).
+__device__ __forceinline__ float left(float v) {
+  return __shfl_up_sync(rvio::FULL_MASK, v, 1);
+}
+__device__ __forceinline__ float right(float v) {
+  return __shfl_down_sync(rvio::FULL_MASK, v, 1);
+}
+
+// The 3x3 box sum at row k + 1 of a column's rows p: the column's three
+// rows, then the three columns across the lanes.
+template <int N>
+__device__ __forceinline__ float box3(const float (&p)[N], int k) {
+  const float cs = add(add(p[k], p[k + 1]), p[k + 2]);
+  return add(add(left(cs), cs), right(cs));
+}
+
+// phase sync: __syncwarp()
+template <int ROWS>
+__global__ void __launch_bounds__(32 * NMS_WARPS)
+shi_nms_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
+               int W, int strips_x) {
+  const int lane = threadIdx.x & 31;
+  const int strip = blockIdx.x * NMS_WARPS + (threadIdx.x >> 5);
+  const int sy = strip / strips_x, sx = strip - sy * strips_x;
+  const int y0 = sy * ROWS;
+  if (y0 >= H) return;   // a warp past the map
+  const int x = sx * NMS_COLS - 3 + lane;
+
+  // phase: loads
+  // image rows y0-3 .. y0+ROWS+2, clamped to the image: a clamped row or
+  // column reaches no response inside the 2-px border
+  const float* col = img + min(max(x, 0), W - 1);
+  float I[ROWS + 6];
+#pragma unroll
+  for (int k = 0; k < ROWS + 6; ++k)
+    I[k] = __ldg(col + (size_t)min(max(y0 - 3 + k, 0), H - 1) * W);
+
+  // phase: gradient products
+  // product row k (image row y0-2+k) from image rows k .. k+2; the column
+  // sums of each filter, then the row sums across the lanes.  -s + t and
+  // t - s round alike, and so do s * -1 and -s.
+  float pxx[ROWS + 4], pxy[ROWS + 4], pyy[ROWS + 4];
+#pragma unroll
+  for (int k = 0; k < ROWS + 4; ++k) {
+    const float sm = add(add(mul(I[k], 0.125f), mul(I[k + 1], 0.25f)),
+                         mul(I[k + 2], 0.125f));
+    const float d = sub(I[k + 2], I[k]);
+    const float ix = sub(right(sm), left(sm));
+    const float iy = add(add(mul(left(d), 0.125f), mul(d, 0.25f)),
+                         mul(right(d), 0.125f));
+    pxx[k] = mul(ix, ix);
+    pxy[k] = mul(ix, iy);
+    pyy[k] = mul(iy, iy);
+  }
+
+  // phase: responses
+  // response row k (image row y0-1+k) from product rows k .. k+2: 0 on the
+  // 2-px border, -inf off the image
+  float R[ROWS + 2];
+#pragma unroll
+  for (int k = 0; k < ROWS + 2; ++k) {
+    const float sxx = box3(pxx, k), sxy = box3(pxy, k), syy = box3(pyy, k);
+    const float tr = add(sxx, syy);
+    const float det = sub(mul(sxx, syy), mul(sxy, sxy));
+    const float disc = __fsqrt_rn(fmaxf(sub(mul(tr, tr), mul(4.f, det)), 0.f));
+    const int y = y0 - 1 + k;
+    R[k] = y < 0 || y >= H || x < 0 || x >= W ? -CUDART_INF_F
+           : y < 2 || y >= H - 2 || x < 2 || x >= W - 2
+               ? 0.f
+               : mul(sub(tr, disc), 0.5f);
+  }
+
+  // phase: NMS and store
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const float cm = max_nan(max_nan(R[k], R[k + 1]), R[k + 2]);
+    const float m9 = max_nan(max_nan(left(cm), cm), right(cm));
+    const int y = y0 + k;
+    if (lane >= 3 && lane < 3 + NMS_COLS && x < W && y < H)
+      out[(size_t)y * W + x] = R[k + 1] >= m9 ? R[k + 1] : -CUDART_INF_F;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int rvio_shi_tomasi_nms(const float* img, float* out, int H, int W,
                         cudaStream_t stream) {
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  shi_kernel<true><<<grid, 256, 0, stream>>>(img, out, H, W);
+  const int strips_x = (W + NMS_COLS - 1) / NMS_COLS;
+  const int warps = strips_x * ((H + NMS_ROWS - 1) / NMS_ROWS);
+  shi_nms_kernel<NMS_ROWS><<<(warps + NMS_WARPS - 1) / NMS_WARPS,
+                             32 * NMS_WARPS, 0, stream>>>(img, out, H, W,
+                                                          strips_x);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -416,10 +416,47 @@ def _box_union(shape, boxes) -> int:
 SHI_NMS_FLOPS_PER_PX = 58
 
 
-def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
+def shi_nms_library(img: torch.Tensor):
+    """K13's yardstick, a chain of library calls computing the same map
+    (no single PyTorch call does): the Sobel/8 gradients and the 3x3 box
+    sums by ``F.conv2d``, the eigenvalue formula, the 2-px border by
+    ``torch.where``, the 3x3 maximum by ``F.max_pool2d(3, 1, 1)``, and the
+    mask by equality and ``torch.where``.  Returns the function of ``img``,
+    its constants made once on ``img``'s device (so a CUDA graph can
+    capture it)."""
+    F = torch.nn.functional
+    H, W = img.shape
+    dt, dev = img.dtype, img.device
+    sob = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
+                       dtype=dt, device=dev) / 8
+    grad_w = torch.stack([sob, sob.T])[:, None]          # (2, 1, 3, 3)
+    box_w = torch.ones((3, 1, 3, 3), dtype=dt, device=dev)
+    row = torch.arange(H, device=dev)[:, None]
+    col = torch.arange(W, device=dev)[None, :]
+    inner = (row >= 2) & (row < H - 2) & (col >= 2) & (col < W - 2)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    ninf = torch.full((), float("-inf"), dtype=dt, device=dev)
+
+    def run(x):
+        g = F.conv2d(x[None, None], grad_w, padding=1)
+        ix, iy = g[:, :1], g[:, 1:]
+        s = F.conv2d(torch.cat([ix * ix, ix * iy, iy * iy], 1), box_w,
+                     padding=1, groups=3)[0]
+        tr = s[0] + s[2]
+        det = s[0] * s[2] - s[1] * s[1]
+        resp = torch.where(inner, (tr - torch.sqrt(
+            torch.clamp(tr * tr - 4 * det, min=0.0))) * 0.5, zero)
+        peak = F.max_pool2d(resp[None, None], 3, 1, 1)[0, 0]
+        return torch.where(resp == peak, resp, ninf)
+
+    return run
+
+
+def shi_nms_case(dev, img: torch.Tensor, what: str = "") -> KernelCheck:
+    """K13 on an (H, W) f32 image (the tracker's level 0 after CLAHE)."""
     from rvio_tpu_torch.ops import shi_tomasi as k13
-    H, W = cfg.camera.height, cfg.camera.width
-    img = _texture(rng, H, W, passes=1).float().to(dev)
+    img = img.to(dev)
+    H, W = img.shape
     tol = 1e-5
     info = {}
 
@@ -427,8 +464,11 @@ def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
         k, p = _np(ko), _np(po)
         fk, fp = np.isfinite(k), np.isfinite(p)
         both = fk & fp
+        info["pixels_differing"] = int((k.view(np.int64) != p.view(np.int64))
+                                       .sum())
         err = float(np.max(np.abs(k[both] - p[both])
-                           / np.maximum(np.abs(p[both]), 1e-30)))
+                           / np.maximum(np.abs(p[both]), 1e-30),
+                           initial=0.0))
         flips = np.argwhere(fk != fp)
         info["mask_flips"] = len(flips)
         if len(flips):
@@ -439,8 +479,8 @@ def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
             for y, x in flips:
                 nb = np.delete(rp[y:y + 3, x:x + 3].ravel(), 4).max()
                 if abs(resp[y, x] - nb) > tol * max(abs(resp[y, x]), 1e-30):
-                    raise AssertionError(f"shi_tomasi_nms: mask flip at "
-                                         f"{(y, x)} is no near-tie")
+                    raise AssertionError(f"shi_tomasi_nms{what}: mask flip "
+                                         f"at {(y, x)} is no near-tie")
         if not err <= tol:
             _fail("shi_tomasi_nms", "relative", err, tol)
         return err
@@ -449,9 +489,15 @@ def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
         "shi_tomasi_nms", "rvio_tpu_torch/csrc/shi_tomasi_nms.cu",
         "rvio_tpu/ops/shi_tomasi.py:165", k13.shi_tomasi_nms,
         k13.shi_tomasi_nms_plain, (img,), {},
-        "rel 1e-5 where both finite; -inf mask flips only on near-ties",
+        "rel 1e-5 where both finite; -inf mask flips only on near-ties "
+        "(bitwise expected; differing pixels counted)",
         compare, float(SHI_NMS_FLOPS_PER_PX * H * W), F32 * H * W,
-        F32 * H * W, info=info)
+        F32 * H * W, library=shi_nms_library(img), info=info)
+
+
+def _shi_nms_case(cfg, dev, rng) -> KernelCheck:
+    H, W = cfg.camera.height, cfg.camera.width
+    return shi_nms_case(dev, _texture(rng, H, W, passes=1).float())
 
 
 def _tile_case(cfg, dev, rng) -> KernelCheck:
@@ -672,28 +718,27 @@ def subpix_reads(tiles, origin, pts, win: int, iters: int) -> int:
     return _box_union((N, TH, TW), boxes)
 
 
-def _subpix_case(cfg, dev, rng) -> KernelCheck:
-    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+def subpix_case(dev, tiles, origin, pts, win: int, iters: int,
+                what: str = "") -> KernelCheck:
+    """K9 on (N, TH, TW) f32 tiles at int32 origins (N, 2) and f32 corners
+    (N, 2), CPU tensors."""
     from rvio_tpu_torch.ops import klt_iterate as k9
-    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
-    img, _, pts = _frame_pair(cfg, rng)
-    H, W = img.shape
-    p = torch.as_tensor(pts, dtype=torch.float32)
-    o = tile_origins(p, H, W)
-    tiles = gather_tiles_plain(img, o, TILE_H, TILE)
-    win, iters = int(cfg.tracker.min_distance) // 2, cfg.tracker.subpix_iters
+    tiles, origin, pts = (x.detach().cpu() for x in (tiles, origin, pts))
+    N = len(pts)
     tol = 1e-3
     info = {}
 
     def compare(ko, po):
-        e = np.abs(_np(ko) - _np(po)).max(axis=1)
+        e = np.abs(_np(ko) - _np(po)).max(axis=1, initial=0.0)
+        if not len(e):
+            return 0.0
         n = int(np.argmax(e))
         err = float(e[n])
         # the worst corner's 2 x 2 system at the plain version's result:
         # its determinant and the condition number of the structure tensor
         g = [_np(x)[0] for x in k9.subpix_system(
-            tiles[n:n + 1], o[n:n + 1], po.detach().cpu()[n:n + 1].float(),
-            win)]
+            tiles[n:n + 1], origin[n:n + 1],
+            po.detach().cpu()[n:n + 1].float(), win)]
         gxx, gxy, gyy = (float(x) for x in g[:3])
         ev = np.linalg.eigvalsh(np.array([[gxx, gxy], [gxy, gyy]]))
         info.update(worst_corner=n, worst_at=[round(float(x), 3)
@@ -701,19 +746,38 @@ def _subpix_case(cfg, dev, rng) -> KernelCheck:
                     worst_det=float(gxx * gyy - gxy * gxy),
                     worst_cond=float(ev[1] / max(ev[0], 1e-30)),
                     median_err=float(np.median(e)))
+        if len(po) == N:
+            # how far the function itself parts between f32 and f64 here
+            p64 = k9.subpix_refine_plain(tiles.double(), origin,
+                                         pts.double(), win=win, iters=iters)
+            info["plain_f32_vs_f64"] = float(np.abs(_np(po) - p64.numpy())
+                                             .max())
         if not err <= tol:
-            _fail("subpix_refine", "max abs px", err, tol)
+            _fail(f"subpix_refine{what}", "max abs px", err, tol)
         return err
 
     # tile pixels, the origins and the corners in; the corners out
-    read = F32 * (subpix_reads(tiles, o, p, win, iters) + 4 * len(pts))
+    read = F32 * (subpix_reads(tiles, origin, pts, win, iters) + 4 * N)
     return KernelCheck(
         "subpix_refine", "rvio_tpu_torch/csrc/subpix_refine.cu",
         "rvio_tpu/ops/klt_iterate.py:361", k9.subpix_refine,
-        k9.subpix_refine_plain, (tiles.to(dev), o.to(dev), p.to(dev)),
+        k9.subpix_refine_plain,
+        (tiles.to(dev), origin.to(dev), pts.to(dev)),
         dict(win=win, iters=iters), "max abs 1e-3 px", compare,
-        float(subpix_flops(len(pts), win, iters)), read, F32 * 2 * len(pts),
-        info=info)
+        float(subpix_flops(N, win, iters)), read, F32 * 2 * N, info=info)
+
+
+def _subpix_case(cfg, dev, rng) -> KernelCheck:
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
+    img, _, pts = _frame_pair(cfg, rng)
+    H, W = img.shape
+    p = torch.as_tensor(pts, dtype=torch.float32)
+    o = tile_origins(p, H, W)
+    tiles = gather_tiles_plain(img, o, TILE_H, TILE)
+    return subpix_case(dev, tiles, o, p,
+                       int(cfg.tracker.min_distance) // 2,
+                       cfg.tracker.subpix_iters)
 
 
 # --- CLAHE (K10, K11), the response alone (K12), aligned tiles (K7) ----------

@@ -48,8 +48,11 @@ box only, a lane keeps a strip of eight window taps (and the search
 pixels under it) in registers and every sum is a warp shuffle, so a
 Gauss-Newton step never waits on a block barrier or touches device memory;
 the block that finishes last applies the T rule in the same launch
-(csrc/lk_level.cu).  K9 keeps one block per corner,
-one thread per patch tap and a block reduction per step.
+(csrc/lk_level.cu).  K9 gives a corner two warps: the
+tile by one bulk copy, each warp a band of the window's rows with its
+patch samples and taps laid out once, the five sums by warp shuffles and
+one named barrier a step, every element operation rounded as the plain
+version's (csrc/subpix_refine.cu).
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ _TICKET_SLOTS = 1024
 _tickets: dict = {}
 _SP_LIB = "subpix_refine"
 _SP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-_MAX_TAPS = 256     # K8: eight taps a lane; K9: one thread per patch tap
+_MAX_TAPS = 256     # K8: eight taps a lane; K9: win <= 7
 
 
 # --- sampling primitives of the oracle (frontend/klt.py:96-147) -------------
@@ -356,6 +359,8 @@ def subpix_refine(tiles: torch.Tensor, origin: torch.Tensor,
         raise ValueError(f"subpix_refine: a {2 * win + 1}-px window exceeds "
                          f"{_MAX_TAPS} taps")
     out = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
     fn = _lib.function(_SP_LIB, "rvio_subpix_refine", _SP_ARGS)
     _lib.call(_SP_LIB, fn, _lib.ptr(tiles), _lib.ptr(origin), _lib.ptr(pts),
               _lib.ptr(out), N, TH, TW, win, iters, device=dev)

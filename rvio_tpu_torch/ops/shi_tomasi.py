@@ -15,15 +15,17 @@ Bound on the H100 at the tracker's operating point (one 480 x 752 f32
 level 0 per call): the function reads the image once and writes the map
 once, 2 * 1.44 MB = 2.9 MB, about 0.86 us at 3.35 TB/s; its roughly 60
 operations a pixel (22 MFLOP, 0.32 us at 67 TFLOP/s) weigh less, so it is
-bound by bytes.  The design keeps every intermediate out of device memory:
-a block loads its 16 x 32 output tile with a 3-px halo into shared memory
-once, forms the gradient products, the response and the NMS there, and
-writes the tile.  Each operation rounds as the plain version's does (no
-fused multiply-adds), so the two agree bitwise on the same card.
+bound by bytes.  The design keeps every intermediate out of device memory
+and off any barrier: a warp owns a strip of 6 output rows by 26 columns,
+each lane one image column with its 12 rows in registers, the horizontal
+neighbours by warp shuffles.  Each operation rounds as the plain version's
+does (no fused multiply-adds), so the two agree bitwise on the same card.
 
 K12 replaces ``shi_tomasi_pallas`` (``_shi_kernel``) and computes the
-oracle ``shi_tomasi_response`` (rvio_tpu/frontend/detector.py:29-58): the
-same kernel without its NMS stage, in the same source.  It reads and
+oracle ``shi_tomasi_response`` (rvio_tpu/frontend/detector.py:29-58), in
+the same source: a block loads its 16 x 32 output tile with a halo into
+shared memory once and forms the gradient products and the response
+there.  It reads and
 writes as much as K13 (0.86 us) and is bound by bytes too.  The TPU
 kernel's lane rolls wrap at the edges and the JAX wrapper strips them;
 here there is nothing to strip.
@@ -35,7 +37,6 @@ import ctypes
 
 import torch
 
-from rvio_tpu_torch.frontend.image import box_filter, sobel_gradients
 from rvio_tpu_torch.ops import _lib
 
 _LIB = "shi_tomasi_nms"
@@ -45,6 +46,8 @@ _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
 def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
     """Plain version of K12: the min-eigenvalue corner response
     (cv::cornerMinEigenVal semantics), a 2-px border zeroed."""
+    # imported here: the frontend package imports this module
+    from rvio_tpu_torch.frontend.image import box_filter, sobel_gradients
     ix, iy = sobel_gradients(img)
     sxx = box_filter(ix * ix, block)
     sxy = box_filter(ix * iy, block)

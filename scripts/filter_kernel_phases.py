@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of K1 (csrc/propagate_block.cu), K4 (csrc/spd_solve.cu),
 K8 (csrc/lk_level.cu), K6 (csrc/tile_gather.cu), K10 (csrc/clahe.cu's
-clahe_luts_kernel) and K3 (csrc/jac_project.cu) goes, phase by phase, on
+clahe_luts_kernel), K3 (csrc/jac_project.cu), K9 (csrc/subpix_refine.cu)
+and K13 (csrc/shi_tomasi_nms.cu's shi_nms_kernel) goes, phase by phase, on
 the card.
 
     python3 scripts/filter_kernel_phases.py
-        [--kernel k1|k4|k8|k6|k10|k3|both|all]...
+        [--kernel k1|k4|k8|k6|k10|k3|k9|k13|both|all]...
         [--k1-source FILE] [--k4-source FILE] [--k8-source FILE]
         [--k6-source FILE] [--k10-source FILE] [--k3-source FILE]
+        [--k9-source FILE] [--k13-source FILE]
         [--frame N] [--reps 50]
 
 Each ``--kN-source`` may be given more than once: every source is split on
@@ -19,9 +21,10 @@ kernel beside it), one with a ``clock64()`` stamp at each ``// phase:
 a copy without its finish (K8).  A stamp waits at a barrier
 (``__syncthreads()``, or ``__syncwarp()`` in a kernel that has no block
 barrier or whose source says ``// phase sync: __syncwarp()``), then the
-thread that runs the stamped feature (block 0's first thread for K1, K4
-and K10, K10's block 0 being the first CTA of tile 0's cluster, the one
-that finishes; block 0's first column lane, thread 32, for K3, whose
+thread that runs the stamped feature (block 0's first thread for K1, K4,
+K10 and K13, K10's block 0 being the first CTA of tile 0's cluster, the
+one that finishes, K13's the first warp's strip; corner 0's lane 0 for
+K9; block 0's first column lane, thread 32, for K3, whose
 warp 0 leaves after the barrier; for K8 the slowest of the features with
 the most trips, found by timing each) adds the cycles since the
 previous stamp to the phase that was running; a phase inside a loop adds
@@ -38,20 +41,26 @@ feature), for K8 that of commit 243dc0e (one block of 256 threads a
 feature, two block barriers a trip, a second one-block launch for the
 finish), for K10 and K3 those of commit fe8cabf (K10 one block of 1024
 threads a tile, K3 one block of 128 threads a feature with its system in
-shared memory).  Save it with its ``common.cuh`` beside it (``git show
+shared memory), for K9 and K13 those of commit 6d6ae45 (K9 one block of
+256 threads a corner, a block reduction a step; K13 a block a 16 x 32
+tile, four stages through shared memory).  Save it with its
+``common.cuh`` beside it (``git show
 fe8cabf:rvio_tpu_torch/csrc/clahe.cu``).
 
 Inputs: the check cases of ``rvio_tpu_torch/ops/checks.py`` (K1 at B = 1,
 K = 16 with 11 valid samples, K4 at F = 100, m = 30, K8 and K6 at 200
 features of a 752 x 480 frame, K10 on its checker frame of 752 x 480 at
-g = 5, K3 at F = 100, L = 15, M = 14), and with ``--frame N`` also K8's
+g = 5, K3 at F = 100, L = 15, M = 14, K9 at 200 corners, win 7, 10
+iterations, K13 on a 752 x 480 frame), and with ``--frame N`` also K8's
 and K6's inputs at tracked frame N of the CLAHE-on image path at each
-pyramid level and K10's image there (``chip_smoke.capture_klt_frame``),
+pyramid level, K10's image there and K9's and K13's inputs of that
+frame's refill detection (``chip_smoke.capture_klt_frame``),
 and K3's inputs at the feature path's frame N, captured from its plain
 path on the CPU (``chip_smoke.capture_frame_inputs``).  It prints the card, each copy's error
 against the plain version, the unstamped copy's device time (a CUDA graph
 of 200 launches), the stamped copy's, whether the two copies' outputs are
-bitwise equal (the script exits 1 if not), and each phase's mean cycles
+bitwise equal (the script exits 1 if not, or if a copy fails its
+check; such a copy is still timed and split), and each phase's mean cycles
 over ``--reps`` launches, its share, and that share of the unstamped
 device time; for K8 also the trip counts (T and the stamped feature's).
 """
@@ -109,6 +118,19 @@ OLD_DESIGN = {
            ("  // ---- rank check on the rho column", "rank check, three "
             "reflections"),
            ("  // ---- masks, absolute clone columns, outputs", "masked store")],
+    "k9": [("  for (int idx = tid; idx < TT; idx += NT) T[idx]",
+            "tile load, tap setup"),
+           ("    const float ly = fminf(fmaxf(cy - ofy",
+            "patch samples, a division a sample"),
+           ("    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};", "tap products"),
+           ("    rvio::block_sums<5, NT>(s, red);", "five block sums"),
+           ("    const float gxx = s[0], gxy = s[1]", "the step"),
+           ("  if (tid == 0) {\n    out[2 * n] = cx;", "store")],
+    "k13": [("  for (int idx = tid; idx < (TY + 6) * (TX + 6);", "halo load"),
+            ("  for (int idx = tid; idx < (TY + 4) * (TX + 4);",
+             "gradient products"),
+            ("  for (int idx = tid; idx < (TY + 2) * (TX + 2);", "response"),
+            ("  for (int idx = tid; idx < TY * TX;", "NMS and store")],
 }
 # The stamped kernel ends where its body closes: before the next definition.
 KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
@@ -118,12 +140,13 @@ KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
               "k10": "}\n\n// The two tiles along one axis",
               "k10_old": "}\n\n// The two tiles along one axis",
               "k3": "}\n\ntemplate <int LMAX>\nint launch(",
-              "k3_old": "}\n\n}  // namespace"}
+              "k3_old": "}\n\n}  // namespace",
+              "k9": "}\n\n}  // namespace", "k13": "}\n\n}  // namespace"}
 # Which feature a thread stamps for (-1: none).
 BLOCK0 = "(threadIdx.x == 0 && blockIdx.x == 0 ? 0 : -1)"
 STAMPER = {"k1": BLOCK0, "k4": BLOCK0, "k10": BLOCK0, "k10_old": BLOCK0,
            "k3": "(threadIdx.x == 32 && blockIdx.x == 0 ? 0 : -1)",
-           "k3_old": BLOCK0,
+           "k3_old": BLOCK0, "k9": BLOCK0, "k13": BLOCK0,
            "k8": "((threadIdx.x & 31) == 0 ? (int)(blockIdx.x * "
                  "(blockDim.x >> 5) + (threadIdx.x >> 5)) : -1)",
            "k8_old": "(threadIdx.x == 0 ? (int)blockIdx.x : -1)"}
@@ -307,6 +330,23 @@ def _k3_call(chk, text):
                 [F, L, M, k3.KERNEL_EPS], 3)
 
 
+def _k9_call(chk, text):
+    from rvio_tpu_torch.ops import klt_iterate as k9
+    tiles, origin, pts = chk.args
+    N, TH, TW = tiles.shape
+    out = torch.empty((N, 2), device=tiles.device)
+    return Call("rvio_subpix_refine", k9._SP_ARGS, [tiles, origin, pts],
+                [out], [], [N, TH, TW, chk.kwargs["win"],
+                            chk.kwargs["iters"]], 1)
+
+
+def _k13_call(chk, text):
+    from rvio_tpu_torch.ops import shi_tomasi as k13
+    img, = chk.args
+    return Call("rvio_shi_tomasi_nms", k13._ARGS, [img],
+                [torch.empty_like(img)], [], list(img.shape), 1)
+
+
 @dataclass
 class Kernel:
     lib: str
@@ -321,7 +361,9 @@ KERNELS = {"k1": Kernel("propagate_block", "propagate_block", _k1_call),
            "k6": Kernel("tile_gather", "gather_tiles", _k6_call,
                         stamps=False),
            "k10": Kernel("clahe", "clahe_luts", _k10_call),
-           "k3": Kernel("jac_project", "jac_project", _k3_call)}
+           "k3": Kernel("jac_project", "jac_project", _k3_call),
+           "k9": Kernel("subpix_refine", "subpix_refine", _k9_call),
+           "k13": Kernel("shi_tomasi_nms", "shi_tomasi_nms", _k13_call)}
 
 
 def bitwise_equal(xs, ys) -> bool:
@@ -407,8 +449,12 @@ def split(build: Build, label: str, chk, reps: int) -> bool:
         run()
     torch.cuda.synchronize()
     result = calls["unstamped"].outs[:calls["unstamped"].n_result]
-    err = chk.compare(result if len(result) > 1 else result[0],
-                      chk.run_plain())
+    try:
+        err = chk.compare(result if len(result) > 1 else result[0],
+                          chk.run_plain())
+        fails = ""
+    except AssertionError as e:       # reported and timed; the rest go on
+        err, fails = float("nan"), f"; FAILS its check: {e}"
     times = {copy: device_ms(run, 200) for copy, run in runs.items()}
     empty = build.handles["unstamped"].rvio_phase_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -435,9 +481,10 @@ def split(build: Build, label: str, chk, reps: int) -> bool:
                  f"{times['no finish'] * 1e3:.2f} us (the finish: "
                  f"{(t_copy - times['no finish']) * 1e3:.2f} us)")
     trips = getattr(chk, "trips", None)
+    line += fails
     if "stamped" not in runs:
         print(line, flush=True)
-        return True
+        return not fails
     same = bitwise_equal(calls["unstamped"].outs, calls["stamped"].outs)
     line += (f"; stamped copy {times['stamped'] * 1e3:.2f} us (outputs "
              f"{'bitwise the unstamped copy' if same else 'DIFFER'})")
@@ -492,7 +539,7 @@ def split(build: Build, label: str, chk, reps: int) -> bool:
         print(f"  {name:36s} {c:9.0f} cycles {100 * c / max(total, 1):5.1f} "
               f"%  {c / max(total, 1) * t_copy * 1e3:8.2f} us of the "
               f"unstamped time{extra}")
-    return same
+    return same and not fails
 
 
 _CAPTURED: dict = {}
@@ -521,19 +568,28 @@ def feature_frame_case(dev, frame: int):
 
 
 def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
-    """K8's, K6's or K10's cases at tracked frame ``frame`` of the CLAHE-on
-    image path, one a pyramid level (K6: its template and its search
-    gather; K10: the frame's image); K3's at the feature path's frame."""
+    """K8's, K6's, K10's, K9's or K13's cases at tracked frame ``frame`` of
+    the CLAHE-on image path, one a pyramid level (K6: its template and its
+    search gather; K10: the frame's image; K9 and K13: the refill
+    detection's calls); K3's at the feature path's frame."""
     from chip_smoke import capture_klt_frame, workload_sim
-    from rvio_tpu_torch.ops.checks import clahe_luts_case, lk_case, tile_case
+    from rvio_tpu_torch.ops.checks import (clahe_luts_case, lk_case,
+                                           shi_nms_case, subpix_case,
+                                           tile_case)
     if kernel == "k3":
         return feature_frame_case(dev, frame)
     if frame not in _CAPTURED:
         _CAPTURED[frame] = capture_klt_frame(dev, workload_sim(), frame=frame)
-    levels, eq_img = _CAPTURED[frame]
+    levels, eq_img, subpix, nms_img = _CAPTURED[frame]
     if kernel == "k10":
         what = f" (frame {frame}'s image)"
         return [(what, clahe_luts_case(dev, eq_img, what=what))]
+    if kernel == "k9":
+        what = f" (frame {frame}'s refill, {len(subpix[0][2])} corners)"
+        return [(what, subpix_case(dev, *subpix[0], **subpix[1], what=what))]
+    if kernel == "k13":
+        what = f" (frame {frame}'s level 0)"
+        return [(what, shi_nms_case(dev, nms_img, what=what))]
     out = []
     for lvl, tmpl, search, args, kw in levels:
         what = f" (frame {frame}, level {lvl})"
@@ -550,18 +606,19 @@ def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=("k1", "k4", "k8", "k6", "k10",
-                                         "k3", "both", "all"),
+                                         "k3", "k9", "k13", "both", "all"),
                     action="append",
                     help="may repeat; both (the default): k1 and k4; all: "
                          "every kernel")
     for k, name in (("k1", "propagate_block"), ("k4", "spd_solve"),
                     ("k8", "lk_level"), ("k6", "tile_gather"),
-                    ("k10", "clahe"), ("k3", "jac_project")):
+                    ("k10", "clahe"), ("k3", "jac_project"),
+                    ("k9", "subpix_refine"), ("k13", "shi_tomasi_nms")):
         ap.add_argument(f"--{k}-source", action="append", default=None,
                         help=f"default csrc/{name}.cu; may repeat")
     ap.add_argument("--frame", type=int, default=None,
-                    help="K8, K6 and K10 also on this tracked frame's "
-                         "inputs, K3 on this filtered frame's")
+                    help="K8, K6, K10, K9 and K13 also on this tracked "
+                         "frame's inputs, K3 on this filtered frame's")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -575,7 +632,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     checks = {c.name: c for c in kernel_checks(dev)}
     groups = {"both": ("k1", "k4"),
-              "all": ("k1", "k4", "k8", "k6", "k10", "k3")}
+              "all": ("k1", "k4", "k8", "k6", "k10", "k3", "k9", "k13")}
     kernels = [k for arg in args.kernel or ["both"]
                for k in groups.get(arg, (arg,))]
     ok = True

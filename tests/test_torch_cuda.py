@@ -1186,3 +1186,173 @@ def test_jac_project_rank_two_feature(cuda, L):
     r, Hx, hfn = _jac_against_plain(cuda, inputs)
     assert float(hfn[3]) < 1e-4 and float(hfn.max()) > 1e-4
     assert float(r[3, 2].abs()) > 0 and float(Hx[5].abs().max()) == 0.0
+
+
+# ---- K9: cornerSubPix refinement; K13 and K12: the Shi-Tomasi response ----
+
+def _subpix_inputs(N, seed, flat=False):
+    """Tiles, origins and corners on the K8 tests' 752 x 480 frame: a third
+    of the corners within 2 px of an image border (their tiles clamped),
+    the rest anywhere; with ``flat`` every tile's pixels one value (no
+    gradient: det = 0, no step)."""
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
+    img, _ = _lk_frame()
+    H, W = img.shape
+    rng = np.random.default_rng(seed)
+    p = np.stack([rng.uniform(0, W - 1, N), rng.uniform(0, H - 1, N)], -1)
+    near = np.arange(N) % 3 == 0
+    side, d = rng.integers(0, 4, N), rng.uniform(0, 2, N)
+    for s, (axis, edge) in enumerate(((0, 0), (0, W - 1), (1, 0),
+                                      (1, H - 1))):
+        on = near & (side == s)
+        p[on, axis] = abs(edge - d[on])
+    pts = torch.as_tensor(p, dtype=torch.float32)
+    o = tile_origins(pts, H, W)
+    tiles = gather_tiles_plain(img, o, TILE_H, TILE)
+    if flat:
+        tiles = torch.full_like(tiles, 91.5)
+    return tiles, o, pts
+
+
+def _subpix_against_plain(cuda, tiles, o, pts, win, iters):
+    """K9 against its plain version on the card under ops/checks.py's
+    1e-3 px, on the corners where the function is well posed in f32: its
+    plain version in f32 lands within a quarter of the tolerance of the
+    f64 result (CPU).  At random points of a smooth texture the structure
+    tensor can be near singular, and there any two f32 orders part (up to
+    2 px at win 7 in the plain version itself); at most a tenth of the
+    corners are set aside.  One launch (none for N = 0)."""
+    from rvio_tpu_torch.ops.checks import subpix_case
+    from rvio_tpu_torch.ops.klt_iterate import subpix_refine_plain
+    kw = dict(win=win, iters=iters)
+    p32 = subpix_refine_plain(tiles, o, pts, **kw)
+    p64 = subpix_refine_plain(tiles.double(), o, pts.double(), **kw)
+    posed = (p32.double() - p64).abs().amax(dim=1) <= 2.5e-4
+    assert int((~posed).sum()) <= 0.1 * max(len(pts), 1)
+    chk = subpix_case(cuda, tiles, o, pts, win, iters)
+    before = chk.kernel.launches
+    got = chk.run_kernel()
+    torch.cuda.synchronize()
+    assert chk.kernel.launches == before + (len(pts) > 0)
+    assert got.shape == pts.shape and bool(torch.isfinite(got).all())
+    keep = posed.to(cuda)
+    chk.compare(got[keep], chk.run_plain()[keep])
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [0, 1, 10])
+@pytest.mark.parametrize("win", [3, 5, 7])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 200, 400])
+def test_subpix_refine_sizes(cuda, N, win, iters):
+    """K9 at corner counts around a warp and past the tracker's 200, every
+    window the tracker's min distances give, no iteration, one and the
+    tracker's ten; corners within 2 px of the image border among them."""
+    got = _subpix_against_plain(cuda, *_subpix_inputs(N, N), win, iters)
+    if iters == 0:
+        assert torch.equal(got.cpu(), _subpix_inputs(N, N)[2])
+
+
+@pytest.mark.gpu
+def test_subpix_refine_flat_patch(cuda):
+    """Flat tiles: every system's det is 0 (<= 1e-12), so no corner moves."""
+    tiles, o, pts = _subpix_inputs(64, 3, flat=True)
+    got = _subpix_against_plain(cuda, tiles, o, pts, 7, 10)
+    assert torch.equal(got.cpu(), pts)
+
+
+@pytest.mark.gpu
+def test_subpix_refine_odd_tiles(cuda):
+    """Tiles that are not one bulk copy (39 x 31: TH * TW % 4 != 0) are
+    read by the threads; the same function."""
+    tiles, o, pts = _subpix_inputs(64, 5)
+    tiles = tiles[:, :39, :31].contiguous()
+    _subpix_against_plain(cuda, tiles, o, pts, 7, 10)
+
+
+@pytest.mark.gpu
+def test_subpix_refine_no_corners(cuda):
+    """N = 0 launches nothing and counts nothing."""
+    from rvio_tpu_torch.ops.klt_iterate import subpix_refine
+    before = subpix_refine.launches
+    out = subpix_refine(torch.empty((0, 40, 32), device=cuda),
+                        torch.empty((0, 2), dtype=torch.int32, device=cuda),
+                        torch.empty((0, 2), device=cuda))
+    torch.cuda.synchronize()
+    assert out.shape == (0, 2) and subpix_refine.launches == before
+
+
+_SHI_SIZES = [(5, 5), (37, 41), (60, 94), (480, 752), (481, 753)]
+
+
+def _shi_image(case, cuda):
+    if case == "constant":
+        return torch.full((480, 752), 77.3, device=cuda)
+    from rvio_tpu_torch.ops.checks import _texture
+    H, W = case
+    return _texture(np.random.default_rng(H), H, W, passes=1).float().to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _SHI_SIZES + ["constant"])
+def test_shi_tomasi_nms_bitwise(cuda, case):
+    """K13 bitwise with its plain version on the card: the strips' edges
+    at sizes that are and are not multiples of them, the 5 x 5 least, and
+    a constant image (a zero response everywhere, every pixel a tie)."""
+    from rvio_tpu_torch.ops.shi_tomasi import (shi_tomasi_nms,
+                                               shi_tomasi_nms_plain)
+    img = _shi_image(case, cuda)
+    before = shi_tomasi_nms.launches
+    got = shi_tomasi_nms(img)
+    torch.cuda.synchronize()
+    assert shi_tomasi_nms.launches == before + 1
+    want = shi_tomasi_nms_plain(img)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _SHI_SIZES + ["constant"])
+def test_shi_tomasi_response_bitwise(cuda, case):
+    """K12 (the response alone, its kernel unchanged beside K13's) bitwise
+    with its plain version on the card."""
+    from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi, shi_tomasi_response
+    img = _shi_image(case, cuda)
+    got = shi_tomasi(img)
+    torch.cuda.synchronize()
+    want = shi_tomasi_response(img)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _graph_replays(fn, *args):
+    """A CUDA graph of ``fn(*args)`` replayed three times gives the eager
+    call's output each time."""
+    want = fn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for _ in range(3):
+        out.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_subpix_refine_graph_replays(cuda):
+    """K9 in a replayed CUDA graph: the mbarrier is set up anew each
+    launch."""
+    from rvio_tpu_torch.ops.klt_iterate import subpix_refine
+    tiles, o, pts = (x.to(cuda) for x in _subpix_inputs(200, 7))
+    _graph_replays(subpix_refine, tiles, o, pts)
+
+
+@pytest.mark.gpu
+def test_shi_tomasi_nms_graph_replays(cuda):
+    from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi_nms
+    _graph_replays(shi_tomasi_nms, _shi_image((480, 752), cuda))
