@@ -38,7 +38,8 @@ set to 0 just before it and read just after:
   path (captured on the card), at each of the four pyramid levels: each
   against its plain version, with T (the largest trip count) and the
   device time; K10 on the same frame's image, LUTs bitwise with the CPU
-  plain version; K9 and K13 on the same frame's refill detection (its
+  plain version, and K11 on that image with its LUTs, pixels bitwise with
+  the CPU plain version; K9 and K13 on the same frame's refill detection (its
   corners and tiles, and its level-0 image), each against its plain
   version, with the device time;
 - the public entries that no path reaches, the detector's
@@ -451,11 +452,14 @@ def klt_frame_phase(dev, sim, records) -> None:
     version (raises over the check's tolerance), T and the trip counts of
     the live features (plain version), the device time a launch (a CUDA
     graph of 200); into each kernel's record as ``frame_levels``.  K10 on
-    the same frame's image, K9 and K13 on that frame's refill detection
-    (:func:`frame_check`), all captured in the same run."""
-    from rvio_tpu_torch.ops.checks import (clahe_luts_case, lk_case,
+    the same frame's image, K11 on that image with its LUTs (the tracker's
+    CLAHE: clip 3.0, a 5 x 5 grid), K9 and K13 on that frame's refill
+    detection (:func:`frame_check`), all captured in the same run."""
+    from rvio_tpu_torch.ops.checks import (clahe_apply_case,
+                                           clahe_luts_case, lk_case,
                                            shi_nms_case, subpix_case,
                                            tile_case)
+    from rvio_tpu_torch.ops.clahe import clahe_luts_plain
     t0 = time.perf_counter()
     captured, eq_img, subpix, nms_img = capture_klt_frame(dev, sim)
     print(f"KLT inputs of tracked frame {KLT_FRAME} (CLAHE on) captured on "
@@ -500,6 +504,11 @@ def klt_frame_phase(dev, sim, records) -> None:
     frame_check(records, clahe_luts_case(
         dev, eq_img, what=f" (frame {KLT_FRAME}'s image)"),
         f"tracked frame {KLT_FRAME}'s image, CLAHE on")
+    eq = eq_img.cpu()
+    frame_check(records, clahe_apply_case(
+        dev, eq, clahe_luts_plain(eq, 3.0, 5), 5,
+        what=f" (frame {KLT_FRAME}'s image)"),
+        f"tracked frame {KLT_FRAME}'s image and its LUTs")
     (tiles, origin, pts), kw = subpix
     frame_check(records, subpix_case(
         dev, tiles, origin, pts, **kw, what=f" (frame {KLT_FRAME}'s refill)"),

@@ -41,17 +41,36 @@
 // no state between launches, so a CUDA graph replays it and streams may
 // run it at once.
 //
-// clahe_apply_kernel (K11): one thread per output pixel, the g*g*256 f32
-// LUTs staged in shared memory by each block.  The bin is read from the
-// pixel's clamped, truncated value, the LUT entries of the (clamped) 2 x 2
-// surrounding tiles are blended bilinearly with the oracle's tile
-// coordinates ty = (y - (th-1)/2) / th: first over rows in each tile
-// column, the second product fused (__fmaf_rn, as the oracle's contraction
-// and the plain version's torch.addcmul round it), then over columns.
-// Every other operation rounds on its own (__fdiv_rn, __fmul_rn,
-// __fadd_rn: no other fusion, IEEE division) in the plain version's order,
-// so the two agree bitwise.  Bound by bytes: one read of the image and the
-// LUTs, one write of the output.
+// clahe_apply_kernel (K11): the bin is read from the pixel's clamped,
+// truncated value, the LUT entries of the (clamped) 2 x 2 surrounding tiles
+// are blended bilinearly with the oracle's tile coordinates
+// ty = (y - (th-1)/2) / th: first over rows in each tile column, the second
+// product fused (__fmaf_rn, as the oracle's contraction and the plain
+// version's torch.addcmul round it), then over columns.  Every other
+// operation rounds on its own (__fdiv_rn, __fmul_rn, __fadd_rn: no other
+// fusion, IEEE division) in the plain version's order, so the two agree
+// bitwise.  Bound by bytes: one read of the image (1.44 MB at 752 x 480),
+// one write of the output, 25.6 kB of LUTs (0.87 us at 3.35 TB/s).  What
+// held a thread-a-pixel design (every block staging all g^2 LUTs, a barrier
+// before its first pixel, one DRAM round trip a row) far from it was
+// latency and the table's copies.  Here:
+//
+//   - the image is cut into the cells between four tile centres: along an
+//     axis of tiles of `size`, cell j spans [B_j, B_j+1), B_0 = 0,
+//     B_j = j size + size/2, B_g = n (t0 = j on it, t1 = min(j+1, g-1)), so
+//     every pixel of a cell reads the same four LUTs;
+//   - a block covers APPLY_QX quads of columns by APPLY_RY * APPLY_R rows
+//     of one cell (quads aligned to 4 columns, those on a cell's edge
+//     loaded by both cells' blocks, each storing its own columns), and
+//     stages only its cell's four LUTs, interleaved by bin (one float4 a
+//     bin, 4 kB), by cp.async, issued before its pixel loads and waited for
+//     after them;
+//   - a thread loads its quad's APPLY_R rows (a float4 each, four floats
+//     where W % 4 != 0 or a pointer is not 16-byte aligned) before the first
+//     blend, forms its four columns' weights once and each row's once, and
+//     reads a pixel's four entries with one 16-byte shared load;
+//   - the grid is a handful of blocks a cell (240 of 128 threads at 752 x
+//     480, g = 5): one wave on the 132 SMs, and no limit on g.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -69,8 +88,11 @@ constexpr int LUT_THREADS = 256;  // a bin a thread in the finish
 constexpr int LUT_WARPS = LUT_THREADS / 32;
 constexpr int STRIP = 16;         // rows of a strip whose loads go together
 static_assert(LUT_THREADS == NBINS, "the finish takes a bin a thread");
-constexpr int APPLY_COLS = 256;   // threads of an apply block, one per column
-constexpr int APPLY_ROWS = 8;     // rows an apply block covers
+constexpr int APPLY_QX = 16;      // apply: threads along a row, a quad each
+constexpr int APPLY_RY = 8;       // rows of threads
+constexpr int APPLY_R = 4;        // rows a thread
+constexpr int APPLY_THREADS = APPLY_QX * APPLY_RY;
+static_assert(4 * NBINS % APPLY_THREADS == 0, "the LUT copies divide evenly");
 
 // Reflection of index i >= n into [0, n) (numpy "reflect": no edge repeat);
 // the pad is under n, so one reflection suffices.
@@ -246,33 +268,136 @@ __device__ __forceinline__ void tile_pair(int i, float c, int size, int g,
   *w1 = *t0 == *t1 ? 0.f : f;
 }
 
-__global__ void __launch_bounds__(APPLY_COLS)
+// The start of cell j along an axis of n pixels in tiles of `size`: the
+// first index whose t0 is j (exact while j size < 2^23: the quotient of a
+// half-integer by size is then never rounded up to j from below).
+__host__ __device__ __forceinline__ int cell_start(int j, int n, int size,
+                                                   int g) {
+  const int b = j * size + size / 2;
+  return j <= 0 ? 0 : j >= g || b > n ? n : b;
+}
+
+// Chunks of cell j: column quads (unit 4, a quad on the cell's edge counted
+// by both cells) or rows (unit 1), `per` a chunk.
+__host__ __device__ __forceinline__ int cell_chunks(int j, int n, int size,
+                                                    int g, int unit,
+                                                    int per) {
+  const int a = cell_start(j, n, size, g), b = cell_start(j + 1, n, size, g);
+  if (b <= a) return 0;
+  const int units = (b - 1) / unit - a / unit + 1;
+  return (units + per - 1) / per;
+}
+
+// The cell of chunk c (cells in order, each cell_chunks of them); c becomes
+// the chunk's index within its cell.
+__device__ __forceinline__ int find_cell(int* c, int n, int size, int g,
+                                         int unit, int per) {
+  int j = 0;
+  for (; j < g - 1; ++j) {
+    const int k = cell_chunks(j, n, size, g, unit, per);
+    if (*c < k) break;
+    *c -= k;
+  }
+  return j;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   rvio::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// VEC: the quads by float4 (W % 4 == 0, 16-byte aligned image and output).
+template <bool VEC>
+__global__ void __launch_bounds__(APPLY_THREADS)
 clahe_apply_kernel(const float* __restrict__ img,
                    const float* __restrict__ luts, float* __restrict__ out,
                    int H, int W, int th, int tw, int g, float cy, float cx) {
-  extern __shared__ float slut[];
-  const int n = g * g * NBINS;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) slut[i] = luts[i];
+  __shared__ float4 s4[NBINS];   // a bin's entries of the cell's four LUTs
+  const int tid = threadIdx.y * APPLY_QX + threadIdx.x;
+
+  // phase: the cell, the LUT copies
+  // the block's cell and chunk along each axis; the four LUTs in the order
+  // (ty0, tx0), (ty1, tx0), (ty0, tx1), (ty1, tx1), a bin a float4
+  int bx = blockIdx.x, by = blockIdx.y;
+  const int jx = find_cell(&bx, W, tw, g, 4, APPLY_QX);
+  const int jy = find_cell(&by, H, th, g, 1, APPLY_RY * APPLY_R);
+  const int tx1 = min(jx + 1, g - 1), ty1 = min(jy + 1, g - 1);
+  float* s = reinterpret_cast<float*>(s4);
+#pragma unroll
+  for (int i = 0; i < 4 * NBINS / APPLY_THREADS; ++i) {
+    const int e = tid + i * APPLY_THREADS;
+    const int k = e / NBINS, b = e % NBINS;
+    const int t = ((k & 1) ? ty1 : jy) * g + ((k & 2) ? tx1 : jx);
+    cp_async4(s + 4 * b + k, luts + t * NBINS + b);
+  }
+
+  // phase: pixel loads
+  // the thread's quad of columns and APPLY_R rows of the chunk, loaded
+  // before the first blend
+  const int xa = cell_start(jx, W, tw, g), xb = cell_start(jx + 1, W, tw, g);
+  const int x0 = 4 * (xa / 4 + bx * APPLY_QX + threadIdx.x);
+  const int ya = cell_start(jy, H, th, g) + by * APPLY_RY * APPLY_R,
+            yb = min(cell_start(jy + 1, H, th, g), ya + APPLY_RY * APPLY_R);
+  const bool quad = x0 < xb;     // a quad of the cell (its edge columns aside)
+  float4 v[APPLY_R];
+#pragma unroll
+  for (int k = 0; k < APPLY_R; ++k) {
+    const int y = ya + threadIdx.y + k * APPLY_RY;
+    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (quad && y < yb) {
+      const float* p = img + (size_t)y * W + x0;
+      if constexpr (VEC) {
+        v[k] = __ldg(reinterpret_cast<const float4*>(p));
+      } else {
+        v[k].x = __ldg(p);
+        if (x0 + 1 < W) v[k].y = __ldg(p + 1);
+        if (x0 + 2 < W) v[k].z = __ldg(p + 2);
+        if (x0 + 3 < W) v[k].w = __ldg(p + 3);
+      }
+    }
+  }
+
+  // phase: column weights, the LUTs' wait
+  // each column's weights once; its tiles are the cell's
+  float wx0[4], wx1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int t0, t1;
+    tile_pair(x0 + c, cx, tw, g, &t0, &t1, &wx0[c], &wx1[c]);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const int x = blockIdx.x * APPLY_COLS + threadIdx.x;
-  if (x >= W) return;
-  int tx0, tx1;
-  float wx0, wx1;
-  tile_pair(x, cx, tw, g, &tx0, &tx1, &wx0, &wx1);
-
-  const int y_end = min(H, (blockIdx.y + 1) * APPLY_ROWS);
-  for (int y = blockIdx.y * APPLY_ROWS; y < y_end; ++y) {
-    int ty0, ty1;
+  // phase: blend and store
+  // each row's weights once; a pixel's four entries by one shared load;
+  // the cell's columns stored (a float4 where the quad lies inside it)
+  const bool inside = VEC && x0 >= xa && x0 + 4 <= xb;
+#pragma unroll
+  for (int k = 0; k < APPLY_R; ++k) {
+    const int y = ya + threadIdx.y + k * APPLY_RY;
+    if (!quad || y >= yb) continue;
+    int t0, t1;
     float wy0, wy1;
-    tile_pair(y, cy, th, g, &ty0, &ty1, &wy0, &wy1);
-    const int b = bin_of(img[(size_t)y * W + x]);
-    const float* l0 = slut + b;
-    const float s0 = __fmaf_rn(wy1, l0[(ty1 * g + tx0) * NBINS],
-                               __fmul_rn(wy0, l0[(ty0 * g + tx0) * NBINS]));
-    const float s1 = __fmaf_rn(wy1, l0[(ty1 * g + tx1) * NBINS],
-                               __fmul_rn(wy0, l0[(ty0 * g + tx1) * NBINS]));
-    out[(size_t)y * W + x] = __fadd_rn(__fmul_rn(s0, wx0), __fmul_rn(s1, wx1));
+    tile_pair(y, cy, th, g, &t0, &t1, &wy0, &wy1);
+    const float in[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+    float o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 e = s4[bin_of(in[c])];
+      const float s0 = __fmaf_rn(wy1, e.y, __fmul_rn(wy0, e.x));
+      const float s1 = __fmaf_rn(wy1, e.w, __fmul_rn(wy0, e.z));
+      o[c] = __fadd_rn(__fmul_rn(s0, wx0[c]), __fmul_rn(s1, wx1[c]));
+    }
+    float* q = out + (size_t)y * W + x0;
+    if (inside) {
+      *reinterpret_cast<float4*>(q) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (x0 + c >= xa && x0 + c < xb) q[c] = o[c];
+    }
   }
 }
 
@@ -292,17 +417,20 @@ int rvio_clahe_luts(const float* img, float* luts, int* hist, int H, int W,
 int rvio_clahe_apply(const float* img, const float* luts, float* out, int H,
                      int W, int g, float cy, float cx, cudaStream_t stream) {
   const int th = (H + g - 1) / g, tw = (W + g - 1) / g;
-  const size_t smem = sizeof(float) * g * g * NBINS;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        clahe_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(0, 0);
+  for (int j = 0; j < g; ++j) {
+    grid.x += cell_chunks(j, W, tw, g, 4, APPLY_QX);
+    grid.y += cell_chunks(j, H, th, g, 1, APPLY_RY * APPLY_R);
   }
-  const dim3 grid((W + APPLY_COLS - 1) / APPLY_COLS,
-                  (H + APPLY_ROWS - 1) / APPLY_ROWS);
-  clahe_apply_kernel<<<grid, APPLY_COLS, smem, stream>>>(
-      img, luts, out, H, W, th, tw, g, cy, cx);
+  const dim3 block(APPLY_QX, APPLY_RY);
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    clahe_apply_kernel<true><<<grid, block, 0, stream>>>(
+        img, luts, out, H, W, th, tw, g, cy, cx);
+  else
+    clahe_apply_kernel<false><<<grid, block, 0, stream>>>(
+        img, luts, out, H, W, th, tw, g, cy, cx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -416,14 +416,12 @@ def _box_union(shape, boxes) -> int:
 SHI_NMS_FLOPS_PER_PX = 58
 
 
-def shi_nms_library(img: torch.Tensor):
-    """K13's yardstick, a chain of library calls computing the same map
+def shi_library(img: torch.Tensor):
+    """K12's yardstick, a chain of library calls computing the same map
     (no single PyTorch call does): the Sobel/8 gradients and the 3x3 box
-    sums by ``F.conv2d``, the eigenvalue formula, the 2-px border by
-    ``torch.where``, the 3x3 maximum by ``F.max_pool2d(3, 1, 1)``, and the
-    mask by equality and ``torch.where``.  Returns the function of ``img``,
-    its constants made once on ``img``'s device (so a CUDA graph can
-    capture it)."""
+    sums by ``F.conv2d``, the eigenvalue formula, and the 2-px border by
+    ``torch.where``.  Returns the function of ``img``, its constants made
+    once on ``img``'s device (so a CUDA graph can capture it)."""
     F = torch.nn.functional
     H, W = img.shape
     dt, dev = img.dtype, img.device
@@ -435,7 +433,6 @@ def shi_nms_library(img: torch.Tensor):
     col = torch.arange(W, device=dev)[None, :]
     inner = (row >= 2) & (row < H - 2) & (col >= 2) & (col < W - 2)
     zero = torch.zeros((), dtype=dt, device=dev)
-    ninf = torch.full((), float("-inf"), dtype=dt, device=dev)
 
     def run(x):
         g = F.conv2d(x[None, None], grad_w, padding=1)
@@ -444,9 +441,22 @@ def shi_nms_library(img: torch.Tensor):
                      padding=1, groups=3)[0]
         tr = s[0] + s[2]
         det = s[0] * s[2] - s[1] * s[1]
-        resp = torch.where(inner, (tr - torch.sqrt(
+        return torch.where(inner, (tr - torch.sqrt(
             torch.clamp(tr * tr - 4 * det, min=0.0))) * 0.5, zero)
-        peak = F.max_pool2d(resp[None, None], 3, 1, 1)[0, 0]
+
+    return run
+
+
+def shi_nms_library(img: torch.Tensor):
+    """K13's yardstick: :func:`shi_library`'s chain, then the 3x3 maximum
+    by ``F.max_pool2d(3, 1, 1)`` and the mask by equality and
+    ``torch.where``."""
+    response = shi_library(img)
+    ninf = torch.full((), float("-inf"), dtype=img.dtype, device=img.device)
+
+    def run(x):
+        resp = response(x)
+        peak = torch.nn.functional.max_pool2d(resp[None, None], 3, 1, 1)[0, 0]
         return torch.where(resp == peak, resp, ninf)
 
     return run
@@ -865,15 +875,48 @@ def clahe_luts_case(dev, img, clip: float = 3.0, g: int = 5,
         check_launches=2)
 
 
+def clahe_apply_library(img: torch.Tensor, grid: int = 5):
+    """K11's yardstick, a chain of library calls computing the same map
+    (no single PyTorch call does): the bins by ``torch.clamp`` and a
+    conversion, the four LUT entries by indexing on the tile and bin
+    indices, the row blends by ``torch.addcmul`` and the column blend.  The
+    tiles and weights of each row and column, which depend on the shape
+    alone, are made once on ``img``'s device, so the chain reads nothing
+    back and a CUDA graph can capture it; returns its function of (image,
+    LUTs)."""
+    from rvio_tpu_torch.ops import clahe as k11
+    H, W = img.shape
+    th, tw = k11.tile_shape(H, W, grid)
+    ty0, ty1, wy0, wy1 = (x[:, None] for x in k11.blend_axis(
+        H, th, grid, img.dtype, img.device))
+    tx0, tx1, wx0, wx1 = k11.blend_axis(W, tw, grid, img.dtype, img.device)
+    rows = [t * grid for t in (ty0, ty1)]
+
+    def run(x, luts):
+        b = torch.clamp(x, 0, luts.shape[1] - 1).long()
+        s = [torch.addcmul(wy0 * luts[rows[0] + tj, b], wy1,
+                           luts[rows[1] + tj, b]) for tj in (tx0, tx1)]
+        return s[0] * wx0 + s[1] * wx1
+
+    return run
+
+
 def _clahe_apply_case(cfg, dev, rng) -> KernelCheck:
     from rvio_tpu_torch.ops import clahe as k11
-    H, W = cfg.camera.height, cfg.camera.width
-    g = 5
-    img = _checker_frame(rng, H, W)
-    luts = k11.clahe_luts_plain(img, 3.0, g)
+    img = _checker_frame(rng, cfg.camera.height, cfg.camera.width)
+    return clahe_apply_case(dev, img, k11.clahe_luts_plain(img, 3.0, 5), 5)
+
+
+def clahe_apply_case(dev, img, luts, g: int, what: str = "") -> KernelCheck:
+    """K11 on the (H, W) f32 image ``img`` and its (g^2, 256) LUTs (CPU
+    tensors): bitwise expected against the plain version on the CPU."""
+    from rvio_tpu_torch.ops import clahe as k11
+    img, luts = img.detach().float().cpu(), luts.detach().float().cpu()
+    H, W = img.shape
     cpu_out = k11.clahe_apply_plain(img, luts, g)
     tol = 1e-3
     info = {}
+    img, luts = img.to(dev), luts.to(dev)
 
     def compare(ko, po):
         k = ko.cpu()
@@ -881,18 +924,19 @@ def _clahe_apply_case(cfg, dev, rng) -> KernelCheck:
         info["max_abs_vs_card_plain"] = float((k - po.cpu()).abs().max())
         err = float((k - cpu_out).abs().max())
         if not err <= tol:
-            _fail("clahe_apply", "max abs gray vs the CPU plain version", err,
-                  tol)
+            _fail(f"clahe_apply{what}", "max abs gray vs the CPU plain "
+                  "version", err, tol)
         return err
 
     return KernelCheck(
         "clahe_apply", "rvio_tpu_torch/csrc/clahe.cu",
         "rvio_tpu/ops/clahe.py:132", k11.clahe_apply, k11.clahe_apply_plain,
-        (img.to(dev), luts.to(dev)), dict(grid=g),
+        (img, luts), dict(grid=g),
         "max abs 1e-3 gray vs the plain version on the CPU (bitwise "
         "expected; differing pixels counted)", compare,
         float(CLAHE_APPLY_FLOPS_PER_PX * H * W + CLAHE_AXIS_FLOPS * (H + W)),
-        F32 * (H * W + 256 * g * g), F32 * H * W, info=info)
+        F32 * (H * W + 256 * g * g), F32 * H * W,
+        library=clahe_apply_library(img, g), info=info)
 
 
 # operations per pixel of K12: K13's without the 8 NMS comparisons
@@ -900,9 +944,15 @@ SHI_FLOPS_PER_PX = SHI_NMS_FLOPS_PER_PX - 8
 
 
 def _shi_case(cfg, dev, rng) -> KernelCheck:
-    from rvio_tpu_torch.ops import shi_tomasi as k12
     H, W = cfg.camera.height, cfg.camera.width
-    img = _texture(rng, H, W, passes=1).float().to(dev)
+    return shi_case(dev, _texture(rng, H, W, passes=1).float())
+
+
+def shi_case(dev, img: torch.Tensor, what: str = "") -> KernelCheck:
+    """K12 on an (H, W) f32 image."""
+    from rvio_tpu_torch.ops import shi_tomasi as k12
+    img = img.to(dev)
+    H, W = img.shape
     tol = 1e-5
     info = {}
 
@@ -911,7 +961,7 @@ def _shi_case(cfg, dev, rng) -> KernelCheck:
         info["pixels_differing"] = int((k != p).sum())
         err = float(np.max(np.abs(k - p) / np.maximum(np.abs(p), 1e-30)))
         if not err <= tol:
-            _fail("shi_tomasi", "relative", err, tol)
+            _fail(f"shi_tomasi{what}", "relative", err, tol)
         return err
 
     return KernelCheck(
@@ -919,7 +969,8 @@ def _shi_case(cfg, dev, rng) -> KernelCheck:
         "rvio_tpu/ops/shi_tomasi.py:90", k12.shi_tomasi,
         k12.shi_tomasi_response, (img,), {},
         "rel 1e-5 (bitwise expected; differing pixels counted)", compare,
-        float(SHI_FLOPS_PER_PX * H * W), F32 * H * W, F32 * H * W, info=info)
+        float(SHI_FLOPS_PER_PX * H * W), F32 * H * W, F32 * H * W,
+        library=shi_library(img), info=info)
 
 
 def aligned_tile_reads(origin, H: int, W: int, th: int, tw: int) -> int:

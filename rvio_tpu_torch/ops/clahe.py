@@ -31,9 +31,13 @@ cluster of 8 CTAs a tile (200 CTAs at g = 5), each counting a band of
 the tile's rows with a lane a column into a histogram a warp; the bands
 go to the cluster's first CTA over distributed shared memory, which
 clips, sums, scans and rounds: one launch where the TPU version ran a
-host epilogue.  K11 stages the LUTs in shared memory and gives each
-output pixel one thread.  Where the two would differ from these plain
-versions:
+host epilogue.  K11 cuts the image into the cells between four tile
+centres, where every pixel reads the same four LUTs: a block takes a chunk
+of one cell (64 columns by 32 rows), stages only those four LUTs (4 kB,
+interleaved by bin, copied asynchronously under its pixel loads), and a
+thread blends a quad of columns on four rows, a pixel's four entries by
+one shared load (240 blocks at 752 x 480, g = 5: one wave, and no limit
+on g).  Where the two would differ from these plain versions:
 
 - the CDF: in f32 the clipped bins are multiples of 1/2048 and partial
   sums above 8192 round, so the order of the sum matters.  The plain
@@ -143,6 +147,21 @@ def clahe_luts_plain(img: torch.Tensor, clip_limit: float = 3.0,
     return (cdf * ((n_bins - 1.0) / area)).to(torch.bfloat16).to(img.dtype)
 
 
+def blend_axis(n: int, size: int, grid: int, dtype, device):
+    """The two tiles along one axis of ``n`` pixels (tiles of ``size``) and
+    their weights, (t0, t1, w0, w1) each (n,): t = (i - (size-1)/2) / size,
+    t0 = clamp(floor(t), 0, grid-1), t1 = min(t0 + 1, grid-1); where the
+    clamped pair coincides, the second weight joins the first."""
+    t = (torch.arange(n, dtype=dtype, device=device) - (size - 1) / 2.0) / size
+    t0 = torch.clamp(torch.floor(t), 0, grid - 1)
+    frac = torch.clamp(t - t0, 0.0, 1.0)
+    t0 = t0.long()
+    t1 = torch.clamp(t0 + 1, max=grid - 1)
+    same = t0 == t1
+    w0 = torch.where(same, (1 - frac) + frac, 1 - frac)
+    return t0, t1, w0, torch.where(same, 0.0, frac)
+
+
 def clahe_apply_plain(img: torch.Tensor, luts: torch.Tensor,
                       grid: int = 5) -> torch.Tensor:
     """(H, W): each pixel's LUT entry blended bilinearly over the 2 x 2
@@ -151,21 +170,9 @@ def clahe_apply_plain(img: torch.Tensor, luts: torch.Tensor,
     th, tw = tile_shape(H, W, grid)
     n_bins = luts.shape[1]
     dt, dev = img.dtype, img.device
-
-    def axis(n, size):
-        """The two tiles along one axis and their weights; where the
-        clamped pair coincides, the second weight joins the first."""
-        t = (torch.arange(n, dtype=dt, device=dev) - (size - 1) / 2.0) / size
-        t0 = torch.clamp(torch.floor(t), 0, grid - 1)
-        frac = torch.clamp(t - t0, 0.0, 1.0)
-        t0 = t0.long()
-        t1 = torch.clamp(t0 + 1, max=grid - 1)
-        same = t0 == t1
-        w0 = torch.where(same, (1 - frac) + frac, 1 - frac)
-        return t0, t1, w0, torch.where(same, 0.0, frac)
-
-    ty0, ty1, wy0, wy1 = (x[:, None] for x in axis(H, th))
-    tx0, tx1, wx0, wx1 = axis(W, tw)
+    ty0, ty1, wy0, wy1 = (x[:, None] for x in
+                          blend_axis(H, th, grid, dt, dev))
+    tx0, tx1, wx0, wx1 = blend_axis(W, tw, grid, dt, dev)
     b = _bins(img, n_bins)
     lut = luts.to(dt)
 

@@ -23,12 +23,12 @@ does (no fused multiply-adds), so the two agree bitwise on the same card.
 
 K12 replaces ``shi_tomasi_pallas`` (``_shi_kernel``) and computes the
 oracle ``shi_tomasi_response`` (rvio_tpu/frontend/detector.py:29-58), in
-the same source: a block loads its 16 x 32 output tile with a halo into
-shared memory once and forms the gradient products and the response
-there.  It reads and
-writes as much as K13 (0.86 us) and is bound by bytes too.  The TPU
-kernel's lane rolls wrap at the edges and the JAX wrapper strips them;
-here there is nothing to strip.
+the same source and by the same strip kernel without its NMS stage: a warp
+owns 4 output rows by 28 columns (a 2-px halo each side instead of 3),
+each lane with its 8 image rows in registers, and stores the response
+where it forms it.  It reads and writes as much as K13 (0.86 us) and is
+bound by bytes too.  The TPU kernel's lane rolls wrap at the edges and the
+JAX wrapper strips them; here there is nothing to strip.
 """
 
 from __future__ import annotations

@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
 """Where the time of K1 (csrc/propagate_block.cu), K4 (csrc/spd_solve.cu),
-K8 (csrc/lk_level.cu), K6 (csrc/tile_gather.cu), K10 (csrc/clahe.cu's
-clahe_luts_kernel), K3 (csrc/jac_project.cu), K9 (csrc/subpix_refine.cu)
-and K13 (csrc/shi_tomasi_nms.cu's shi_nms_kernel) goes, phase by phase, on
-the card.
+K8 (csrc/lk_level.cu), K6 (csrc/tile_gather.cu), K10 and K11 (csrc/clahe.cu's
+clahe_luts_kernel and clahe_apply_kernel), K3 (csrc/jac_project.cu), K9
+(csrc/subpix_refine.cu), K13 and K12 (csrc/shi_tomasi_nms.cu's strip
+kernel, with and without its NMS stage) goes, phase by phase, on the card.
 
     python3 scripts/filter_kernel_phases.py
-        [--kernel k1|k4|k8|k6|k10|k3|k9|k13|both|all]...
+        [--kernel k1|k4|k8|k6|k10|k11|k3|k9|k13|k12|both|all]...
         [--k1-source FILE] [--k4-source FILE] [--k8-source FILE]
-        [--k6-source FILE] [--k10-source FILE] [--k3-source FILE]
-        [--k9-source FILE] [--k13-source FILE]
-        [--frame N] [--reps 50]
+        [--k6-source FILE] [--k10-source FILE] [--k11-source FILE]
+        [--k3-source FILE] [--k9-source FILE] [--k13-source FILE]
+        [--k12-source FILE] [--frame N] [--reps 50]
 
 Each ``--kN-source`` may be given more than once: every source is split on
 the same inputs in the same call (an old design beside the new one).  For
 each source it builds throwaway copies into the git-ignored
 ``rvio_tpu_torch/build/phases/``: the source as it is (with an empty
 kernel beside it), one with a ``clock64()`` stamp at each ``// phase:
-<name>`` comment and at the kernel's end, and, where the design has one,
-a copy without its finish (K8).  A stamp waits at a barrier
-(``__syncthreads()``, or ``__syncwarp()`` in a kernel that has no block
+<name>`` comment of the kernel's body and at its end (a source holding two
+kernels, clahe.cu or shi_tomasi_nms.cu, is stamped in the one split
+only), and, where the design has one, a copy without its finish (K8).  A
+stamp waits at a barrier (``__syncthreads()``, or ``__syncwarp()`` in a
+kernel that has no block
 barrier or whose source says ``// phase sync: __syncwarp()``), then the
 thread that runs the stamped feature (block 0's first thread for K1, K4,
-K10 and K13, K10's block 0 being the first CTA of tile 0's cluster, the
-one that finishes, K13's the first warp's strip; corner 0's lane 0 for
+K10, K11, K13 and K12, K10's block 0 being the first CTA of tile 0's
+cluster, the one that finishes, K13's and K12's the first warp's strip,
+K11's the first block of the top-left cell; corner 0's lane 0 for
 K9; block 0's first column lane, thread 32, for K3, whose
 warp 0 leaves after the barrier; for K8 the slowest of the features with
 the most trips, found by timing each) adds the cycles since the
@@ -43,18 +46,22 @@ finish), for K10 and K3 those of commit fe8cabf (K10 one block of 1024
 threads a tile, K3 one block of 128 threads a feature with its system in
 shared memory), for K9 and K13 those of commit 6d6ae45 (K9 one block of
 256 threads a corner, a block reduction a step; K13 a block a 16 x 32
-tile, four stages through shared memory).  Save it with its
-``common.cuh`` beside it (``git show
+tile, four stages through shared memory), for K11 and K12 those of commit
+3c8a136 (K11 a thread a pixel column of 8 rows, the whole LUT table
+staged per block; K12 K13's old template without its NMS stage).  Save
+it with its ``common.cuh`` beside it (``git show
 fe8cabf:rvio_tpu_torch/csrc/clahe.cu``).
 
 Inputs: the check cases of ``rvio_tpu_torch/ops/checks.py`` (K1 at B = 1,
 K = 16 with 11 valid samples, K4 at F = 100, m = 30, K8 and K6 at 200
 features of a 752 x 480 frame, K10 on its checker frame of 752 x 480 at
-g = 5, K3 at F = 100, L = 15, M = 14, K9 at 200 corners, win 7, 10
-iterations, K13 on a 752 x 480 frame), and with ``--frame N`` also K8's
-and K6's inputs at tracked frame N of the CLAHE-on image path at each
-pyramid level, K10's image there and K9's and K13's inputs of that
-frame's refill detection (``chip_smoke.capture_klt_frame``),
+g = 5, K11 on the same kind of frame with its LUTs, K3 at F = 100, L =
+15, M = 14, K9 at 200 corners, win 7, 10 iterations, K13 and K12 on a 752
+x 480 frame), and with ``--frame N`` also K8's and K6's inputs at tracked
+frame N of the CLAHE-on image path at each pyramid level, K10's and
+K11's image there (K11 with that image's LUTs), K9's and K13's inputs of
+that frame's refill detection and K13's image for K12
+(``chip_smoke.capture_klt_frame``),
 and K3's inputs at the feature path's frame N, captured from its plain
 path on the CPU (``chip_smoke.capture_frame_inputs``).  It prints the card, each copy's error
 against the plain version, the unstamped copy's device time (a CUDA graph
@@ -131,8 +138,32 @@ OLD_DESIGN = {
              "gradient products"),
             ("  for (int idx = tid; idx < (TY + 2) * (TX + 2);", "response"),
             ("  for (int idx = tid; idx < TY * TX;", "NMS and store")],
+    "k11": [("  const int n = g * g * NBINS;\n  for (int i = threadIdx.x;",
+             "stage the whole LUT table, barrier"),
+            ("  const int x = blockIdx.x * APPLY_COLS + threadIdx.x;",
+             "a row at a time: load, bin, four shared reads, blend, store")],
+    "k12": [("  for (int idx = tid; idx < (TY + 6) * (TX + 6);", "halo load"),
+            ("  for (int idx = tid; idx < (TY + 4) * (TX + 4);",
+             "gradient products"),
+            ("  for (int idx = tid; idx < (TY + 2) * (TX + 2);",
+             "response and store")],
 }
-# The stamped kernel ends where its body closes: before the next definition.
+# Where a kernel's body starts in a source that may hold another kernel:
+# (anchor, True for an earlier design that carries no phase comments); the
+# first anchor found wins.  Kernels not listed: the whole source.
+KERNEL_START = {
+    "k10": [("\nclahe_luts_kernel(const float*", False)],
+    "k11": [("\nclahe_apply_kernel(const float*", False)],
+    "k13": [("\nshi_strip_kernel(const float*", False),
+            ("\nshi_nms_kernel(const float*", False),
+            ("void shi_kernel(", True)],
+    "k12": [("\nshi_strip_kernel(const float*", False),
+            ("void shi_kernel(", True)],
+}
+# The stamped kernel ends where its body closes: before the next definition
+# (of several, the first after the kernel's start).
+STRIP_END = ("}\n\ntemplate <int ROWS, bool NMS>\nint launch_strips(",
+             "}\n\n}  // namespace")
 KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
               "k8": "}\n\ntemplate <int KT>\nvoid launch(",
               "k8_old": "}\n\n__global__ void __launch_bounds__(NT)\n"
@@ -141,15 +172,23 @@ KERNEL_END = {"k1": "}\n\n}  // namespace", "k4": "}\n\n}  // namespace",
               "k10_old": "}\n\n// The two tiles along one axis",
               "k3": "}\n\ntemplate <int LMAX>\nint launch(",
               "k3_old": "}\n\n}  // namespace",
-              "k9": "}\n\n}  // namespace", "k13": "}\n\n}  // namespace"}
+              "k9": "}\n\n}  // namespace", "k13": STRIP_END,
+              "k11": "}\n\n}  // namespace",
+              "k11_old": "}\n\n}  // namespace",
+              "k12": STRIP_END,
+              "k12_old": "  if constexpr (!NMS) return;"}
 # Which feature a thread stamps for (-1: none).
 BLOCK0 = "(threadIdx.x == 0 && blockIdx.x == 0 ? 0 : -1)"
 STAMPER = {"k1": BLOCK0, "k4": BLOCK0, "k10": BLOCK0, "k10_old": BLOCK0,
            "k3": "(threadIdx.x == 32 && blockIdx.x == 0 ? 0 : -1)",
-           "k3_old": BLOCK0, "k9": BLOCK0, "k13": BLOCK0,
+           "k3_old": BLOCK0, "k9": BLOCK0, "k13": BLOCK0, "k11": BLOCK0,
+           "k11_old": BLOCK0, "k12": BLOCK0, "k12_old": BLOCK0,
            "k8": "((threadIdx.x & 31) == 0 ? (int)(blockIdx.x * "
                  "(blockDim.x >> 5) + (threadIdx.x >> 5)) : -1)",
            "k8_old": "(threadIdx.x == 0 ? (int)blockIdx.x : -1)"}
+# A stamp's wait where the source's own barrier cannot serve: K11's
+# earlier design returns the threads past the image's width before its end.
+SYNC = {"k11_old": "__syncwarp(__activemask())"}
 # The finish, taken out of a copy: (what, pattern, replacement).
 FINISH = {"k8": ("the last block's finish", r"  if \(!last_block\) return;",
                  "  return;"),
@@ -185,11 +224,35 @@ def add_old_markers(src: str, kernel: str) -> str:
     return src
 
 
-def instrument(src: str, end: str, stamper: str):
-    """(stamped source, phase names).  Phase k accumulates into rvio_st[k]."""
-    m = re.search(r"// phase sync: (\S+)\(\)", src)
-    sync = (m.group(1) + "()" if m else
-            "__syncthreads()" if "__syncthreads" in src else "__syncwarp()")
+def region(src: str, kernel: str, key: str):
+    """(start, end, earlier design): the span of ``kernel``'s body in
+    ``src``, from its KERNEL_START anchor (the start of the source if it has
+    none) to the first KERNEL_END[key] after it."""
+    start, old = 0, False
+    for anchor, was in KERNEL_START.get(kernel, []):
+        if anchor in src:
+            start, old = src.index(anchor), was
+            break
+    else:
+        if kernel in KERNEL_START:
+            raise ValueError(f"no {kernel} kernel in the source")
+    ends = KERNEL_END[key]
+    if kernel not in KERNEL_START:
+        return start, src.rindex(ends), old
+    ends = (ends,) if isinstance(ends, str) else ends
+    end = min(src.index(e, start) for e in ends if e in src[start:])
+    return start, end, old
+
+
+def instrument(src: str, span, stamper: str, sync=None):
+    """(stamped source, phase names) for the ``// phase:`` comments inside
+    ``span`` (start, end): a stamp at each and one before ``end``.  Phase k
+    accumulates into rvio_st[k]."""
+    lo, hi = span
+    body = src[lo:hi]
+    m = re.search(r"// phase sync: (\S+)\(\)", body)
+    sync = sync or (m.group(1) + "()" if m else "__syncthreads()"
+                    if "__syncthreads" in body else "__syncwarp()")
 
     def stamp(k):
         close = (f"if (rvio_ph >= 0) rvio_st[rvio_ph] += rvio_now - rvio_t; "
@@ -198,19 +261,18 @@ def instrument(src: str, end: str, stamper: str):
                 f"{{ long long rvio_now = clock64(); {close} }}"
                 + ("" if k is None else f" rvio_ph = {k};"))
 
-    marks = list(re.finditer(r"^( *)// phase: ([^\n]*)$", src, flags=re.M))
+    marks = [m for m in re.finditer(r"^( *)// phase: ([^\n]*)$", src,
+                                    flags=re.M) if lo <= m.start() < hi]
     if not marks:
-        raise ValueError("the source has no // phase: comments")
+        raise ValueError("the kernel has no // phase: comments")
     names, out, pos = [], [], 0
     for k, m in enumerate(marks):
         decl = "long long rvio_t = 0; int rvio_ph = -1; " if k == 0 else ""
         out += [src[pos:m.start()], m.group(1) + decl + stamp(k) + "\n"]
         pos = m.start()
         names.append(m.group(2).strip())
-    out.append(src[pos:])
+    out += [src[pos:hi], "  " + stamp(None) + "\n", src[hi:]]
     src = "".join(out)
-    i = src.rindex(end)
-    src = src[:i] + "  " + stamp(None) + "\n" + src[i:]
     i = src.index(INCLUDE) + len(INCLUDE)
     src = (src[:i] + f"\n__device__ long long rvio_st[{MAX_PHASES}];\n"
            "__device__ int rvio_who;\n" + src[i:] + IO)
@@ -347,6 +409,24 @@ def _k13_call(chk, text):
                 [torch.empty_like(img)], [], list(img.shape), 1)
 
 
+def _k11_call(chk, text):
+    from rvio_tpu_torch.ops import clahe as k11
+    img, luts = chk.args
+    g = chk.kwargs["grid"]
+    H, W = img.shape
+    th, tw = k11.tile_shape(H, W, g)
+    return Call("rvio_clahe_apply", k11._ARGS, [img, luts],
+                [torch.empty_like(img)], [],
+                [H, W, g, (th - 1) / 2.0, (tw - 1) / 2.0], 1)
+
+
+def _k12_call(chk, text):
+    from rvio_tpu_torch.ops import shi_tomasi as k12
+    img, = chk.args
+    return Call("rvio_shi_tomasi", k12._ARGS, [img],
+                [torch.empty_like(img)], [], list(img.shape), 1)
+
+
 @dataclass
 class Kernel:
     lib: str
@@ -363,7 +443,9 @@ KERNELS = {"k1": Kernel("propagate_block", "propagate_block", _k1_call),
            "k10": Kernel("clahe", "clahe_luts", _k10_call),
            "k3": Kernel("jac_project", "jac_project", _k3_call),
            "k9": Kernel("subpix_refine", "subpix_refine", _k9_call),
-           "k13": Kernel("shi_tomasi_nms", "shi_tomasi_nms", _k13_call)}
+           "k13": Kernel("shi_tomasi_nms", "shi_tomasi_nms", _k13_call),
+           "k11": Kernel("clahe", "clahe_apply", _k11_call),
+           "k12": Kernel("shi_tomasi_nms", "shi_tomasi", _k12_call)}
 
 
 def bitwise_equal(xs, ys) -> bool:
@@ -381,16 +463,20 @@ class Build:
         text = source.read_text()
         self.design = "its phase comments"
         key = kernel
-        if spec.stamps and "// phase:" not in text:
-            text = add_old_markers(text, kernel)
-            self.design = "the phase boundaries of an earlier design"
-            key = kernel + "_old" if kernel + "_old" in KERNEL_END else kernel
+        if spec.stamps:
+            lo, hi, old = region(text, kernel, key)
+            if old or "// phase:" not in text[lo:hi]:
+                text = add_old_markers(text, kernel)
+                self.design = "the phase boundaries of an earlier design"
+                if kernel + "_old" in KERNEL_END:
+                    key = kernel + "_old"
         self.text, self.kernel, self.source = text, kernel, source
         codes = {"unstamped": text + EMPTY}
         self.names = []
         if spec.stamps:
+            lo, hi, _ = region(text, kernel, key)
             codes["stamped"], self.names = instrument(
-                text, KERNEL_END[key], STAMPER[key])
+                text, (lo, hi), STAMPER[key], SYNC.get(key))
         self.finish = FINISH.get(key)
         if self.finish:
             codes["no finish"] = re.sub(self.finish[1], self.finish[2], text,
@@ -568,14 +654,17 @@ def feature_frame_case(dev, frame: int):
 
 
 def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
-    """K8's, K6's, K10's, K9's or K13's cases at tracked frame ``frame`` of
-    the CLAHE-on image path, one a pyramid level (K6: its template and its
-    search gather; K10: the frame's image; K9 and K13: the refill
-    detection's calls); K3's at the feature path's frame."""
+    """K8's, K6's, K10's, K11's, K9's, K13's or K12's cases at tracked frame
+    ``frame`` of the CLAHE-on image path, one a pyramid level (K6: its
+    template and its search gather; K10 and K11: the frame's image, K11
+    with its LUTs; K9 and K13: the refill detection's calls; K12: K13's
+    image); K3's at the feature path's frame."""
     from chip_smoke import capture_klt_frame, workload_sim
-    from rvio_tpu_torch.ops.checks import (clahe_luts_case, lk_case,
-                                           shi_nms_case, subpix_case,
-                                           tile_case)
+    from rvio_tpu_torch.ops.checks import (clahe_apply_case,
+                                           clahe_luts_case, lk_case,
+                                           shi_case, shi_nms_case,
+                                           subpix_case, tile_case)
+    from rvio_tpu_torch.ops.clahe import clahe_luts_plain
     if kernel == "k3":
         return feature_frame_case(dev, frame)
     if frame not in _CAPTURED:
@@ -587,9 +676,15 @@ def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
     if kernel == "k9":
         what = f" (frame {frame}'s refill, {len(subpix[0][2])} corners)"
         return [(what, subpix_case(dev, *subpix[0], **subpix[1], what=what))]
-    if kernel == "k13":
+    if kernel == "k11":
+        what = f" (frame {frame}'s image)"
+        img = eq_img.cpu()
+        return [(what, clahe_apply_case(dev, img, clahe_luts_plain(img), 5,
+                                        what=what))]
+    if kernel in ("k13", "k12"):
         what = f" (frame {frame}'s level 0)"
-        return [(what, shi_nms_case(dev, nms_img, what=what))]
+        case = shi_nms_case if kernel == "k13" else shi_case
+        return [(what, case(dev, nms_img, what=what))]
     out = []
     for lvl, tmpl, search, args, kw in levels:
         what = f" (frame {frame}, level {lvl})"
@@ -606,19 +701,22 @@ def frame_cases(dev, kernel: str, frame: int) -> List[Tuple[str, object]]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=("k1", "k4", "k8", "k6", "k10",
-                                         "k3", "k9", "k13", "both", "all"),
+                                         "k11", "k3", "k9", "k13", "k12",
+                                         "both", "all"),
                     action="append",
                     help="may repeat; both (the default): k1 and k4; all: "
                          "every kernel")
     for k, name in (("k1", "propagate_block"), ("k4", "spd_solve"),
                     ("k8", "lk_level"), ("k6", "tile_gather"),
-                    ("k10", "clahe"), ("k3", "jac_project"),
-                    ("k9", "subpix_refine"), ("k13", "shi_tomasi_nms")):
+                    ("k10", "clahe"), ("k11", "clahe"),
+                    ("k3", "jac_project"), ("k9", "subpix_refine"),
+                    ("k13", "shi_tomasi_nms"), ("k12", "shi_tomasi_nms")):
         ap.add_argument(f"--{k}-source", action="append", default=None,
                         help=f"default csrc/{name}.cu; may repeat")
     ap.add_argument("--frame", type=int, default=None,
-                    help="K8, K6, K10, K9 and K13 also on this tracked "
-                         "frame's inputs, K3 on this filtered frame's")
+                    help="K8, K6, K10, K11, K9, K13 and K12 also on this "
+                         "tracked frame's inputs, K3 on this filtered "
+                         "frame's")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -632,7 +730,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     checks = {c.name: c for c in kernel_checks(dev)}
     groups = {"both": ("k1", "k4"),
-              "all": ("k1", "k4", "k8", "k6", "k10", "k3", "k9", "k13")}
+              "all": ("k1", "k4", "k8", "k6", "k10", "k11", "k3", "k9",
+                      "k13", "k12")}
     kernels = [k for arg in args.kernel or ["both"]
                for k in groups.get(arg, (arg,))]
     ok = True

@@ -27,6 +27,10 @@ K10 at seven frame sizes, on and off the clip limit's grid, on a constant
 and a random frame, in a replayed CUDA graph, and K3 at both compiled row
 bounds and their edges, F = 0 to 200, t_eff = 2 and L, c0 at both ends of
 the window, a feature of rank two and one with a single measurement;
+K11 and K12 bitwise with their plain versions at widths that are no
+multiple of 4, heights that are no multiple of a strip or a block, the
+5 x 5 least, K11 at g = 8 and on an image off a 16-byte boundary, each
+in a replayed CUDA graph and on two streams at once;
 the replay of an ASL folder is the rendered scan of the same frames, and
 a resumed replay the uninterrupted one.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -1314,8 +1318,10 @@ def test_shi_tomasi_nms_bitwise(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", _SHI_SIZES + ["constant"])
 def test_shi_tomasi_response_bitwise(cuda, case):
-    """K12 (the response alone, its kernel unchanged beside K13's) bitwise
-    with its plain version on the card."""
+    """K12 (K13's strip kernel without its NMS stage, 28 columns a strip)
+    bitwise with its plain version on the card: widths that are no
+    multiple of 4, heights that are no multiple of its rows, the 5 x 5
+    least."""
     from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi, shi_tomasi_response
     img = _shi_image(case, cuda)
     got = shi_tomasi(img)
@@ -1356,3 +1362,97 @@ def test_subpix_refine_graph_replays(cuda):
 def test_shi_tomasi_nms_graph_replays(cuda):
     from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi_nms
     _graph_replays(shi_tomasi_nms, _shi_image((480, 752), cuda))
+
+
+def _two_streams(fn, cases):
+    """``fn`` on each case's args, 20 times on each of two streams at once,
+    gives the eager call's output each time."""
+    want = [fn(*args) for args in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for k, (s, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                got[k].append(fn(*args))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out in got[k]:
+            assert torch.equal(out, want[k])
+
+
+@pytest.mark.gpu
+def test_shi_tomasi_graph_replays(cuda):
+    from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi
+    _graph_replays(shi_tomasi, _shi_image((481, 753), cuda))
+
+
+@pytest.mark.gpu
+def test_shi_tomasi_two_streams(cuda):
+    from rvio_tpu_torch.ops.shi_tomasi import shi_tomasi
+    _two_streams(shi_tomasi, [(_shi_image((480, 752), cuda),),
+                              (_shi_image((481, 753), cuda),)])
+
+
+# ---- K11: the CLAHE apply (a block a chunk of a cell) ----
+
+# (H, W, g): the tracker's frame, widths that are no multiple of 4, the
+# 5 x 5 least, g = 8 (where the old design needed the shared-memory
+# attribute) at two sizes
+_K11_SIZES = [(480, 752, 5), (481, 753, 5), (37, 42, 5), (5, 5, 5),
+              (480, 752, 8), (61, 95, 8)]
+
+
+def _k11_case(cuda, H, W, g, seed=0):
+    """(image, LUTs) on the card and the plain version's output on the
+    CPU; a few pixels outside [0, 255]."""
+    from rvio_tpu_torch.ops.clahe import clahe_apply_plain, clahe_luts_plain
+    img = _clahe_frame(H, W, seed)
+    img[::7, ::5] = torch.linspace(-30.0, 290.5, img[::7, ::5].numel()
+                                   ).reshape(img[::7, ::5].shape)
+    luts = clahe_luts_plain(img, 3.0, g)
+    return img.to(cuda), luts.to(cuda), clahe_apply_plain(img, luts, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hwg", _K11_SIZES)
+def test_clahe_apply_bitwise(cuda, hwg):
+    """K11 bitwise with its plain version on the CPU, one launch."""
+    from rvio_tpu_torch.ops.clahe import clahe_apply
+    H, W, g = hwg
+    img, luts, want = _k11_case(cuda, H, W, g)
+    before = clahe_apply.launches
+    got = clahe_apply(img, luts, g)
+    torch.cuda.synchronize()
+    assert clahe_apply.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_clahe_apply_unaligned(cuda):
+    """An image and an output 4 bytes off a 16-byte boundary (W % 4 == 0:
+    the quads by four loads) give the aligned call's pixels."""
+    from rvio_tpu_torch.ops.clahe import clahe_apply
+    img, luts, want = _k11_case(cuda, 480, 752, 5)
+    flat = torch.empty(img.numel() + 1, device=cuda)
+    flat[1:] = img.reshape(-1)
+    got = clahe_apply(flat[1:].view(480, 752), luts, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_clahe_apply_graph_replays(cuda):
+    from rvio_tpu_torch.ops.clahe import clahe_apply
+    img, luts, _ = _k11_case(cuda, 480, 752, 5)
+    _graph_replays(clahe_apply, img, luts, 5)
+
+
+@pytest.mark.gpu
+def test_clahe_apply_two_streams(cuda):
+    from rvio_tpu_torch.ops.clahe import clahe_apply
+    _two_streams(clahe_apply, [_k11_case(cuda, 480, 752, 5)[:2] + (5,),
+                               _k11_case(cuda, 481, 753, 8, seed=1)[:2]
+                               + (8,)])

@@ -255,22 +255,32 @@ def test_k9_warp_order_within_tolerance_of_plain_f32(checks):
     assert np.abs(got - chk.run_plain().numpy()).max() <= 1e-3
 
 
-# ---- K13 ----
+# ---- K13 (the strip helpers serve K12 too: test_torch_k11_k12_support.py) --
 
 K13_SIZES = [(5, 5), (37, 41), (60, 94), (480, 752), (481, 753)]
 
 
-def _strips(H: int, W: int):
-    """Every warp of K13's grid with a strip on the map: (first output row
-    y0, first lane's column x0) each, as rvio_shi_tomasi_nms launches it."""
-    cols, rows, warps = K13["NMS_COLS"], K13["NMS_ROWS"], K13["NMS_WARPS"]
+def _layout(nms: bool):
+    """(halo, columns, rows) of a strip of ``shi_strip_kernel``: K13's, with
+    the NMS stage, or K12's, without it."""
+    if nms:
+        return 3, K13["NMS_COLS"], K13["NMS_ROWS"]
+    return 2, K13["RESP_COLS"], K13["RESP_ROWS"]
+
+
+def _strips(H: int, W: int, nms: bool = True):
+    """Every warp of K13's (or K12's) grid with a strip on the map: (first
+    output row y0, first lane's column x0) each, as rvio_shi_tomasi_nms
+    (rvio_shi_tomasi) launches it."""
+    halo, cols, rows = _layout(nms)
+    warps = K13["STRIP_WARPS"]
     strips_x = -(-W // cols)
     n = strips_x * -(-H // rows)
     wid = np.arange(-(-n // warps) * warps)
     sy, sx = wid // strips_x, wid % strips_x
     y0 = sy * rows
     keep = y0 < H
-    return y0[keep], (sx * cols - 3)[keep]
+    return y0[keep], (sx * cols - halo)[keep]
 
 
 @pytest.mark.parametrize("hw", K13_SIZES)
@@ -291,19 +301,20 @@ def test_k13_strips_cover_each_pixel_once_with_halo(hw):
     assert (hits == 1).all()
 
 
-def _emulate_k13(img: np.ndarray) -> np.ndarray:
-    """K13's strips in f32, each operation rounded on its own: the column
-    sums down a lane's rows, the neighbours by lane shifts, the border and
-    the NaN-propagating 3x3 maximum as the kernel takes them."""
+def _emulate_strips(img: np.ndarray, nms: bool = True) -> np.ndarray:
+    """K13's (or K12's) strips in f32, each operation rounded on its own:
+    the column sums down a lane's rows, the neighbours by lane shifts, the
+    border and the NaN-propagating 3x3 maximum as the kernel takes them."""
     f = np.float32
     H, W = img.shape
-    rows = K13["NMS_ROWS"]
-    y0, x0 = _strips(H, W)
+    halo, cols, rows = _layout(nms)
+    nr = rows + 2 * (halo - 2)                              # response rows
+    y0, x0 = _strips(H, W, nms)
     S = len(y0)
     x = x0[:, None] + LANES[None, :]                                # (S, 32)
-    ys = y0[:, None] + np.arange(-3, rows + 3)[None, :]             # (S, R+6)
+    ys = y0[:, None] + np.arange(-halo, rows + halo)[None, :]
     I = img.astype(f)[np.clip(ys, 0, H - 1)[:, :, None],
-                      np.clip(x, 0, W - 1)[:, None, :]]         # (S, R+6, 32)
+                      np.clip(x, 0, W - 1)[:, None, :]]         # (S, ., 32)
 
     def left(v):      # lane l - 1's value (lane 0 keeps its own)
         return np.concatenate([v[..., :1], v[..., :-1]], axis=-1)
@@ -328,19 +339,21 @@ def _emulate_k13(img: np.ndarray) -> np.ndarray:
     # torch.sqrt and the kernel's __fsqrt_rn both are
     disc = torch.sqrt(torch.as_tensor(np.maximum(tr * tr - f(4) * det, f(0))))
     v = (tr - disc.numpy()) * f(0.5)
-    yr = (y0[:, None] + np.arange(-1, rows + 1)[None, :])[:, :, None]
+    yr = y0[:, None, None] + np.arange(2 - halo, 2 - halo + nr)[None, :, None]
     xr = x[:, None, :]
     off = (yr < 0) | (yr >= H) | (xr < 0) | (xr >= W)
     border = (yr < 2) | (yr >= H - 2) | (xr < 2) | (xr >= W - 2)
     R = np.where(off, f(-np.inf), np.where(border, f(0), v))
-    cm = np.maximum(np.maximum(R[:, :-2], R[:, 1:-1]), R[:, 2:])
-    m9 = np.maximum(np.maximum(left(cm), cm), right(cm))
-    m = R[:, 1:-1]
-    res = np.where(m >= m9, m, f(-np.inf))
+    res = R
+    if nms:
+        cm = np.maximum(np.maximum(R[:, :-2], R[:, 1:-1]), R[:, 2:])
+        m9 = np.maximum(np.maximum(left(cm), cm), right(cm))
+        m = R[:, 1:-1]
+        res = np.where(m >= m9, m, f(-np.inf))
     out = np.full((H, W), np.nan, f)
     yo = y0[:, None] + np.arange(rows)[None, :]
     for k in range(S):
-        lanes = (LANES >= 3) & (LANES < 3 + K13["NMS_COLS"]) & (x[k] < W)
+        lanes = (LANES >= halo) & (LANES < halo + cols) & (x[k] < W)
         ok = yo[k] < H
         out[np.ix_(yo[k][ok], x[k][lanes])] = res[k][np.ix_(ok, lanes)]
     return out
@@ -355,7 +368,7 @@ def test_k13_strip_arithmetic_bitwise_with_plain(case):
         img = _texture(np.random.default_rng(H), H, W, passes=1).float()
         img = img.numpy()
     want = shi_tomasi_nms_plain(torch.as_tensor(img)).numpy()
-    got = _emulate_k13(img)
+    got = _emulate_strips(img)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
