@@ -49,6 +49,14 @@ set to 0 just before it and read just after:
 - the live entry point, ``OnlineDriver``, fed frame by frame over the
   first 200 tracked frames: frames/s, push-to-pose latency, no drops, and
   the poses of the CLAHE-on run above (same seed, so the same draws);
+- graph against eager (the one-dispatch frame): ``SequenceDriver`` over the
+  whole workload through the eager frame loop and through the graphed
+  sequence scan with 1, 8 and 32 frames a graph (capture seconds, graph
+  pool bytes, frames/s), every output of every frame bitwise or within
+  1e-6 m; images -> poses with CLAHE on over the first GRAPH_IMG_FRAMES
+  frames eagerly, then graphed through the fused chunk scan, the
+  front-end and back-end chunk scans, and ``ImagePipeline``, each against
+  the eager run; every kernel's launches under replay as the path implies;
 - the file replay, this slice's main path: ``python -m rvio_tpu_torch.run
   --euroc`` on the folder (in process): every kernel of the image path and
   K5 as often as the path implies, ATE below 0.05 m, the acceptance gates,
@@ -57,11 +65,17 @@ set to 0 just before it and read just after:
   frames against the folder, and a run saved after 100 of them and
   resumed against the uninterrupted run.
 
+The public drivers run their frames as replays of captured CUDA graphs
+(rvio_tpu_torch/runtime/graph.py), so the phases that drive them measure
+the graphed path; the eager frame loop (:class:`EagerFrameScan`) is the
+reference of the graph-against-eager phase and drives the KLT frame
+capture, whose recorders see each frame's calls.
+
 Output, in order: a device line, the build, one line per kernel check, the
-main-path lines, the card's name and power limit as nvidia-smi reports
-them, a JSON object describing every kernel, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
-that line; with no CUDA device it exits 1 at once.
+main-path lines, the script's time, the card's name and power limit as
+nvidia-smi reports them, a JSON object describing every kernel, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero without that line; with no CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -132,6 +146,13 @@ REPLAY_GAP_M = 1e-6
 # K8 and K6 on a real frame: the tracker's calls at this tracked frame of
 # the CLAHE-on image path
 KLT_FRAME = 100
+# graph against eager: frames of images -> poses (CLAHE on) compared, and
+# the frames a graph of the sequence scan holds
+GRAPH_IMG_FRAMES = 200
+UNROLLS = (1, 8, 32)
+# graphed against eager: the same kernels in the same order, so 0 is
+# expected; the limit is PERF.md section 2's same-input limit
+GRAPH_GAP_M = 1e-6
 # front-end acceptance gates of tests/test_flagship_image_ate.py:49-53
 ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
                 "gate_reject_rate": ("<", 0.50),
@@ -220,6 +241,34 @@ def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
     s = 0.5 * torch.stack([Rr[:, 2, 1] - Rr[:, 1, 2], Rr[:, 0, 2] - Rr[:, 2, 0],
                            Rr[:, 1, 0] - Rr[:, 0, 1]], dim=-1)
     return float(torch.arcsin(torch.linalg.vector_norm(s, dim=-1).clamp(max=1.0)).max())
+
+
+def _frame_scan_class():
+    from rvio_tpu_torch.runtime.graph import FrameScan
+
+    class EagerFrameScan(FrameScan):
+        """A FrameScan whose frames all run eagerly on the card: the same
+        body, buffers and cursor as the graphed scan, with no graph."""
+
+        def _run_graphed(self, T: int) -> None:
+            for _ in range(T):
+                self._frame()
+
+    return EagerFrameScan
+
+
+@contextlib.contextmanager
+def eager_frames():
+    """Within the block, the public drivers and builders run their frames
+    eagerly (the reference of the graph-against-eager phase)."""
+    from unittest import mock
+
+    import rvio_tpu_torch.runtime.image_driver as image_driver
+    import rvio_tpu_torch.runtime.step as step
+    eager = _frame_scan_class()
+    with mock.patch.object(step, "FrameScan", eager), \
+            mock.patch.object(image_driver, "FrameScan", eager):
+        yield
 
 
 TAIL_KERNEL = "ekf_tail"
@@ -400,7 +449,9 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
     gather's (image, origins), the search gather's, K8's args, K8's
     kwargs); the image of the last ``clahe_luts`` call (None with the
     equalizer off); the (args, kwargs) of the frame's refill
-    ``subpix_refine`` and the image of its ``shi_tomasi_nms``."""
+    ``subpix_refine`` and the image of its ``shi_tomasi_nms``.  The run's
+    frames are eager (:func:`eager_frames`), so the recorders see every
+    frame's calls."""
     from unittest import mock
 
     import rvio_tpu_torch.frontend.detector as detector
@@ -430,7 +481,8 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
             mock.patch.object(detector, "subpix_refine",
                               recorder(detector, "subpix_refine", 1)), \
             mock.patch.object(detector, "shi_tomasi_nms",
-                              recorder(detector, "shi_tomasi_nms", 1)):
+                              recorder(detector, "shi_tomasi_nms", 1)), \
+            eager_frames():
         res = run_rendered_sequence_scan(cfg, sim, device=dev,
                                          max_frames=k0 + 1 + frame)
     if len(res.timestamps) != frame:
@@ -1014,6 +1066,144 @@ def replay_checks(dev, seq, kernels, scan, tmp) -> None:
         raise AssertionError("the resumed run is not the uninterrupted run")
 
 
+def _same(a, b):
+    """(bitwise equal, largest absolute gap) of two tensors or arrays."""
+    a, b = (torch.as_tensor(np.asarray(x)).double() for x in (a, b))
+    return bool(torch.equal(a, b)), float((a - b).abs().max()) if a.numel() \
+        else 0.0
+
+
+def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
+    """The one-dispatch frame against the eager frame loop, in one run.
+
+    The feature path over the whole workload: the sequence scan eagerly,
+    then graphed with each of UNROLLS frames a graph (its first run
+    captures; the best of two more is timed), every output of every frame
+    compared.  Images -> poses, CLAHE on, over GRAPH_IMG_FRAMES frames:
+    eagerly, then through the graphed fused chunk scan, the front-end and
+    back-end chunk scans (timing split) and ImagePipeline.  Each run ends
+    in a readback; each checks every kernel's launches."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.runtime import (ImagePipeline, bundle_imu,
+                                        run_rendered_sequence_scan)
+    from rvio_tpu_torch.runtime.step import _sequence_scan
+
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    T = int(bundles.imu.w.shape[0])
+    want = dict.fromkeys(kernels, 0)
+    want.update(dict.fromkeys(FILTER_KERNELS, T))
+
+    def timed(run):
+        _zero(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = run(state0, bundles)
+        host = {k: v.cpu() for k, v in out.items()}
+        wall = time.perf_counter() - t0
+        launches = _launches(kernels)
+        if launches != want:
+            raise AssertionError(f"sequence scan launches {launches}, "
+                                 f"expected {want}")
+        return wall, host
+
+    with eager_frames():
+        eager_run = _sequence_scan(cfg, dev, torch.float32, 1)
+    timed(eager_run)                                          # warm-up
+    e_wall, e_out = min((timed(eager_run) for _ in range(2)),
+                        key=lambda r: r[0])
+    print(f"graph vs eager, feature path: {T} frames eagerly in "
+          f"{e_wall:.3f} s = {T / e_wall:.1f} frames/s "
+          f"({e_wall * 1e3 / T:.3f} ms/frame)", flush=True)
+    for U in UNROLLS:
+        run = _sequence_scan(cfg, dev, torch.float32, U)
+        first_wall, _ = timed(run)
+        g_wall, g_out = min((timed(run) for _ in range(2)),
+                            key=lambda r: r[0])
+        caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+                for c in run.frame_scan.captures]
+        differ = {}
+        for k, v in e_out.items():
+            exact, gap = _same(v, g_out[k])
+            if not exact:
+                differ[k] = gap
+        print(f"graph vs eager, feature path, U {U}: graphed {T / g_wall:.1f} "
+              f"frames/s ({g_wall * 1e3 / T:.3f} ms/frame) against eager "
+              f"{T / e_wall:.1f}; first run {first_wall:.3f} s, captures "
+              f"{caps} (frames, s, graph pool bytes); every output of every "
+              f"frame "
+              f"{'bitwise equal' if not differ else f'equal but {differ}'}",
+              flush=True)
+        if differ and not differ.get("p_Gk", 0.0) < GRAPH_GAP_M:
+            raise AssertionError(f"graphed feature path differs: {differ}")
+
+    cfg = image_config(True)
+    k0 = _init_frame(cfg, sim_f.imu_t, sim_f.imu_w, sim_f.imu_a, sim_f.frame_t)
+    k_end = k0 + 1 + GRAPH_IMG_FRAMES
+    n = GRAPH_IMG_FRAMES
+
+    def image_run(label, **kw):
+        _zero(kernels)
+        res = run_rendered_sequence_scan(cfg, sim_f, device=dev,
+                                         max_frames=k_end, **kw)
+        launches = _launches(kernels)
+        if launches != expected_launches(n) or len(res.timestamps) != n:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{expected_launches(n)}")
+        return res
+
+    with eager_frames():
+        run_rendered_sequence_scan(cfg, sim_f, device=dev, max_frames=k0 + 9)
+        eager = image_run("eager image path")
+    runs = {"fused chunk scan": image_run("fused chunk scan"),
+            "front + back chunk scans": image_run("front + back",
+                                                  timing_split=True)}
+    frames = {k: _render_u8(cfg, sim_f, k) for k in range(k_end)}
+    groups = bundle_imu(sim_f.imu_t, sim_f.imu_w, sim_f.imu_a, sim_f.frame_t)
+    pipe = ImagePipeline(cfg, device=dev)
+    _zero(kernels)
+    rows, t_pipe = [], 0.0
+    for k in range(k_end):
+        t0 = time.perf_counter()
+        out = pipe.process_device(sim_f.frame_t[k], frames[k], *groups[k])
+        if out is not None:
+            rows.append(pipe.unpack(out))
+        t_pipe += time.perf_counter() - t0
+    if _launches(kernels) != expected_launches(n) or len(rows) != n:
+        raise AssertionError(f"ImagePipeline launches {_launches(kernels)}")
+
+    def loop_ms(res):
+        return float((res.frontend_ms + res.backend_ms).mean())
+
+    print(f"graph vs eager, images -> poses (CLAHE on), {n} frames: eager "
+          f"frame loop {loop_ms(eager):.3f} ms/frame "
+          f"({1e3 / loop_ms(eager):.1f} frames/s)", flush=True)
+    for label, res in runs.items():
+        agree = float((res.active_slots == eager.active_slots).mean())
+        exact, gap = _same(res.positions, eager.positions)
+        exact = exact and _same(res.quaternions, eager.quaternions)[0]
+        print(f"graph vs eager, {label}: {loop_ms(res):.3f} ms/frame "
+              f"({1e3 / loop_ms(res):.1f} frames/s; front-end "
+              f"{res.frontend_ms.mean():.3f}, back-end "
+              f"{res.backend_ms.mean():.3f}); active slots agree on "
+              f"{agree:.4%} of slot-frames, poses "
+              f"{'bitwise equal' if exact else f'max gap {gap:.3e} m'}",
+              flush=True)
+        if not (np.array_equal(res.timestamps, eager.timestamps)
+                and agree == 1.0 and gap <= GRAPH_GAP_M):
+            raise AssertionError(f"graphed {label} and eager disagree")
+    p = np.asarray([r["p_Gk"] for r in rows])
+    exact, gap = _same(p, eager.positions)
+    print(f"graph vs eager, ImagePipeline: {n} frames in {t_pipe:.3f} s = "
+          f"{n / t_pipe:.1f} frames/s frame in to pose out ({k0 + 1} "
+          f"frames before it fed to the init gate); positions "
+          f"{'bitwise equal' if exact else f'max gap {gap:.3e} m'} to the "
+          f"eager scan", flush=True)
+    if not gap <= GRAPH_GAP_M:
+        raise AssertionError("graphed ImagePipeline and eager disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1125,6 +1315,7 @@ def main() -> int:
               f"as PNG in {time.perf_counter() - t0:.1f} s "
               f"({WRITE_THREADS} threads)", flush=True)
 
+        graph_vs_eager_phase(dev, sim, sim_f, kernels)
         image_phase(dev, sim_f, kernels, records, equalizer=False,
                     n_frames=IMG_OFF_FRAMES)
         scan = image_phase(dev, sim_f, kernels, records, equalizer=True)

@@ -11,6 +11,11 @@ once, one ``nvcc`` process per source.
 Every exported C function takes device pointers, sizes, scalars and the
 CUDA stream, launches on that stream without synchronizing, and returns
 ``cudaGetLastError()``; :func:`call` raises on a non-zero code.
+
+Each wrapper counts its launches in ``<wrapper>.launches`` through
+:func:`launched`.  A call made while a CUDA graph is being captured
+launches nothing: it goes to the capture's tally (:func:`tally`), and each
+replay of the graph adds the tally to the counts (runtime/graph.py).
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -37,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
+_capture = threading.local()      # .tally: the capture under way, if any
 
 
 def _nvcc() -> str:
@@ -145,3 +153,27 @@ def check(name: str, arg: str, t: torch.Tensor, shape, dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def launched(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``,
+    or, while this thread captures a CUDA graph (:func:`tally`), in the
+    capture's tally."""
+    counts = getattr(_capture, "tally", None)
+    if counts is None:
+        wrapper.launches += 1
+    else:
+        counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+@contextmanager
+def tally():
+    """Within the block, launches go to the dict it yields (wrapper ->
+    launches captured) and not to the wrappers' counts."""
+    if getattr(_capture, "tally", None) is not None:
+        raise RuntimeError("a capture is already under way on this thread")
+    _capture.tally = counts = {}
+    try:
+        yield counts
+    finally:
+        _capture.tally = None

@@ -214,7 +214,7 @@ def _launch_luts(img: torch.Tensor, clip_limit: float, grid: int,
               ctypes.c_void_p(None) if hist is None else _lib.ptr(hist), H, W,
               grid, limit, (KERNEL_BINS - 1.0) / area,
               int(cdf_any_order(limit, area)), device=img.device)
-    clahe_luts.launches += 1
+    _lib.launched(clahe_luts)
     return luts
 
 
@@ -259,7 +259,7 @@ def clahe_apply(img: torch.Tensor, luts: torch.Tensor,
     fn = _lib.function(_LIB, "rvio_clahe_apply", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts), _lib.ptr(out), H, W,
               grid, (th - 1) / 2.0, (tw - 1) / 2.0, device=dev)
-    clahe_apply.launches += 1
+    _lib.launched(clahe_apply)
     return out
 
 

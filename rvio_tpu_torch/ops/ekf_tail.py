@@ -155,7 +155,7 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
     _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (C, b, P, sig2, dx, P_new,
                                                 fallback)),
               B, n, device=dev)
-    ekf_tail.launches += 1
+    _lib.launched(ekf_tail)
     return dx, P_new, fallback
 
 

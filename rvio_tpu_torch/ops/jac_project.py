@@ -189,7 +189,7 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (
         z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res, phi, psi, rho,
         te, c0i, R_bc, t_bc, r, Hx, hfn)), F, L, M, KERNEL_EPS, device=dev)
-    jac_project.launches += 1
+    _lib.launched(jac_project)
     return r, Hx, hfn
 
 

@@ -241,7 +241,7 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
         scratch)), _ticket(dev), N, TH, TW, win, max_iters,
         ctypes.c_float(eps), ctypes.c_float(min_eig), ctypes.c_float(wander),
         int(last), H, W, device=dev)
-    lk_level.launches += 1
+    _lib.launched(lk_level)
     return g, out_status, err
 
 
@@ -364,7 +364,7 @@ def subpix_refine(tiles: torch.Tensor, origin: torch.Tensor,
     fn = _lib.function(_SP_LIB, "rvio_subpix_refine", _SP_ARGS)
     _lib.call(_SP_LIB, fn, _lib.ptr(tiles), _lib.ptr(origin), _lib.ptr(pts),
               _lib.ptr(out), N, TH, TW, win, iters, device=dev)
-    subpix_refine.launches += 1
+    _lib.launched(subpix_refine)
     return out
 
 

@@ -200,7 +200,7 @@ def lm_triangulate(z, Rc, tc, track_len, *, sigma_im: float, iters: int = 10):
     _lib.call(_LIB, fn, _lib.ptr(z), _lib.ptr(Rc), _lib.ptr(tc), _lib.ptr(tl),
               _lib.ptr(phi), _lib.ptr(psi), _lib.ptr(rho), _lib.ptr(ok),
               F, L, iters, 1.0 / sigma_im ** 2, device=dev)
-    lm_triangulate.launches += 1
+    _lib.launched(lm_triangulate)
     return phi, psi, rho, ok
 
 

@@ -162,7 +162,7 @@ def propagate_block(w, a, dte, R0, vR, gR, bg, ba, P0, *,
         w, a, dte, R0, vR, gR, bg, ba, P0, Rk, pk, vk, P, Psi)),
         B, K, float(gravity), float(small_angle),
         *_sig(sigma_g, sigma_wg, sigma_a, sigma_wa), device=dev)
-    propagate_block.launches += 1
+    _lib.launched(propagate_block)
     return Rk, pk, vk, P, Psi
 
 

@@ -100,7 +100,7 @@ def shi_tomasi_nms(img: torch.Tensor) -> torch.Tensor:
     out = torch.empty((H, W), dtype=torch.float32, device=dev)
     fn = _lib.function(_LIB, "rvio_shi_tomasi_nms", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), H, W, device=dev)
-    shi_tomasi_nms.launches += 1
+    _lib.launched(shi_tomasi_nms)
     return out
 
 
@@ -125,7 +125,7 @@ def shi_tomasi(img: torch.Tensor, block: int = 3) -> torch.Tensor:
     out = torch.empty((H, W), dtype=torch.float32, device=dev)
     fn = _lib.function(_LIB, "rvio_shi_tomasi", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), H, W, device=dev)
-    shi_tomasi.launches += 1
+    _lib.launched(shi_tomasi)
     return out
 
 

@@ -61,7 +61,7 @@ def batched_quadform(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return D
     fn = _lib.function(_LIB, "rvio_spd_quadform", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(S), _lib.ptr(r), _lib.ptr(D), F, m, device=dev)
-    batched_quadform.launches += 1
+    _lib.launched(batched_quadform)
     return D
 
 

@@ -80,7 +80,7 @@ def gather_tiles(img: torch.Tensor, origin: torch.Tensor, th: int,
     fn = _lib.function(_LIB, "rvio_gather_tiles", _ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(origin), _lib.ptr(out),
               H, W, N, th, tw, device=dev)
-    gather_tiles.launches += 1
+    _lib.launched(gather_tiles)
     return out
 
 
@@ -125,7 +125,7 @@ def gather_tiles_aligned(img: torch.Tensor, origin: torch.Tensor,
     fn = _lib.function(_LIB, "rvio_gather_tiles_aligned", _ALIGNED_ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(origin), _lib.ptr(out),
               H, W, N, th, tw, vec, device=dev)
-    gather_tiles_aligned.launches += 1
+    _lib.launched(gather_tiles_aligned)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Runtime: the per-frame step, the frame loop, init gate and drivers
+"""Runtime: the per-frame step, the graphed frame loops (the sequence scan
+and the image chunk scans, runtime/graph.py), init gate and drivers
 (feature-level replay, images -> poses on rendered or replayed frames, the
 live OnlineDriver) and the session checkpoint."""
 
@@ -7,6 +8,9 @@ from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
                                            bundle_imu)
 from rvio_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from rvio_tpu_torch.runtime.image_driver import (ImagePipeline,
+                                                 make_backend_chunk_scan,
+                                                 make_frontend_chunk_scan,
+                                                 make_image_chunk_scan,
                                                  run_euroc_sequence,
                                                  run_euroc_sequence_scan,
                                                  run_rendered_sequence_scan)
@@ -17,6 +21,8 @@ from rvio_tpu_torch.runtime.step import (FrameBundle, make_filter_step,
 
 __all__ = ["DriverResult", "FrameBundle", "ImagePipeline", "InitializationGate",
            "InputBuffer", "OnlineDriver", "SequenceDriver", "batches_from_sim",
-           "bundle_imu", "load_checkpoint", "make_filter_step",
-           "make_sequence_scan", "run_euroc_sequence", "run_euroc_sequence_scan",
-           "run_rendered_sequence_scan", "save_checkpoint"]
+           "bundle_imu", "load_checkpoint", "make_backend_chunk_scan",
+           "make_filter_step", "make_frontend_chunk_scan",
+           "make_image_chunk_scan", "make_sequence_scan", "run_euroc_sequence",
+           "run_euroc_sequence_scan", "run_rendered_sequence_scan",
+           "save_checkpoint"]

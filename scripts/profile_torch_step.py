@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where the port's per-frame path spends its time on a CUDA card.
 
-    python3 scripts/profile_torch_step.py [--image [--no-equalizer]]
-        [--frames 200] [--trace PATH]
+    python3 scripts/profile_torch_step.py [--graph] [--image
+        [--no-equalizer]] [--frames 200] [--trace PATH]
 
 Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
 ``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
 feature-level filter.  With ``--image``: ``run_rendered_sequence_scan`` on
 the same workload's rendered 752 x 480 frames, images -> poses at
 ``RVIOConfig()`` (CLAHE on; ``--no-equalizer`` turns it off), with its
-front-end/back-end split.  Either runs once whole, timed on
+front-end/back-end split.  The frames run eagerly, one launch after
+another from the host (chip_smoke.eager_frames), unless ``--graph``: then
+as the drivers run them, replays of captured CUDA graphs
+(rvio_tpu_torch/runtime/graph.py), whose capture happens in the whole run
+and not in the profiled window.  Either runs once whole, timed on
 the host clock (each run ends in a readback), then a window of
 ``--frames`` frames under ``torch.profiler``.  Prints the card, the
 frames/s, the device busy time per frame and its share of the unprofiled
@@ -22,6 +26,7 @@ time.  ``--trace`` writes the window's Chrome trace.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -32,11 +37,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-# profiler names of the port's kernels (K13 is shi_kernel<true>)
+# profiler names of the port's kernels on the paths (K6 is
+# gather_narrow_kernel, K13 shi_strip_kernel<6, true>)
 PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
-                "quadform_kernel", "clahe_luts_kernel", "clahe_apply_kernel",
-                "gather_tiles_kernel", "lk_level_kernel", "lk_finish_kernel",
-                "subpix_kernel", "shi_kernel<true>")
+                "quadform_kernel", "ekf_tail_kernel", "clahe_luts_kernel",
+                "clahe_apply_kernel", "gather_narrow_kernel",
+                "lk_level_kernel", "subpix_kernel", "shi_strip_kernel")
 
 
 def _image_runner(cfg, sim, equalizer: bool):
@@ -54,18 +60,60 @@ def _image_runner(cfg, sim, equalizer: bool):
     return run
 
 
+@contextlib.contextmanager
+def _scans_kept():
+    """The image driver's chunk scans built once and reused by every run
+    (a run builds its own, so each would capture anew)."""
+    from unittest import mock
+
+    import rvio_tpu_torch.runtime.image_driver as image_driver
+    names = ("make_image_chunk_scan", "make_frontend_chunk_scan",
+             "make_backend_chunk_scan")
+    built = {}
+
+    def keep(name, build):
+        def get(*args, **kw):
+            if name not in built:
+                built[name] = build(*args, **kw)
+            return built[name]
+        return get
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(
+                image_driver, name, keep(name, getattr(image_driver, name))))
+        yield
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--image", action="store_true",
                     help="profile images -> poses instead of the filter")
     ap.add_argument("--no-equalizer", action="store_true",
                     help="with --image: CLAHE off (the PR 3 workload)")
+    ap.add_argument("--graph", action="store_true",
+                    help="the drivers' graphed frames (default: eager)")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
         return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    print("workload: " + ("images -> poses, CLAHE "
+                          + ("off" if a.no_equalizer else "on")
+                          if a.image else "feature-level filter")
+          + ("; frames graphed" if a.graph else "; frames eager"),
+          flush=True)
+    from chip_smoke import eager_frames
+    with _scans_kept() if a.graph else eager_frames():
+        return _profile(a)
+
+
+def _profile(a) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from rvio_tpu_torch import RVIOConfig
@@ -73,14 +121,6 @@ def main() -> int:
     from rvio_tpu_torch.eval.ate import ate_rmse
     from rvio_tpu_torch.ops import _lib
     from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}", flush=True)
-    print("workload: " + ("images -> poses, CLAHE "
-                          + ("off" if a.no_equalizer else "on")
-                          if a.image else "feature-level filter"), flush=True)
     _lib.build()
     cfg = RVIOConfig()
     sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,

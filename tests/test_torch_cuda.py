@@ -32,7 +32,12 @@ multiple of 4, heights that are no multiple of a strip or a block, the
 5 x 5 least, K11 at g = 8 and on an image off a 16-byte boundary, each
 in a replayed CUDA graph and on two streams at once;
 the replay of an ASL folder is the rendered scan of the same frames, and
-a resumed replay the uninterrupted one.  Whether a
+a resumed replay the uninterrupted one; the one-dispatch frame: the
+graphed sequence scan (1 and 8 frames a graph) and the graphed image
+chunk scans (fused, front then back) bitwise with the eager frames, every
+kernel's launches under replay, two graphs that hold K8 replayed in turn
+on the graph stream, ImagePipeline's outputs not aliased across frames,
+and a capture that meets a host sync raising.  Whether a
 card is present is decided in the fixture, so every process collects the
 same tests.
 """
@@ -1456,3 +1461,265 @@ def test_clahe_apply_two_streams(cuda):
     _two_streams(clahe_apply, [_k11_case(cuda, 480, 752, 5)[:2] + (5,),
                                _k11_case(cuda, 481, 753, 8, seed=1)[:2]
                                + (8,)])
+
+
+# ---- the one-dispatch frame: graphed scans against the eager frame ----
+
+FILTER_WRAPPERS = ("propagate_block", "lm_triangulate", "jac_project",
+                   "batched_quadform", "ekf_tail")
+
+
+def _wrappers():
+    from rvio_tpu_torch.ops import (clahe, ekf_tail, jac_project,
+                                    klt_iterate, lm_triangulate,
+                                    propagate_block, shi_tomasi, spd_solve,
+                                    tile_gather)
+    return {w.__name__: w for w in (
+        propagate_block.propagate_block, lm_triangulate.lm_triangulate,
+        jac_project.jac_project, spd_solve.batched_quadform,
+        tile_gather.gather_tiles, klt_iterate.lk_level,
+        klt_iterate.subpix_refine, shi_tomasi.shi_tomasi_nms,
+        clahe.clahe_luts, clahe.clahe_apply, shi_tomasi.shi_tomasi,
+        tile_gather.gather_tiles_aligned, ekf_tail.ekf_tail)}
+
+
+def _feature_case(cuda):
+    """The feature config's first filtered frames on the card: the initial
+    state and the stacked bundles."""
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.filter.propagation import pad_imu
+    from rvio_tpu_torch.runtime import (InitializationGate, SequenceDriver,
+                                        batches_from_sim, bundle_imu)
+    cfg = _feature_cfg()
+    sim = simulate_sequence(cfg, duration=6.0, static_time=1.2, seed=11,
+                            meas_noise=0.0015, imu_noise=True)
+    batches = batches_from_sim(sim)
+    gate = InitializationGate(cfg, torch.float32, cuda)
+    state, rows = None, []
+    for k, (w, a, dts) in enumerate(bundle_imu(sim.imu_t, sim.imu_w,
+                                               sim.imu_a, sim.frame_t)):
+        if len(w) < 2:
+            continue
+        if state is None:
+            state = gate.feed(w, a, dts)
+            continue
+        b = batches[k]
+        rows.append((pad_imu(w, a, dts, cfg.tpu.imu_block),
+                     (b.meas, b.track_len, b.is_type2, b.valid)))
+    return cfg, state, SequenceDriver(cfg, device=cuda)._stack(rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll", [1, 8])
+def test_sequence_scan_graph_is_eager(cuda, unroll):
+    """The graphed sequence scan gives the eager per-frame step's outputs
+    and state bitwise, twice, and each filter kernel launches once a frame
+    under replay."""
+    from rvio_tpu_torch.runtime import make_filter_step
+    from rvio_tpu_torch.runtime.graph import tree_leaves
+    from rvio_tpu_torch.runtime.step import _sequence_scan
+    cfg, state0, bundles = _feature_case(cuda)
+    T = bundles.imu.w.shape[0]
+    step = make_filter_step(cfg, cuda)
+    state, rows = state0, []
+    for t in range(T):
+        state, out = step(state, bundles.frame(t))
+        rows.append(out)
+    eager = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    run = _sequence_scan(cfg, cuda, torch.float32, unroll)
+    wrappers = _wrappers()
+    for _ in range(2):
+        for w in wrappers.values():
+            w.launches = 0
+        final, got = run(state0, bundles)
+        torch.cuda.synchronize()
+        assert {k: wrappers[k].launches for k in FILTER_WRAPPERS} == \
+            dict.fromkeys(FILTER_WRAPPERS, T)
+        for k, v in eager.items():
+            assert torch.equal(got[k], v), k
+        for x, y in zip(tree_leaves(final), tree_leaves(state), strict=True):
+            assert torch.equal(x, y)
+    caps = run.frame_scan.captures
+    assert [c["frames"] for c in caps] == ([unroll, 1] if unroll > 1 and
+                                           (T - 1) % unroll else [unroll])
+
+
+def _image_case(cuda, equalizer, B=6):
+    """The small image config's init states on the card and its first B
+    frames as a chunk."""
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.dataio.synthetic import render_frame
+    from rvio_tpu_torch.frontend import make_tracker
+    from rvio_tpu_torch.runtime import bundle_imu
+    from rvio_tpu_torch.runtime.image_driver import (_find_init_frame,
+                                                     _imu_chunk_arrays)
+    cfg = _small_image_cfg(equalizer)
+    sim = simulate_sequence(cfg, duration=4.0, static_time=1.0, ramp_time=1.5,
+                            seed=6, n_landmarks=400, motion_scale=0.5)
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    fs, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
+                              cuda)
+    init_fn, _ = make_tracker(cfg, cuda)
+
+    def u8(k):
+        return np.clip(render_frame(cfg, sim, k), 0, 255).astype(np.uint8)
+
+    ts, _ = init_fn(torch.as_tensor(u8(k0)))
+    ks = list(range(k0 + 1, k0 + 1 + B))
+    ch = _imu_chunk_arrays(groups, ks, cfg.tpu.imu_block, torch.float32, cuda)
+    ch["image"] = torch.as_tensor(np.stack([u8(k) for k in ks]), device=cuda)
+    ch["u"] = torch.rand(B, cfg.tracker.num_features,
+                         generator=torch.Generator().manual_seed(3)).to(cuda)
+    return cfg, (ts, fs), ch
+
+
+def _eager_chunk(cfg, cuda, carry, ch):
+    """The chunk frame by frame through the scans' own halves, eagerly."""
+    from rvio_tpu_torch.runtime.image_driver import (_filter_outputs,
+                                                     _frame_halves,
+                                                     _tracker_outputs)
+    front, back = _frame_halves(cfg, cuda, torch.float32)
+    ts, fs = carry
+    rows = []
+    for i in range(len(ch["ok"])):
+        f = {k: v[i] for k, v in ch.items()}
+        ts, batch, dbg = front(ts, f)
+        fs, out = back(fs, f, batch)
+        rows.append({**_filter_outputs(out, f["ok"]),
+                     **_tracker_outputs(ts, dbg)})
+    return (ts, fs), {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _assert_same_carry(a, b):
+    from rvio_tpu_torch.runtime.graph import tree_leaves
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        assert torch.equal(x, y)
+
+
+def _image_want(n, equalizer):
+    eq = n if equalizer else 0
+    want = dict.fromkeys(FILTER_WRAPPERS, n)
+    want.update(gather_tiles=9 * n, lk_level=4 * n, subpix_refine=n,
+                shi_tomasi_nms=n, clahe_luts=eq, clahe_apply=eq, shi_tomasi=0,
+                gather_tiles_aligned=0)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("equalizer", [False, True])
+def test_image_chunk_scans_graph_is_eager(cuda, equalizer):
+    """The fused chunk scan and the front-end then back-end scans, graphed,
+    give the eager frames' outputs and carries bitwise, on two chunks (the
+    second replays only), and every kernel launches as often as its frames
+    imply under replay."""
+    from rvio_tpu_torch.runtime import (make_backend_chunk_scan,
+                                        make_frontend_chunk_scan,
+                                        make_image_chunk_scan)
+    cfg, carry, ch = _image_case(cuda, equalizer)
+    want_carry, want = _eager_chunk(cfg, cuda, carry, ch)
+    fused = make_image_chunk_scan(cfg, cuda)
+    front = make_frontend_chunk_scan(cfg, cuda)
+    back = make_backend_chunk_scan(cfg, cuda)
+    wrappers = _wrappers()
+    B = len(ch["ok"])
+    for _ in range(2):
+        for w in wrappers.values():
+            w.launches = 0
+        got_carry, got = fused(carry, ch)
+        torch.cuda.synchronize()
+        assert {k: w.launches for k, w in wrappers.items()} == \
+            _image_want(B, equalizer)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        _assert_same_carry(got_carry, want_carry)
+        ts, fo = front(carry[0], ch)
+        fs, bo = back(carry[1], {**{k: ch[k] for k in (
+            "imu_w", "imu_a", "imu_dt", "imu_valid", "ok")}, **{
+            k: fo[k] for k in ("meas", "track_len", "is_type2", "valid")}})
+        torch.cuda.synchronize()
+        for k, v in bo.items():
+            assert torch.equal(v, want[k]), k
+        _assert_same_carry((ts, fs), want_carry)
+
+
+@pytest.mark.gpu
+def test_k8_graphs_in_turn_on_one_stream(cuda):
+    """Two graphs that hold K8 (the fused chunk frame and the front-end
+    frame), both captured on the graph stream and replayed in turn on it,
+    give the eager frames' results each time: they share the stream's
+    finish ticket and never run at once."""
+    from rvio_tpu_torch.runtime import (make_frontend_chunk_scan,
+                                        make_image_chunk_scan)
+    cfg, carry, ch = _image_case(cuda, True, B=4)
+    want_carry, want = _eager_chunk(cfg, cuda, carry, ch)
+    fused = make_image_chunk_scan(cfg, cuda)
+    front = make_frontend_chunk_scan(cfg, cuda)
+    for _ in range(3):
+        got_carry, got = fused(carry, ch)
+        ts, fo = front(carry[0], ch)
+        torch.cuda.synchronize()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        for k in ("n_tracked", "n_lost", "n_new", "active"):
+            assert torch.equal(fo[k], want[k]), k
+        _assert_same_carry(got_carry, want_carry)
+        _assert_same_carry(ts, want_carry[0])
+
+
+@pytest.mark.gpu
+def test_pipeline_graphed_outputs_not_aliased(cuda):
+    """ImagePipeline.process on the card: each frame's outputs are copies
+    that later frames leave alone, and the poses are the CPU pipeline's
+    within the card-vs-CPU limit of test_image_driver_launches_every_kernel
+    (CLAHE off: with it on the two part near the border at this config,
+    ROADMAP.md section 3)."""
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.dataio.synthetic import render_frame
+    from rvio_tpu_torch.runtime import ImagePipeline, bundle_imu
+    cfg = _small_image_cfg(False)
+    sim = simulate_sequence(cfg, duration=4.0, static_time=1.0, ramp_time=1.5,
+                            seed=6, n_landmarks=400, motion_scale=0.5)
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    pipes = {d: ImagePipeline(cfg, device=d) for d in (cuda, "cpu")}
+    outs = {d: [] for d in pipes}
+    for k in range(len(sim.frame_t)):
+        img = np.clip(render_frame(cfg, sim, k), 0, 255).astype(np.uint8)
+        for d, pipe in pipes.items():
+            out = pipe.process(sim.frame_t[k], img, *groups[k])
+            if out is not None:
+                outs[d].append((out, {n: v.clone() for n, v in out.items()}))
+    torch.cuda.synchronize()
+    assert len(outs[cuda]) == len(outs["cpu"]) > 10
+    for out, kept in outs[cuda]:
+        for n, v in kept.items():
+            assert torch.equal(out[n], v), n
+    p = torch.stack([o["p_Gk"] for o, _ in outs[cuda]]).cpu()
+    q = torch.stack([o["p_Gk"] for o, _ in outs["cpu"]])
+    assert float((p - q).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_capture_that_syncs_raises(cuda):
+    """A frame body that reads a tensor back to the host runs its first
+    (eager) frame, then its capture raises: nothing goes on eagerly."""
+    from rvio_tpu_torch.runtime.graph import FrameScan
+
+    def body(carry, f):
+        scale = float(f["x"].sum())           # a host sync
+        return carry + scale, {"y": carry * 2}
+
+    scan = FrameScan(body, cuda)
+    scan.load(torch.zeros(3, device=cuda))
+    with pytest.raises(RuntimeError):
+        scan.run({"x": torch.ones(4, 2, device=cuda)})
+    torch.cuda.synchronize()
+    assert scan.captures == []
+    assert torch.equal(scan.carry, torch.full((3,), 2.0, device=cuda))
+    # the process's later captures still work
+    ok = FrameScan(lambda c, f: (c + f["x"].sum(), {"y": c * 2}), cuda)
+    ok.load(torch.zeros(3, device=cuda))
+    out = ok.run({"x": torch.ones(4, 2, device=cuda)})
+    torch.cuda.synchronize()
+    assert [c["frames"] for c in ok.captures] == [1]
+    assert torch.equal(ok.carry, torch.full((3,), 8.0, device=cuda))
+    assert torch.equal(out["y"][:, 0].cpu(), torch.tensor([0.0, 4, 8, 12]))
