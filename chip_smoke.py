@@ -57,13 +57,25 @@ set to 0 just before it and read just after:
   frames eagerly, then graphed through the fused chunk scan, the
   front-end and back-end chunk scans, and ``ImagePipeline``, each against
   the eager run; every kernel's launches under replay as the path implies;
-- the file replay, this slice's main path: ``python -m rvio_tpu_torch.run
+- the file replay: ``python -m rvio_tpu_torch.run
   --euroc`` on the folder (in process): every kernel of the image path and
   K5 as often as the path implies, ATE below 0.05 m, the acceptance gates,
   the two .dat files one line a frame; then the replay against the
   rendered scan (300 frames, the same bytes), a bag of the first 200
   frames against the folder, and a run saved after 100 of them and
-  resumed against the uninterrupted run.
+  resumed against the uninterrupted run;
+- the segment-batched filter, this slice's main path:
+  ``make_batched_sequence_scan`` over 16 copies of the feature workload
+  (frames/s, ms a batched frame, capture seconds and graph pool bytes),
+  every filter kernel once a batched frame, every row bitwise the same,
+  row 0 within the card-vs-CPU limits of the graphed single scan; K1-K5
+  on frame 100 of 16 distinct segments of the workload (segment_plan,
+  warm starts), each against its plain version with its own bound (rows
+  ``<kernel>@B16`` of the kernels line), K5 also at B = 1, 4, 8, 15 and
+  its clusters' residency; then ``run_segments_warm`` on the card in f32
+  on tests/test_handoff.py's 300 s split with that test's gates, and the
+  same split with its last segment's body stripped of features, which
+  the repair pass (a B = 1 scan, a capture of its own) re-runs.
 
 The public drivers run their frames as replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), so the phases that drive them measure
@@ -158,6 +170,28 @@ ACCEPT_GATES = {"ransac_inlier_rate": (">", 0.80),
                 "gate_reject_rate": ("<", 0.50),
                 "track_len_mean": (">", 4.0)}
 N_USABLE_MIN = 10.0
+# the segment-batched filter: BATCH copies of the feature workload through
+# make_batched_sequence_scan (bench.py's batched_fps).  Row 0 against the
+# graphed single scan: two summation orders of one function (the batched
+# scan composes the window chain sequentially, the single scan in its
+# parallel form, and the batch changes the library calls' shapes), held to
+# the card-vs-CPU limits of PERF.md section 2
+BATCH = 16
+BATCH_GAP_POS_M = CPU_GAP_POS_M
+BATCH_GAP_ROT_RAD = CPU_GAP_ROT_RAD
+# the filter kernels' batch checks take the inputs of this frame of BATCH
+# distinct segments of the workload (segment_plan with this warm-up)
+BATCH_FRAME = 100
+BATCH_WARMUP = 40
+# K5's device time at these batch sizes (one cluster of 8 CTAs a system;
+# the card holds 15 such clusters at once: 15 is one wave, 16 two)
+K5_BATCHES = (1, 4, 8, 15, 16)
+# the warm split: tests/test_handoff.py TestWarmHandoff's case (small
+# config, 300 s, seed 5, 8 segments, warm-up 150) and its gates, in f32
+WARM_DURATION_S, WARM_SEED, WARM_SEGMENTS, WARM_WARMUP = 300.0, 5, 8, 150
+WARM_ATE_MARGIN_M = 0.05
+WARM_MAX_DEV_M = 0.6
+WARM_NGOOD_MIN = 3.0
 
 
 def _events_ms(run, reps: int) -> float:
@@ -1204,6 +1238,261 @@ def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
         raise AssertionError("graphed ImagePipeline and eager disagree")
 
 
+def _cut(bundles, n: int):
+    """The first n frames of (S, T, ...) bundles."""
+    from rvio_tpu_torch.state.filter_state import map_fields
+    return dataclasses.replace(
+        bundles, imu=map_fields(lambda x: x[:, :n], bundles.imu),
+        batch=map_fields(lambda x: x[:, :n], bundles.batch))
+
+
+def batched_phase(dev, sim, kernels) -> dict:
+    """The segment-batched filter: BATCH copies of the feature workload
+    through make_batched_sequence_scan (each frame of the batch one graph
+    replay), timed (the first run captures; the best of two more, each
+    ending in a readback of every frame's pose), every filter kernel once
+    a batched frame, every row bitwise the same, row 0 against the graphed
+    single scan.  Returns each filter kernel's launches."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import batch_copies, feature_bundles
+    from rvio_tpu_torch.runtime import (make_batched_sequence_scan,
+                                        make_sequence_scan)
+    from rvio_tpu_torch.state import stack_states
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    T = int(bundles.imu.w.shape[0])
+    states, bb = stack_states([state0] * BATCH), batch_copies(bundles, BATCH)
+    want = dict.fromkeys(kernels, 0)
+    want.update(dict.fromkeys(FILTER_KERNELS, T))
+    run = make_batched_sequence_scan(cfg, dev)
+
+    def timed():
+        _zero(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = run(states, bb)
+        float(out["p_Gk"].sum() + out["q_kG"].sum())   # every frame's pose
+        wall = time.perf_counter() - t0
+        launches = _launches(kernels)
+        if launches != want:
+            raise AssertionError(f"batched scan launches {launches}, "
+                                 f"expected {want} (one a batched frame)")
+        return wall, out
+
+    first_wall, _ = timed()
+    wall, out = min((timed() for _ in range(2)), key=lambda r: r[0])
+    differ = sorted(k for k, v in out.items()
+                    if not all(torch.equal(v[0], v[b]) for b in range(BATCH)))
+    _, one = make_sequence_scan(cfg, dev)(state0, bundles)
+    p0, p1 = (x.double().cpu().numpy() for x in (out["p_Gk"][0], one["p_Gk"]))
+    dp = float(np.abs(p0 - p1).max())
+    dq = rotation_gap(out["q_kG"][0].cpu().numpy(), one["q_kG"].cpu().numpy())
+    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+            for c in run.frame_scan.captures]
+    print(f"batched filter, B {BATCH} copies of the feature workload: "
+          f"{BATCH * T} frames in {wall:.3f} s = {BATCH * T / wall:.1f} "
+          f"frames/s, {wall * 1e3 / T:.3f} ms a batched frame ({T} of them; "
+          f"first run {first_wall:.3f} s), captures {caps} (frames, s, graph "
+          f"pool bytes); launches {dict((k, want[k]) for k in FILTER_KERNELS)}"
+          f" (one a batched frame); rows "
+          f"{'bitwise equal' if not differ else f'differ in {differ}'}; row "
+          f"0 against the graphed single scan: max position gap {dp:.3e} m "
+          f"(limit {BATCH_GAP_POS_M}), max attitude gap {dq:.3e} rad (limit "
+          f"{BATCH_GAP_ROT_RAD})", flush=True)
+    if differ:
+        raise AssertionError(f"batched rows differ: {differ}")
+    if not (dp < BATCH_GAP_POS_M and dq < BATCH_GAP_ROT_RAD):
+        raise AssertionError("batched row 0 and the single scan disagree")
+    return {k: want[k] for k in FILTER_KERNELS}
+
+
+def capture_batch_inputs(dev, sim):
+    """The filter kernels' inputs at frame BATCH_FRAME of BATCH distinct
+    segments of the workload: segment_plan's segments (segment 0 from the
+    static init, the others warm starts) through the masked segment scan,
+    eagerly on the card, recording each kernel wrapper's last call."""
+    from unittest import mock
+
+    import rvio_tpu_torch.filter.propagation as propagation
+    import rvio_tpu_torch.filter.update as update
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.parallel import make_masked_segment_scan, warm_segments
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    cfg_w, _, states, sb, sok, _ = warm_segments(
+        cfg, state0, bundles, BATCH, BATCH_WARMUP, torch.float32, dev)
+    captured = {}
+
+    def recorder(name, fn):
+        def record(*call_args, **kw):
+            captured[name] = [a.detach().clone() if torch.is_tensor(a) else a
+                              for a in call_args]
+            return fn(*call_args, **kw)
+        return record
+
+    n = BATCH_FRAME + 1
+    with eager_frames(), \
+            mock.patch.object(propagation, "propagate_block", recorder(
+                "propagate_block", propagation.propagate_block)), \
+            contextlib.ExitStack() as stack:
+        for name in ("lm_triangulate", "jac_project", "batched_quadform",
+                     "ekf_tail"):
+            stack.enter_context(mock.patch.object(
+                update, name, recorder(name, getattr(update, name))))
+        make_masked_segment_scan(cfg_w, dev)(states, _cut(sb, n), sok[:, :n])
+    torch.cuda.synchronize()
+    return cfg, captured
+
+
+def batch_kernel_phase(dev, sim, records, launches) -> None:
+    """K1-K5 at the batched filter's shapes on frame BATCH_FRAME of BATCH
+    segments (:func:`capture_batch_inputs`), each against its plain
+    version with its own bound (:func:`measure`); their rows join the
+    kernels line as ``<name>@B16`` with the batched phase's launches.  K5
+    also at B = 1 and 4 (its first systems), and its clusters' residency."""
+    from rvio_tpu_torch.ops import ekf_tail as k5
+    from rvio_tpu_torch.ops.checks import (ekf_tail_case, jac_case, lm_case,
+                                           propagate_case, quadform_case)
+    t0 = time.perf_counter()
+    cfg, cap = capture_batch_inputs(dev, sim)
+    print(f"batch checks: frame {BATCH_FRAME} of {BATCH} segments "
+          f"(warm-up {BATCH_WARMUP}) captured eagerly on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def host(xs):
+        return [x.cpu().numpy() if torch.is_tensor(x) else x for x in xs]
+
+    for x in host(cap["propagate_block"]) + host(cap["ekf_tail"]):
+        if not np.isfinite(x).all():
+            raise AssertionError("the captured batch inputs are not finite")
+    z, Rc, tc, tl = cap["lm_triangulate"]
+    C, b, P, sig2 = host(cap["ekf_tail"])
+    label = f" (frame {BATCH_FRAME} of {BATCH} segments)"
+    checks = [
+        propagate_case(cfg, dev, host(cap["propagate_block"]), what=label),
+        lm_case(dev, z, Rc, tc, tl, cfg.camera.sigma_image, what=label),
+        jac_case(dev, cap["jac_project"], what=label),
+        quadform_case(dev, *cap["batched_quadform"], what=label),
+        ekf_tail_case(dev, C, b, P, sig2, tol=EKF_TAIL_FRAME_TOL,
+                      what=f"frame {BATCH_FRAME} of {BATCH} segments")]
+    for chk in checks:
+        rec = measure(chk, f"@B{BATCH}{label}")
+        rec.update(name=f"{chk.name}@B{BATCH}", batch=BATCH,
+                   launches=launches[chk.name])
+        records.append((chk.kernel, rec))
+        if chk.name == TAIL_KERNEL:
+            n = C.shape[-1]
+            for nb in K5_BATCHES:
+                args = tuple(a[:nb].contiguous() for a in chk.args)
+                ms = device_ms(lambda: chk.kernel(*args), reps=200)
+                print(f"kernel {TAIL_KERNEL} at B {nb}: {ms * 1e3:.2f} us a "
+                      f"launch on the device ({nb * 8} CTAs)", flush=True)
+                rec[f"ms_b{nb}"] = ms
+            fit = k5.max_active_clusters(BATCH, n, dev)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            print(f"kernel {TAIL_KERNEL}: cudaOccupancyMaxActiveClusters "
+                  f"{fit} clusters of 8 CTAs at n {n} ({sms} SMs): B "
+                  f"{BATCH} runs in {-(-BATCH // max(fit, 1))} wave(s)",
+                  flush=True)
+            rec["max_active_clusters"] = fit
+
+
+def warm_split_phase(dev, kernels) -> None:
+    """The warm split on the card in f32: tests/test_handoff.py
+    TestWarmHandoff's case through run_segments_warm against the unsplit
+    graphed scan, with that test's gates; then the same split with the
+    last segment's body stripped of its features, so the repair pass runs
+    (its B = 1 scan, a capture of its own)."""
+    from rvio_tpu_torch import config as tconfig
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.parallel import run_segments_warm, segment_plan
+    from rvio_tpu_torch.runtime import make_sequence_scan
+    cfg = tconfig.RVIOConfig(
+        imu=tconfig.ImuConfig(rate_hz=100.0),
+        camera=tconfig.CameraConfig(fps=10.0),
+        tracker=tconfig.TrackerConfig(num_features=24, max_tracking_length=6,
+                                      min_tracking_length=3),
+        tpu=tconfig.TpuConfig(imu_block=16))
+    t0 = time.perf_counter()
+    sim = simulate_sequence(cfg, duration=WARM_DURATION_S, static_time=1.0,
+                            seed=WARM_SEED, meas_noise=5e-4, imu_noise=True)
+    state0, bundles, idx0 = feature_bundles(cfg, sim, dev)
+    T = int(bundles.imu.w.shape[0])
+    S, W = WARM_SEGMENTS, WARM_WARMUP
+    _, ok_plan, Bl = segment_plan(T, S, W)
+    gt = sim.gt_p[idx0:]
+    print(f"warm split: {WARM_DURATION_S:.0f} s simulated, {T} frames "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    _zero(kernels)
+    t0 = time.perf_counter()
+    _, out = make_sequence_scan(cfg, dev)(state0, bundles)
+    full = out["p_Gk"].double().cpu().numpy()
+    wall_full = time.perf_counter() - t0
+    ate_full = ate_rmse(full, gt)
+
+    def split(bd):
+        _zero(kernels)
+        t0 = time.perf_counter()
+        res = run_segments_warm(cfg, state0, bd, S, W, device=dev)
+        wall = time.perf_counter() - t0
+        repaired = res[2]["repaired_segments"]
+        want = dict.fromkeys(kernels, 0)
+        want.update(dict.fromkeys(FILTER_KERNELS,
+                                  (W + Bl) * (1 + len(repaired))))
+        if _launches(kernels) != want:
+            raise AssertionError(f"warm split launches {_launches(kernels)},"
+                                 f" expected {want}")
+        return res, wall
+
+    (stitched, outs, info), wall = split(bundles)
+    ate_split = ate_rmse(stitched, gt)
+    dev_max = float(np.linalg.norm(stitched - full, axis=1).max())
+    ng, ok = outs["n_good"].cpu().numpy(), outs["ok"].cpu().numpy()
+    ng_ok = [float(ng[s][ok[s]].mean()) for s in range(S)]
+    ng_body = [float(ng[s, W:][ok[s, W:]].mean()) for s in range(S)]
+    boots = ["static" if d is None else "fallback" if "rejected" in d
+             else f"bootstrap sigma_v {d['sigma_v']:.3f}"
+             for d in info["bootstrap_diags"]]
+    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+            for c in info["scan"].frame_scan.captures]
+    print(f"warm split, f32, {S} segments of {Bl} frames after a warm-up "
+          f"of {W} (the small config): unsplit ATE {ate_full:.4f} m "
+          f"({T} frames in {wall_full:.2f} s), split ATE {ate_split:.4f} m "
+          f"(limit {ate_full + WARM_ATE_MARGIN_M:.4f}), max split-vs-unsplit "
+          f"deviation {dev_max:.4f} m (limit {WARM_MAX_DEV_M}), n_good mean "
+          f"a segment {[round(x, 2) for x in ng_ok]} over its frames, "
+          f"{[round(x, 2) for x in ng_body]} over its body (limit "
+          f"{WARM_NGOOD_MIN}), repaired segments {info['repaired_segments']},"
+          f" starts {boots}; {S * (W + Bl)} segment-frames in {wall:.2f} s "
+          f"(bootstrap on the host included), captures {caps} (frames, s, "
+          f"graph pool bytes)", flush=True)
+    if not (ate_split <= ate_full + WARM_ATE_MARGIN_M
+            and dev_max < WARM_MAX_DEV_M
+            and min(ng_ok) > WARM_NGOOD_MIN and min(ng_body) > WARM_NGOOD_MIN
+            and np.isfinite(stitched).all()
+            and stitched.shape == full.shape):
+        raise AssertionError("the warm split misses a gate")
+
+    valid = bundles.batch.valid.clone()
+    valid[(S - 1) * Bl:] = False
+    stripped = dataclasses.replace(bundles, batch=dataclasses.replace(
+        bundles.batch, valid=valid))
+    (_, _, info2), wall2 = split(stripped)
+    if S - 1 not in info2["repaired_segments"] or info2["repair_scan"] is None:
+        raise AssertionError(f"the stripped segment was not repaired: "
+                             f"{info2['repaired_segments']}")
+    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+            for c in info2["repair_scan"].frame_scan.captures]
+    print(f"warm split, segment {S - 1}'s body stripped of its features: "
+          f"repaired segments {info2['repaired_segments']} in {wall2:.2f} s; "
+          f"the repair's B = 1 scan captures {caps} (frames, s, graph pool "
+          f"bytes)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1324,6 +1613,10 @@ def main() -> int:
         entries_phase(dev, sim_f, kernels, records, drv)
         replay_phase(dev, root, seq, kernels, records, tmp)
         replay_checks(dev, seq, kernels, scan, tmp)
+
+    batch_launches = batched_phase(dev, sim, kernels)
+    batch_kernel_phase(dev, sim, records, batch_launches)
+    warm_split_phase(dev, kernels)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

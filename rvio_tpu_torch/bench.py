@@ -12,9 +12,13 @@ sequence of seed 7 (2000 landmarks).  Prints ONE JSON line with bench.py's
 keys (``value`` is the feature path's frames/s through the graphed
 ``make_sequence_scan``, best of 3, each run ending in a readback of a sum
 over every frame's pose; ``vs_baseline`` against the reference's 20 Hz
-real-time rate) and the card's name and power limit.  The segment-batched
-rates (``batched_fps``, ``pipeline_batched_fps``) are null: the port has
-no batch axis yet.  ``BENCH_PIPELINE_ATE=0``, ``BENCH_STRESS=0`` and
+real-time rate) and the card's name and power limit.  ``batched_fps`` is
+bench.py's segment-batched rate: ``batch`` = 16 (``BENCH_BATCH``) copies
+of the feature workload through the graphed
+``make_batched_sequence_scan``, B·T frames over the wall of the best of 2
+runs, each ending in a readback of a sum over every frame's pose;
+``pipeline_batched_fps`` stays null until the tracker takes a batch axis.
+``BENCH_PIPELINE_ATE=0``, ``BENCH_STRESS=0`` and
 ``BENCH_LATENCY=0`` skip those parts, as in bench.py.  Without a CUDA
 device it exits 1 and prints no result.
 """
@@ -41,12 +45,13 @@ def _sim(cfg):
         n_landmarks=2000, motion_scale=0.8, meas_noise=0.001, imu_noise=True)
 
 
-def feature_bundles(cfg, sim, dev):
-    """The init state and the stacked bundles of every frame after it."""
+def feature_bundles(cfg, sim, dev, dtype=torch.float32):
+    """The init state and the stacked bundles of every frame after it
+    (bench.py's ``build_bundles``), in ``dtype`` on ``dev``."""
     from rvio_tpu_torch.filter.propagation import pad_imu
     from rvio_tpu_torch.runtime import (InitializationGate, SequenceDriver,
                                         bundle_imu)
-    gate = InitializationGate(cfg, torch.float32, dev)
+    gate = InitializationGate(cfg, dtype, dev)
     groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
     state, idx0 = None, None
     for k, (w, a, dts) in enumerate(groups):
@@ -61,7 +66,24 @@ def feature_bundles(cfg, sim, dev):
     rows = [(pad_imu(*groups[k], cfg.tpu.imu_block),
              (sim.feat_meas[k], sim.feat_len[k], sim.feat_type2[k],
               sim.feat_valid[k])) for k in range(idx0, len(sim.frame_t))]
-    return state, SequenceDriver(cfg, device=dev)._stack(rows), idx0
+    return state, SequenceDriver(cfg, dtype=dtype, device=dev)._stack(rows), idx0
+
+
+def batch_copies(bundles, B: int):
+    """B copies of stacked bundles, (B, T, ...) on their device (the
+    batched rate's workload, as bench.py stacks it)."""
+    from rvio_tpu_torch.filter.propagation import ImuBlock
+    from rvio_tpu_torch.filter.update import UpdateBatch
+    from rvio_tpu_torch.runtime import FrameBundle
+
+    def rep(x):
+        return x[None].expand((B,) + tuple(x.shape)).contiguous()
+
+    i, b = bundles.imu, bundles.batch
+    return FrameBundle(
+        imu=ImuBlock(w=rep(i.w), a=rep(i.a), dt=rep(i.dt), valid=rep(i.valid)),
+        batch=UpdateBatch(meas=rep(b.meas), track_len=rep(b.track_len),
+                          is_type2=rep(b.is_type2), valid=rep(b.valid)))
 
 
 def _sync_s() -> float:
@@ -101,6 +123,35 @@ def feature_path(cfg, sim, dev) -> dict:
             "synthetic_ate_m": ate_rmse(out["p_Gk"].cpu().numpy(),
                                         sim.gt_p[idx0:]),
             "n_good_mean": float(out["n_good"].double().mean())}
+
+
+def batched_path(cfg, sim, dev, B: int) -> dict:
+    """bench.py's batched rate: B copies of the feature workload through
+    ``make_batched_sequence_scan`` (every filter kernel once a frame for
+    the batch), B·T frames over the wall of the best of 2 runs, each
+    ending in a readback of a sum over every frame's pose."""
+    from rvio_tpu_torch.runtime import make_batched_sequence_scan
+    from rvio_tpu_torch.state import stack_states
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    n = int(bundles.imu.w.shape[0])
+    run = make_batched_sequence_scan(cfg, dev)
+    states, bb = stack_states([state0] * B), batch_copies(bundles, B)
+    t0 = time.perf_counter()
+    _, out = run(states, bb)
+    float(out["p_Gk"].sum())
+    first_s = time.perf_counter() - t0
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, out = run(states, bb)
+        float(out["p_Gk"].sum() + out["q_kG"].sum())   # every frame's pose
+        times.append(time.perf_counter() - t0)
+    caps = run.frame_scan.captures
+    return {"fps": B * n / min(times), "batch": B,
+            "ms_per_batched_frame": min(times) / n * 1e3,
+            "first_run_s": first_s,
+            "capture_s": sum(c["seconds"] for c in caps),
+            "pool_bytes": max((c["pool_bytes"] for c in caps), default=0)}
 
 
 def image_rates(cfg, sim, dev, idx0) -> dict:
@@ -237,6 +288,7 @@ def main() -> int:
     cfg = RVIOConfig()
     sim = _sim(cfg)
     feat = feature_path(cfg, sim, dev)
+    bat = batched_path(cfg, sim, dev, int(os.environ.get("BENCH_BATCH", "16")))
     idx0 = len(sim.frame_t) - feat["frames"]
     img = image_rates(cfg, sim, dev, idx0)
     ates = rendered_ates(cfg, sim, dev)
@@ -257,7 +309,10 @@ def main() -> int:
         "pipeline_ate_m": ates.get("pipeline_ate_m"),
         "pipeline_ate_stress_m": ates.get("pipeline_ate_stress_m"),
         "n_good_mean": feat["n_good_mean"],
-        "batched_fps": None, "batch": None,
+        "batched_fps": bat["fps"], "batch": bat["batch"],
+        "batched_ms_per_frame": bat["ms_per_batched_frame"],
+        "batched_capture_s": bat["capture_s"],
+        "batched_pool_bytes": bat["pool_bytes"],
         "frontend_fps": img["frontend_fps"],
         "frontend_inscan_ms": img["frontend_inscan_ms"],
         "pipeline_fps": img["pipeline_fps"],

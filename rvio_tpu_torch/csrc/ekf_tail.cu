@@ -744,6 +744,32 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
   }
 }
 
+// Sets the kernel's dynamic shared memory limit for size n on the current
+// device, once per device and size, outside any graph capture (the first
+// launch of a size runs eagerly).  Where setting it fails the error is
+// taken off the runtime's last-error state, or the next launch's check
+// would report it again.
+cudaError_t configure(int n, size_t* smem_out) {
+  static size_t configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats(n));
+  if (smem > configured[dev]) {
+    e = cudaFuncSetAttribute(ekf_tail_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+    configured[dev] = smem;
+  }
+  *smem_out = smem;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -753,30 +779,30 @@ int rvio_ekf_tail(const float* C, const float* b, const float* P,
                   int B, int n, cudaStream_t stream) {
   if (n < 1 || n > NMAX) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  // The shared-memory attribute is set once per device and size, outside
-  // any graph capture (the first launch of a size runs eagerly).  Where
-  // setting it fails the wrapper raises; the error is taken off the
-  // runtime's last-error state, or the next launch's check would report it
-  // again.
-  static size_t configured[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  size_t smem = 0;
+  const cudaError_t e = configure(n, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats(n));
-  if (smem > configured[dev]) {
-    e = cudaFuncSetAttribute(ekf_tail_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-    configured[dev] = smem;
-  }
   ekf_tail_kernel<<<B * CL, NT, smem, stream>>>(C, b, P, sig2, dx, Pn,
                                                 fallback, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many of the kernel's clusters of CL CTAs (at size n, B systems) can
+// be resident on the current device at once (cudaOccupancyMaxActiveClusters):
+// B systems above it run in more than one wave.  Launches nothing.
+int rvio_ekf_tail_max_clusters(int* out, int B, int n, cudaStream_t) {
+  if (n < 1 || n > NMAX || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  cudaError_t e = configure(n, &smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * CL);
+  config.blockDim = dim3(NT);
+  config.dynamicSmemBytes = smem;
+  e = cudaOccupancyMaxActiveClusters(out, ekf_tail_kernel, &config);
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -27,7 +27,8 @@ import torch
 from rvio_tpu_torch.core.quaternion import quat_to_rot, rot_to_quat
 from rvio_tpu_torch.device import resolve_device
 from rvio_tpu_torch.ops.propagate_block import propagate_block
-from rvio_tpu_torch.state.filter_state import FilterState
+from rvio_tpu_torch.state.filter_state import (FilterState, add_segment_axis,
+                                               drop_segment_axis)
 
 
 @dataclass
@@ -43,6 +44,7 @@ class ImuBlock:
     a: torch.Tensor      # (K, 3) linear acceleration [m/s^2]
     dt: torch.Tensor     # (K,)   per-sample integration interval [s]
     valid: torch.Tensor  # (K,)   bool mask (padding = False)
+    # (each field with the state's leading segment axis B, where it has one)
 
 
 def pad_imu(w: np.ndarray, a: np.ndarray, dt: np.ndarray, block_size: int):
@@ -84,28 +86,40 @@ def propagate(state: FilterState, imu: ImuBlock, *,
     (Rk, vk, gk); the state integrals then advance them.  Padding is masked
     by zeroing dt (an exact identity step); a frame with no valid sample
     keeps the previous relative pose and velocity.
+
+    A state with a segment axis B takes an ImuBlock with the same leading
+    axis ((B, K, 3), ...): K1 runs the B streams in one launch.  One
+    filter's state runs as a batch of one.
     """
+    if not state.batched:
+        return drop_segment_axis(propagate(
+            add_segment_axis(state), add_segment_axis(imu), gravity=gravity,
+            small_angle=small_angle, sigma_g=sigma_g, sigma_wg=sigma_wg,
+            sigma_a=sigma_a, sigma_wa=sigma_wa))
     dtype = state.dtype
     dte = torch.where(imu.valid, imu.dt, torch.zeros_like(imu.dt)).to(dtype)
     Rk, pk, vk, P24, Psi = propagate_block(
-        imu.w.to(dtype)[None], imu.a.to(dtype)[None], dte[None],
-        quat_to_rot(state.q_R)[None], state.v_R[None], state.g[None],
-        state.bg[None], state.ba[None], state.P[None, :24, :24].contiguous(),
+        imu.w.to(dtype).contiguous(), imu.a.to(dtype).contiguous(),
+        dte.contiguous(), quat_to_rot(state.q_R), state.v_R.contiguous(),
+        state.g.contiguous(), state.bg.contiguous(), state.ba.contiguous(),
+        state.P[:, :24, :24].contiguous(),
         gravity=gravity, small_angle=small_angle, sigma_g=sigma_g,
         sigma_wg=sigma_wg, sigma_a=sigma_a, sigma_wa=sigma_wa)
 
-    has_valid = torch.any(imu.valid)
-    qk = torch.where(has_valid, rot_to_quat(Rk[0]), state.q_R)
-    pk = torch.where(has_valid, pk[0], state.p_R)
-    vk = torch.where(has_valid, vk[0], state.v_R)
+    # per segment: a frame with no valid sample keeps its pose
+    has_valid = torch.any(imu.valid, dim=-1)[:, None]
+    qk = torch.where(has_valid, rot_to_quat(Rk), state.q_R)
+    pk = torch.where(has_valid, pk, state.p_R)
+    vk = torch.where(has_valid, vk, state.v_R)
 
     # Clone cross-covariance advances by the accumulated Psi once per frame
     # (PreIntegrator.cc:186-191); invalid clone cols are zero and stay zero.
     P = state.P
-    cross = Psi[0] @ P[:24, 24:]
-    P = torch.cat([torch.cat([P24[0], cross], dim=1),
-                   torch.cat([cross.T, P[24:, 24:]], dim=1)], dim=0)
-    P = 0.5 * (P + P.T)
+    cross = Psi @ P[:, :24, 24:]
+    P = torch.cat([torch.cat([P24, cross], dim=-1),
+                   torch.cat([cross.transpose(-1, -2), P[:, 24:, 24:]],
+                             dim=-1)], dim=-2)
+    P = 0.5 * (P + P.transpose(-1, -2))
 
     return FilterState(
         q_G=state.q_G, p_G=state.p_G, g=state.g,

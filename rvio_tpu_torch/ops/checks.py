@@ -12,7 +12,11 @@ these inputs (for the roofline bound: from the structure of the matrices,
 and only the samples, iterations, measurements and pixels this data uses;
 never the size of an argument the function reads in part), and, where one
 PyTorch call computes the same function, that call.  ``chip_smoke.py`` and
-the GPU tests run them.
+the GPU tests run them.  The case constructors (``propagate_case``,
+``lm_case``, ``jac_case``, ``quadform_case``, ``ekf_tail_case``) also take
+a real frame's inputs, and the segment-batched filter's shapes (B streams
+or systems, B·F feature rows): ``batch_checks`` on seeded inputs,
+chip_smoke.py on frame 100 of 16 segments.
 """
 
 from __future__ import annotations
@@ -183,38 +187,48 @@ def _lm_case(cfg, dev, rng) -> KernelCheck:
     F, L = cfg.tracker.max_update_features, cfg.tracker.max_tracking_length
     _, _, Rc, tc, _, z = _feature_geometry(cfg, rng, F, L)
     tl = rng.integers(2, L + 1, size=F)
+    return lm_case(dev, z, Rc, tc, tl, cfg.camera.sigma_image)
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    args = (t(z), t(Rc), t(tc), torch.as_tensor(tl, device=dev))
-    kwargs = dict(sigma_im=cfg.camera.sigma_image)
+def lm_case(dev, z, Rc, tc, tl, sigma_im: float, what: str = ""
+            ) -> KernelCheck:
+    """K2 on ``z`` (F, L, 2), ``Rc`` (F, L, 3, 3), ``tc`` (F, L, 3) and the
+    track lengths ``tl`` (F,) (arrays or tensors, taken as f32 and int64):
+    the ok flags identical, phi/psi/rho of the ok features within 1e-4."""
+    def t(x, dtype=np.float32):
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else x
+        return torch.as_tensor(np.asarray(x, dtype), device=dev)
+
+    args = (t(z), t(Rc), t(tc), t(tl, np.int64))
+    tl = _np(args[3]).astype(np.int64)
+    F = len(tl)
+    kwargs = dict(sigma_im=sigma_im)
     tol = 1e-4
 
     def compare(ko, po):
         ok = _np(po[3]).astype(bool)
         if not np.array_equal(_np(ko[3]).astype(bool), ok):
-            raise AssertionError("lm_triangulate: ok flags differ")
+            raise AssertionError(f"lm_triangulate: ok flags differ{what}")
         err = max(np.abs(_np(x) - _np(y))[ok].max(initial=0.0)
                   for x, y in zip(ko[:3], po[:3]))
         if not err <= tol:
-            _fail("lm_triangulate", "phi/psi/rho max abs", err, tol)
+            _fail("lm_triangulate", f"phi/psi/rho max abs{what}", err, tol)
         return float(err)
 
     # per iteration: 145 per measurement (chain point, projection, normal
     # equations), 90 for the damped 3x3 solve
     its = _np(k2.lm_iterations(*args, **kwargs))
-    flops = int((its * (145 * tl + 90)).sum())
+    flops = int((its * (145 * np.clip(tl, 0, None) + 90)).sum())
     # z, Rc, tc of each feature's tl measurements and tl in; phi, psi,
     # rho and ok out
-    read = F32 * 14 * int(tl.sum()) + I64 * F
+    read = F32 * 14 * int(np.clip(tl, 0, None).sum()) + I64 * F
     written = (3 * F32 + 1) * F
     return KernelCheck(
         "lm_triangulate", "rvio_tpu_torch/csrc/lm_triangulate.cu",
         "rvio_tpu/ops/lm_triangulate.py:177", k2.lm_triangulate,
         k2.lm_triangulate_plain, args, kwargs,
         "ok identical; phi/psi/rho max abs 1e-4", compare, float(flops),
-        read, written)
+        read, written, info={"features": F})
 
 
 def jac_inputs(cfg, rng, F: int, L: int, M: int, t_eff=None, c0=None):
@@ -323,22 +337,37 @@ def _quadform_case(cfg, dev, rng, bad_lane=7) -> KernelCheck:
     S = A @ np.transpose(A, (0, 2, 1)) + 1e-2 * np.eye(m)
     S[bad_lane] -= 2 * np.abs(np.linalg.eigvalsh(S[bad_lane])).max() * np.eye(m)
     r = rng.normal(size=(F, m))
+    return quadform_case(dev, S, r, nan_lanes=[bad_lane])
 
+
+def quadform_case(dev, S, r, nan_lanes=None, what: str = "") -> KernelCheck:
+    """K4 on ``S`` (F, m, m) and ``r`` (F, m) (arrays or tensors, taken
+    as f32): NaN in the same lanes as the plain version (exactly
+    ``nan_lanes`` where given), D within rtol 2e-3 elsewhere, and 0 where
+    the plain version's D is 0 (a lane with r = 0)."""
     def t(x):
+        x = x.detach().cpu().numpy() if torch.is_tensor(x) else x
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
+    args = (t(S), t(r))
+    F, m = args[1].shape
     tol = 2e-3   # f32 Cholesky; cond(S) reaches ~1e4 for these S
 
     def compare(ko, po):
         k, p = _np(ko), _np(po)
         nan = np.isnan(p)
-        if not (np.array_equal(np.isnan(k), nan) and nan[bad_lane]
-                and nan.sum() == 1):
-            raise AssertionError("batched_quadform: the indefinite lane must "
-                                 "be NaN and only it")
-        err = np.max(np.abs(k - p)[~nan] / np.abs(p[~nan]))
+        if not np.array_equal(np.isnan(k), nan) or (
+                nan_lanes is not None
+                and not np.array_equal(np.flatnonzero(nan), nan_lanes)):
+            raise AssertionError(f"batched_quadform: NaN lanes differ{what}")
+        zero = ~nan & (p == 0)
+        if not (k[zero] == 0).all():
+            raise AssertionError(f"batched_quadform: D not 0 where the plain "
+                                 f"version's is{what}")
+        live = ~nan & ~zero
+        err = np.max(np.abs(k - p)[live] / np.abs(p[live]), initial=0.0)
         if not err <= tol:
-            _fail("batched_quadform", "relative", err, tol)
+            _fail("batched_quadform", f"relative{what}", err, tol)
         return float(err)
 
     # Cholesky: the lower trailing update of step k, (m-k-1)(m-k) / 2 entries
@@ -351,9 +380,11 @@ def _quadform_case(cfg, dev, rng, bad_lane=7) -> KernelCheck:
     return KernelCheck(
         "batched_quadform", "rvio_tpu_torch/csrc/spd_solve.cu",
         "rvio_tpu/ops/spd_solve.py:75", k4.batched_quadform,
-        k4.batched_quadform_plain, (t(S), t(r)), {},
-        "rtol 2e-3; the indefinite lane NaN in both", compare, float(flops),
-        read, F32 * F, library=_quadform_library)
+        k4.batched_quadform_plain, args, {},
+        "rtol 2e-3; NaN lanes identical" + (
+            " (the indefinite lane)" if nan_lanes is not None else ""),
+        compare, float(flops), read, F32 * F, library=_quadform_library,
+        info={"features": F})
 
 
 # --- image front-end (K6, K8, K9, K13) ----------------------------------------
@@ -1082,19 +1113,25 @@ def scaled_cov_err(Pk: np.ndarray, Pp: np.ndarray) -> float:
 def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
                   scaled_tol: float = EKF_TAIL_SCALED_TOL) -> KernelCheck:
     """K5 on one system (numpy f32 arrays C (n, n), b (n,), P (D, D) and
-    the scalar sig2): kernel vs plain on the same inputs, the fallback
-    flags equal, NaN where the plain version is NaN, dx and P_new within
+    the scalar sig2) or on B systems (each with a leading axis B): kernel
+    vs plain on the same inputs, system by system the fallback flags
+    equal, NaN where the plain version is NaN, dx and P_new within
     ``tol`` of their largest entry, and P_new within ``scaled_tol`` of its
-    diagonal's scale (:func:`scaled_cov_err`).  The library yardstick is
-    the unfused chain (``cholesky_tail``), which the plain version runs."""
-    n, D = C.shape[0], P.shape[0]
+    diagonal's scale (:func:`scaled_cov_err`).  The library yardstick of
+    one system is the unfused chain (``cholesky_tail``), which the plain
+    version runs for each system."""
+    batched = np.ndim(C) == 3
+    n, D = np.shape(C)[-1], np.shape(P)[-1]
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32)[None], device=dev)
+        x = np.asarray(x, np.float32)
+        return torch.as_tensor(x if batched else x[None], device=dev)
 
-    args = (t(C), t(b), t(P), t(np.float32(sig2)))
-    fallback = bool(k5.ekf_tail_plain(*(a.cpu() for a in args))[2][0])
-    info = {"fallback": fallback}
+    args = (t(C), t(b), t(P), t(sig2))
+    flags = _np(k5.ekf_tail_plain(*(a.cpu() for a in args))[2]).astype(bool)
+    info = {"fallback": bool(flags.any())}
+    if batched:
+        info.update(systems=len(flags), wider_ridge=int(flags.sum()))
 
     def compare(ko, po):
         (dk, Pk, fk), (dp, Pp, fp) = ([_np(x) for x in o] for o in (ko, po))
@@ -1105,14 +1142,19 @@ def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
             if not np.array_equal(np.isnan(x), np.isnan(y)):
                 raise AssertionError(f"ekf_tail: {name} NaN where the plain "
                                      f"version is not, or the reverse")
-        if np.isnan(dp).all():
-            return 0.0
-        err = max(np.abs(dk - dp).max() / np.abs(dp).max(),
-                  np.abs(Pk - Pp).max() / np.abs(Pp).max())
+        err = scaled = 0.0
+        tiny = np.finfo(np.float32).tiny     # a system with dx = 0: absolute
+        for i in range(len(fp)):
+            if np.isnan(dp[i]).all():
+                continue
+            err = max(err, np.abs(dk[i] - dp[i]).max()
+                      / max(np.abs(dp[i]).max(), tiny),
+                      np.abs(Pk[i] - Pp[i]).max()
+                      / max(np.abs(Pp[i]).max(), tiny))
+            scaled = max(scaled, scaled_cov_err(Pk[i], Pp[i]))
         if not err <= tol:
             _fail("ekf_tail", "dx/P_new max abs relative to the largest entry",
                   err, tol)
-        scaled = scaled_cov_err(Pk, Pp)
         info["P_new scaled by its diagonal"] = f"{scaled:.3e}"
         if not scaled <= scaled_tol:
             _fail("ekf_tail", "P_new error scaled by sqrt(P_ii P_jj)", scaled,
@@ -1128,9 +1170,10 @@ def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
         "rvio_tpu/ops/ekf_tail.py:256", k5.ekf_tail, k5.ekf_tail_plain, args,
         {}, f"{what}: fallback identical, NaN identical, dx and P_new max abs "
         f"{tol:.0e} of their largest entry, P_new {scaled_tol:.0e} scaled by "
-        f"its diagonal", compare,
-        float(ekf_tail_flops(n, D, fallback)), read, written, library=library,
-        info=info)
+        f"its diagonal" + (", system by system" if batched else ""), compare,
+        float(sum(ekf_tail_flops(n, D, f) for f in flags)),
+        read * len(flags), written * len(flags),
+        library=None if batched else library, info=info)
 
 
 def ekf_tail_stack(rng, M: int, n_rows: int, masked_frac: float = 0.5,
@@ -1194,3 +1237,46 @@ def kernel_checks(device, seed: int = 0) -> List[KernelCheck]:
             _shi_case(cfg, dev, rng), _aligned_tile_case(cfg, dev, rng),
             ekf_tail_case(dev, *ekf_tail_stack(rng, cfg.window_size, 3000),
                           tol=2e-5, what="seeded stack")]
+
+
+# segments of the batched filter's checks (bench.py's batched_fps batch)
+BATCH = 16
+
+
+def batch_checks(device, B: int = BATCH, seed: int = 0) -> List[KernelCheck]:
+    """The filter kernels at the segment-batched filter's shapes, on seeded
+    inputs: K1 for B streams (each its own count of valid samples), K2, K3
+    and K4 on B·F feature rows, K5 for B systems (each a seeded stack of
+    :func:`ekf_tail_stack`, at its tolerance)."""
+    cfg = RVIOConfig()
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    K, M = cfg.tpu.imu_block, cfg.window_size
+    F, L = cfg.tracker.max_update_features * B, cfg.tracker.max_tracking_length
+    streams = []
+    for _ in range(B):
+        A = rng.normal(size=(24, 24)) * 0.01
+        ax = rng.normal(size=3)
+        g = np.array([0.05, -0.02, 0.998]) + rng.normal(size=3) * 0.01
+        streams.append([
+            rng.normal(size=(K, 3)) * 0.4,
+            rng.normal(size=(K, 3)) * 2.0 + [0, 0, 9.8],
+            np.where(np.arange(K) < rng.integers(1, K + 1), 0.005, 0.0),
+            rodrigues_np(ax / np.linalg.norm(ax), 1.0), rng.normal(size=3),
+            g / np.linalg.norm(g), rng.normal(size=3) * 0.01,
+            rng.normal(size=3) * 0.05, A @ A.T + np.eye(24) * 1e-4])
+    k1 = propagate_case(cfg, dev, [np.stack(x) for x in zip(*streams)],
+                        what=f" (B = {B})")
+    _, _, Rc, tc, _, z = _feature_geometry(cfg, rng, F, L)
+    k2 = lm_case(dev, z, Rc, tc, rng.integers(2, L + 1, size=F),
+                 cfg.camera.sigma_image, what=f" (B·F = {F})")
+    k3 = jac_case(dev, jac_inputs(cfg, rng, F, L, M), what=f" (B·F = {F})")
+    A = rng.normal(size=(F, 2 * L, 2 * L))
+    S = A @ np.transpose(A, (0, 2, 1)) + 1e-2 * np.eye(2 * L)
+    k4 = quadform_case(dev, S, rng.normal(size=(F, 2 * L)),
+                       what=f" (B·F = {F})")
+    stacks = [ekf_tail_stack(rng, M, 3000) for _ in range(B)]
+    k5 = ekf_tail_case(dev, *(np.stack(x) for x in zip(*stacks)), tol=2e-5,
+                       what=f"seeded stacks, B = {B}")
+    return [k1, k2, k3, k4, k5]
+

@@ -9,7 +9,8 @@ rn = Lc^-1 b and Hn = [0 | Lc^T] (Updater.cc:460-536); S = Hn P Hn^T +
 sig2 I, K = P Hn^T S^-1, dx = K rn and the Joseph-form
 P_new = (I - K Hn) P (I - K Hn)^T + sig2 K K^T (Updater.cc:538-619).
 
-Inputs carry a leading batch axis B (B = 1 for one filter): C (B, n, n),
+Inputs carry a leading batch axis B (B = 1 for one filter, one system a
+segment in the segment-batched filter): C (B, n, n),
 b (B, n), P (B, D, D) with D = 24 + n, sig2 (B,).  Returns (dx (B, D),
 P_new (B, D, D), fallback (B,) bool).  ``fallback`` says that the factor
 took the wider ridge (see :func:`info_cholesky`).
@@ -95,19 +96,26 @@ def ekf_correction(P: torch.Tensor, Hn_cl: torch.Tensor, rn: torch.Tensor,
                    sig2) -> Tuple[torch.Tensor, torch.Tensor]:
     """The EKF core for a compressed system (Updater.cc:538-619): the
     correction dx and the symmetrized Joseph-form covariance, given the
-    clone-block rows Hn_cl (k, D - 24), rn (k,) and the variance sig2."""
+    clone-block rows Hn_cl (..., k, D - 24), rn (..., k) and the variance
+    sig2 (a scalar or (...)), for any leading axes (one system, or one a
+    segment)."""
     dtype, dev = P.dtype, P.device
     D = P.shape[-1]
-    Hn = torch.cat([torch.zeros(Hn_cl.shape[0], NX, dtype=dtype, device=dev),
-                    Hn_cl], dim=1)                     # (k, D)
-    PHt = P @ Hn.T                                     # (D, k)
-    S = Hn @ PHt + sig2 * torch.eye(Hn.shape[0], dtype=dtype, device=dev)
-    S = 0.5 * (S + S.T)
-    K = torch.cholesky_solve(PHt.T, nan_cholesky(S)).T  # (D, k)
-    dx = K @ rn
+    k = Hn_cl.shape[-2]
+    sig2 = torch.as_tensor(sig2, dtype=dtype, device=dev)[..., None, None]
+    Hn = torch.cat([torch.zeros(Hn_cl.shape[:-1] + (NX,), dtype=dtype,
+                                device=dev), Hn_cl], dim=-1)   # (..., k, D)
+    HnT = Hn.transpose(-1, -2)
+    PHt = P @ HnT                                              # (..., D, k)
+    S = Hn @ PHt + sig2 * torch.eye(k, dtype=dtype, device=dev)
+    S = 0.5 * (S + S.transpose(-1, -2))
+    K = torch.cholesky_solve(PHt.transpose(-1, -2), nan_cholesky(S)
+                             ).transpose(-1, -2)               # (..., D, k)
+    dx = (K @ rn[..., None])[..., 0]
     I_KH = torch.eye(D, dtype=dtype, device=dev) - K @ Hn
-    P_new = I_KH @ P @ I_KH.T + sig2 * (K @ K.T)
-    return dx, 0.5 * (P_new + P_new.T)
+    P_new = (I_KH @ P @ I_KH.transpose(-1, -2)
+             + sig2 * (K @ K.transpose(-1, -2)))
+    return dx, 0.5 * (P_new + P_new.transpose(-1, -2))
 
 
 def cholesky_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor, sig2
@@ -160,3 +168,16 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
 
 
 ekf_tail.launches = 0
+
+
+def max_active_clusters(B: int, n: int, device) -> int:
+    """How many of K5's clusters (one a system) the CUDA ``device`` holds
+    at once at size ``n`` (``cudaOccupancyMaxActiveClusters``): B systems
+    above it run in more than one wave.  Launches nothing."""
+    fn = _lib.function(_LIB, "rvio_ekf_tail_max_clusters",
+                       [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _lib.call(_LIB, fn, ctypes.byref(out), B, n,
+                  device=torch.device(device))
+    return out.value

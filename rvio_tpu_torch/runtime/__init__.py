@@ -16,12 +16,14 @@ from rvio_tpu_torch.runtime.image_driver import (ImagePipeline,
                                                  run_rendered_sequence_scan)
 from rvio_tpu_torch.runtime.input_buffer import InputBuffer
 from rvio_tpu_torch.runtime.online import OnlineDriver
-from rvio_tpu_torch.runtime.step import (FrameBundle, make_filter_step,
-                                         make_sequence_scan)
+from rvio_tpu_torch.runtime.step import (FrameBundle,
+                                         make_batched_sequence_scan,
+                                         make_filter_step, make_sequence_scan)
 
 __all__ = ["DriverResult", "FrameBundle", "ImagePipeline", "InitializationGate",
            "InputBuffer", "OnlineDriver", "SequenceDriver", "batches_from_sim",
            "bundle_imu", "load_checkpoint", "make_backend_chunk_scan",
+           "make_batched_sequence_scan",
            "make_filter_step", "make_frontend_chunk_scan",
            "make_image_chunk_scan", "make_sequence_scan", "run_euroc_sequence",
            "run_euroc_sequence_scan", "run_rendered_sequence_scan",

@@ -5,6 +5,7 @@ from rvio_tpu_torch.state.filter_state import (
     StateIndex,
     clone_err_slice,
     make_initial_state,
+    stack_states,
     state_from_numpy,
     state_to_numpy,
     static_initialize,
@@ -13,6 +14,6 @@ from rvio_tpu_torch.state.window import augment_window, compose_state
 
 __all__ = [
     "FilterState", "StateIndex", "clone_err_slice", "make_initial_state",
-    "state_from_numpy", "state_to_numpy", "static_initialize",
+    "stack_states", "state_from_numpy", "state_to_numpy", "static_initialize",
     "augment_window", "compose_state",
 ]

@@ -23,11 +23,17 @@ identity.
 
 ``n_clones`` and ``frame_idx`` are 0-d int64 tensors on the state's device,
 so the per-frame step never reads them on the host.
+
+Every field may carry one leading segment axis B (B filters advancing in
+lockstep, rvio_tpu_torch/runtime/step.py make_batched_sequence_scan): the
+filter stages run on such a state as they run on one filter, and
+:func:`stack_states` builds it from B states.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -54,7 +60,9 @@ class StateIndex:
 
 @dataclass
 class FilterState:
-    """Filter state; every field a tensor on one device.
+    """Filter state; every field a tensor on one device, each with the
+    same leading segment axis B or none (the shapes below are one
+    filter's).
 
     Treated as immutable: the filter stages return new states.
     """
@@ -79,11 +87,16 @@ class FilterState:
 
     @property
     def max_clones(self) -> int:
-        return self.clones.shape[0]
+        return self.clones.shape[-2]
 
     @property
     def err_dim(self) -> int:
-        return self.P.shape[0]
+        return self.P.shape[-1]
+
+    @property
+    def batched(self) -> bool:
+        """Whether the fields carry a leading segment axis."""
+        return self.P.dim() == 3
 
     @property
     def dtype(self):
@@ -97,9 +110,37 @@ class FilterState:
 _INT_FIELDS = ("n_clones", "frame_idx")
 
 
+def map_fields(fn: Callable, obj):
+    """``fn`` over every field of a dataclass of tensors (a FilterState,
+    an ImuBlock, an UpdateBatch); a new instance."""
+    return replace(obj, **{f.name: fn(getattr(obj, f.name))
+                           for f in fields(obj)})
+
+
+def add_segment_axis(obj):
+    """One filter's dataclass of tensors as a batch of one (B = 1)."""
+    return map_fields(lambda x: x.unsqueeze(0), obj)
+
+
+def drop_segment_axis(obj):
+    """The only segment of a batch of one, as one filter's (views)."""
+    return map_fields(lambda x: x.squeeze(0), obj)
+
+
+def stack_states(states: Sequence[FilterState]) -> FilterState:
+    """Stack per-segment FilterStates along a new leading axis (the port
+    of rvio_tpu/parallel/segment.py ``stack_states``)."""
+    return FilterState(**{f.name: torch.stack([getattr(s, f.name)
+                                               for s in states])
+                          for f in fields(FilterState)})
+
+
 def state_from_numpy(d: dict, device, dtype=torch.float32) -> FilterState:
     """FilterState from a dict of arrays keyed by the JAX FilterState's
-    field names (rvio_tpu/state/filter_state.py), on ``device``."""
+    field names (rvio_tpu/state/filter_state.py), on ``device``.  The
+    arrays may carry a leading segment axis (a stack of JAX states, as
+    rvio_tpu/parallel/segment.py ``stack_states`` builds it): the state is
+    then a batch of as many filters."""
     kw = {}
     for f in fields(FilterState):
         v = np.asarray(d[f.name])
@@ -113,7 +154,8 @@ def state_from_numpy(d: dict, device, dtype=torch.float32) -> FilterState:
 
 def state_to_numpy(state: FilterState) -> dict:
     """Dict of host arrays with the JAX FilterState's field names
-    (integer counters as int32, as there)."""
+    (integer counters as int32, as there), with the state's segment axis
+    where it has one."""
     out = {}
     for f in fields(FilterState):
         v = getattr(state, f.name).detach().cpu().numpy()

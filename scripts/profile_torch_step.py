@@ -2,14 +2,18 @@
 """Where the port's per-frame path spends its time on a CUDA card.
 
     python3 scripts/profile_torch_step.py [--graph] [--image
-        [--no-equalizer]] [--frames 200] [--trace PATH]
+        [--no-equalizer] | --batch B] [--frames 200] [--trace PATH]
 
 Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
 ``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
 feature-level filter.  With ``--image``: ``run_rendered_sequence_scan`` on
 the same workload's rendered 752 x 480 frames, images -> poses at
 ``RVIOConfig()`` (CLAHE on; ``--no-equalizer`` turns it off), with its
-front-end/back-end split.  The frames run eagerly, one launch after
+front-end/back-end split.  With ``--batch B``: B copies of the feature
+workload through ``make_batched_sequence_scan`` (bench.py's batched
+rate), a frame of the B segments per step; it also times the graph's
+replays alone (the host's enqueue time against the device's time a
+frame).  The frames run eagerly, one launch after
 another from the host (chip_smoke.eager_frames), unless ``--graph``: then
 as the drivers run them, replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), whose capture happens in the whole run
@@ -93,6 +97,9 @@ def main() -> int:
                     help="with --image: CLAHE off (the PR 3 workload)")
     ap.add_argument("--graph", action="store_true",
                     help="the drivers' graphed frames (default: eager)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="B copies of the feature workload in the batched "
+                    "scan")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
     a = ap.parse_args()
@@ -106,26 +113,98 @@ def main() -> int:
     print("workload: " + ("images -> poses, CLAHE "
                           + ("off" if a.no_equalizer else "on")
                           if a.image else "feature-level filter")
+          + (f", {a.batch} segments a frame" if a.batch else "")
           + ("; frames graphed" if a.graph else "; frames eager"),
           flush=True)
     from chip_smoke import eager_frames
     with _scans_kept() if a.graph else eager_frames():
-        return _profile(a)
+        return _profile_batched(a) if a.batch else _profile(a)
+
+
+def _workload(cfg):
+    from rvio_tpu_torch.dataio import simulate_sequence
+    return simulate_sequence(cfg, duration=60.0, static_time=1.5,
+                             ramp_time=5.0, seed=7, n_landmarks=2000,
+                             motion_scale=0.8, meas_noise=0.001,
+                             imu_noise=True)
+
+
+def _profile_batched(a) -> int:
+    """The batched feature path: whole runs timed, then a window of the
+    first ``--frames`` batched frames profiled."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import batch_copies, feature_bundles
+    from rvio_tpu_torch.ops import _lib
+    from rvio_tpu_torch.runtime import make_batched_sequence_scan
+    from rvio_tpu_torch.state import stack_states
+    from rvio_tpu_torch.state.filter_state import map_fields
+    _lib.build()
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, _workload(cfg), "cuda")
+    T = int(bundles.imu.w.shape[0])
+    states = stack_states([state0] * a.batch)
+    bb = batch_copies(bundles, a.batch)
+    run = make_batched_sequence_scan(cfg, "cuda")
+
+    def timed(b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = run(states, b)
+        float(out["p_Gk"].sum())
+        return time.perf_counter() - t0
+
+    timed(bb)                                                # warm-up
+    walls = [timed(bb) for _ in range(4)]
+    wall = min(walls)
+    loop_ms = wall * 1e3 / T
+    print(f"whole run: {a.batch} x {T} frames, best {wall:.3f} s = "
+          f"{a.batch * T / wall:.1f} frames/s end to end "
+          f"({', '.join(f'{a.batch * T / w:.1f}' for w in walls)}); "
+          f"{loop_ms:.3f} ms a batched frame", flush=True)
+    # the replays alone: the host's time to enqueue one against the
+    # device's time a frame (CUDA events on the graph stream)
+    from rvio_tpu_torch.runtime.graph import device_stream
+    fs, (stream, _) = run.frame_scan, device_stream(torch.device("cuda", 0))
+    for _ in range(3):
+        fs._cursor.zero_()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.stream(stream):
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(T):
+                fs._replay(1)
+            t1 = time.perf_counter()
+            e1.record()
+        torch.cuda.synchronize()
+        print(f"replays: {(t1 - t0) / T * 1e3:.4f} ms of host time to "
+              f"enqueue one, {e0.elapsed_time(e1) / T:.4f} ms of device "
+              f"time a batched frame", flush=True)
+    m = min(a.frames, T)
+    win = dataclasses.replace(
+        bb, imu=map_fields(lambda x: x[:, :m], bb.imu),
+        batch=map_fields(lambda x: x[:, :m], bb.batch))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w = timed(win)
+    _report(a, prof, w, m, loop_ms)
+    return 0
 
 
 def _profile(a) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from rvio_tpu_torch import RVIOConfig
-    from rvio_tpu_torch.dataio import simulate_sequence
     from rvio_tpu_torch.eval.ate import ate_rmse
     from rvio_tpu_torch.ops import _lib
     from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
     _lib.build()
     cfg = RVIOConfig()
-    sim = simulate_sequence(cfg, duration=60.0, static_time=1.5,
-                            ramp_time=5.0, seed=7, n_landmarks=2000,
-                            motion_scale=0.8, meas_noise=0.001, imu_noise=True)
+    sim = _workload(cfg)
     if a.image:
         run = _image_runner(cfg, sim, not a.no_equalizer)
     else:
@@ -162,7 +241,13 @@ def _profile(a) -> int:
         win = run(k_end)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    m = len(win.timestamps)
+    _report(a, prof, wall, len(win.timestamps), loop_ms)
+    return 0
+
+
+def _report(a, prof, wall: float, m: int, loop_ms: float) -> None:
+    """The profiled window of ``m`` frames that took ``wall`` s: device
+    busy time and launches a frame, the port's kernels, the top rows."""
     # device-side rows only (kernels, memcpy, memset); the aten rows carry
     # their kernels' device time too and would count it twice
     dev_us = {e.key: (e.device_time_total, e.count)
@@ -192,7 +277,6 @@ def _profile(a) -> int:
         Path(a.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(a.trace)
         print(f"trace: {a.trace}")
-    return 0
 
 
 if __name__ == "__main__":

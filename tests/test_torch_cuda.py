@@ -37,7 +37,11 @@ graphed sequence scan (1 and 8 frames a graph) and the graphed image
 chunk scans (fused, front then back) bitwise with the eager frames, every
 kernel's launches under replay, two graphs that hold K8 replayed in turn
 on the graph stream, ImagePipeline's outputs not aliased across frames,
-and a capture that meets a host sync raising.  Whether a
+and a capture that meets a host sync raising; the segment-batched filter:
+K1-K5 at its shapes against their plain versions, the graphed batched
+scan against single scans with one launch a batched frame, the masked
+scan keeping a masked segment's state, and the warm split with its
+repair pass.  Whether a
 card is present is decided in the fixture, so every process collects the
 same tests.
 """
@@ -1723,3 +1727,158 @@ def test_capture_that_syncs_raises(cuda):
     assert [c["frames"] for c in ok.captures] == [1]
     assert torch.equal(ok.carry, torch.full((3,), 8.0, device=cuda))
     assert torch.equal(out["y"][:, 0].cpu(), torch.tensor([0.0, 4, 8, 12]))
+
+
+# ---- the segment-batched filter ----
+
+BATCH_NAMES = ["propagate_block", "lm_triangulate", "jac_project",
+               "batched_quadform", "ekf_tail"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", BATCH_NAMES)
+def test_batch_kernel_matches_plain(cuda, name):
+    """K1-K5 at the batched filter's shapes (16 streams, 1600 feature rows,
+    16 systems) against their plain versions, one launch each."""
+    from rvio_tpu_torch.ops.checks import batch_checks
+    chk = {c.name: c for c in batch_checks(cuda)}[name]
+    before = chk.kernel.launches
+    chk.check()
+    torch.cuda.synchronize()
+    assert chk.kernel.launches == before + chk.check_launches
+
+
+def _segments(cuda, seeds=(3, 4, 5)):
+    """Three feature sequences on the card, cut to one length: their
+    initial states and stacked bundles."""
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.dataio import simulate_sequence
+    cfg = _feature_cfg()
+    cfg = cfg.replace(tpu=cfg.tpu.__class__(imu_block=16,
+                                            parallel_propagation=False))
+    built = [feature_bundles(cfg, simulate_sequence(
+        cfg, duration=8.0, static_time=1.0, seed=s, meas_noise=5e-4,
+        imu_noise=True), cuda) for s in seeds]
+    T = min(int(b.imu.w.shape[0]) for _, b, _ in built)
+    return cfg, [s for s, _, _ in built], [_frames(b, T) for _, b, _ in built]
+
+
+def _frames(bundles, n):
+    from rvio_tpu_torch.state.filter_state import map_fields
+    return bundles.__class__(imu=map_fields(lambda x: x[:n], bundles.imu),
+                             batch=map_fields(lambda x: x[:n], bundles.batch))
+
+
+def _stack_bundles(bundles):
+    from rvio_tpu_torch.runtime.graph import tree_leaves
+    from rvio_tpu_torch.filter.propagation import ImuBlock
+    from rvio_tpu_torch.filter.update import UpdateBatch
+    x = [torch.stack(v) for v in zip(*(tree_leaves(b) for b in bundles))]
+    return bundles[0].__class__(imu=ImuBlock(*x[:4]),
+                                batch=UpdateBatch(*x[4:]))
+
+
+@pytest.mark.gpu
+def test_batched_scan_matches_single_scans(cuda):
+    """Three segments in one graphed batched scan against each one's
+    graphed single scan on the card (the same window chain form; the
+    batch changes the library calls' shapes): positions within 1e-4 m,
+    attitudes 1e-5 rad, and the same update decisions; each filter kernel
+    launches once a batched frame under replay, in two runs."""
+    from rvio_tpu_torch.runtime import (make_batched_sequence_scan,
+                                        make_sequence_scan)
+    from rvio_tpu_torch.state import stack_states
+    cfg, states, bundles = _segments(cuda)
+    T = int(bundles[0].imu.w.shape[0])
+    run = make_batched_sequence_scan(cfg, cuda)
+    wrappers = _wrappers()
+    for _ in range(2):
+        for w in wrappers.values():
+            w.launches = 0
+        final, out = run(stack_states(states), _stack_bundles(bundles))
+        torch.cuda.synchronize()
+        assert {k: wrappers[k].launches for k in FILTER_WRAPPERS} == \
+            dict.fromkeys(FILTER_WRAPPERS, T)
+        assert all(v == 0 for k, v in ((k, w.launches)
+                                       for k, w in wrappers.items())
+                   if k not in FILTER_WRAPPERS)
+    assert [c["frames"] for c in run.frame_scan.captures] == [1]
+    single = make_sequence_scan(cfg, cuda)
+    for s, (st, bd) in enumerate(zip(states, bundles)):
+        _, one = single(st, bd)
+        gap = float((out["p_Gk"][s] - one["p_Gk"]).abs().max())
+        assert gap < 1e-4, (s, gap)
+        dq = (out["q_kG"][s] - one["q_kG"]).abs().max()
+        assert float(dq) < 1e-5, s
+        assert torch.equal(out["did_update"][s], one["did_update"])
+        assert int(final.frame_idx[s]) == int(st.frame_idx) + T
+
+
+@pytest.mark.gpu
+def test_masked_scan_keeps_masked_segments(cuda):
+    """The graphed masked segment scan: a segment whose frames are all
+    masked keeps its state bitwise; the others run as the batched scan."""
+    from rvio_tpu_torch.parallel import make_masked_segment_scan
+    from rvio_tpu_torch.runtime import make_batched_sequence_scan
+    from rvio_tpu_torch.runtime.graph import tree_leaves
+    from rvio_tpu_torch.state import stack_states
+    cfg, states, bundles = _segments(cuda)
+    T = int(bundles[0].imu.w.shape[0])
+    ok = torch.ones(3, T, dtype=torch.bool, device=cuda)
+    ok[1] = False
+    start = stack_states(states)
+    final, out = make_masked_segment_scan(cfg, cuda)(
+        start, _stack_bundles(bundles), ok)
+    ref, rout = make_batched_sequence_scan(cfg, cuda)(
+        start, _stack_bundles(bundles))
+    torch.cuda.synchronize()
+    for x, y, z in zip(tree_leaves(final), tree_leaves(start),
+                       tree_leaves(ref), strict=True):
+        assert torch.equal(x[1], y[1])
+        assert torch.equal(x[0], z[0]) and torch.equal(x[2], z[2])
+    assert torch.equal(out["ok"], ok)
+    assert torch.equal(out["p_Gk"][0], rout["p_Gk"][0])
+
+
+@pytest.mark.gpu
+def test_warm_split_on_card(cuda):
+    """run_segments_warm on the card in f32 (40 s, 4 segments, warm-up
+    60): finite, within 0.05 m of the unsplit scan's ATE, every segment
+    updating, and the repair pass's B = 1 scan where a segment's body has
+    no features."""
+    import dataclasses
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.config import (CameraConfig, ImuConfig, RVIOConfig,
+                                       TpuConfig, TrackerConfig)
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.parallel import run_segments_warm, segment_plan
+    from rvio_tpu_torch.runtime import make_sequence_scan
+    cfg = RVIOConfig(imu=ImuConfig(rate_hz=100.0),
+                     camera=CameraConfig(fps=10.0),
+                     tracker=TrackerConfig(num_features=24,
+                                           max_tracking_length=6,
+                                           min_tracking_length=3),
+                     tpu=TpuConfig(imu_block=16))
+    sim = simulate_sequence(cfg, duration=40.0, static_time=1.0, seed=5,
+                            meas_noise=5e-4, imu_noise=True)
+    state0, bundles, idx0 = feature_bundles(cfg, sim, cuda)
+    gt = sim.gt_p[idx0:]
+    _, full = make_sequence_scan(cfg, cuda)(state0, bundles)
+    stitched, outs, info = run_segments_warm(cfg, state0, bundles, 4, 60,
+                                             device=cuda)
+    assert np.isfinite(stitched).all() and stitched.shape == (len(gt), 3)
+    assert ate_rmse(stitched, gt) <= ate_rmse(
+        full["p_Gk"].double().cpu().numpy(), gt) + 0.05
+    ng, ok = outs["n_good"].cpu().numpy(), outs["ok"].cpu().numpy()
+    assert all(ng[s][ok[s]].mean() > 3.0 for s in range(4))
+    assert info["repaired_segments"] == [] and info["repair_scan"] is None
+    _, _, B = segment_plan(len(gt), 4, 60)
+    valid = bundles.batch.valid.clone()
+    valid[3 * B:] = False
+    stripped = dataclasses.replace(bundles, batch=dataclasses.replace(
+        bundles.batch, valid=valid))
+    _, _, info = run_segments_warm(cfg, state0, stripped, 4, 60, device=cuda)
+    assert info["repaired_segments"] == [3]
+    assert [c["frames"] for c in info["repair_scan"].frame_scan.captures] \
+        == [1]

@@ -132,7 +132,9 @@ def test_entry_point_refuses_missing_cuda():
 @pytest.mark.parametrize("build", ["gate", "initial_state", "static_init",
                                    "imu_block", "tracker", "image_driver",
                                    "image_pipeline", "online_driver",
-                                   "euroc_scan", "euroc_per_frame"])
+                                   "euroc_scan", "euroc_per_frame",
+                                   "batched_scan", "masked_scan",
+                                   "segments_warm", "warm_init"])
 def test_public_builders_default_to_cuda(build):
     """Every public function that makes tensors means CUDA by default and
     raises without it, as SequenceDriver does."""
@@ -144,6 +146,9 @@ def test_public_builders_default_to_cuda(build):
                                         OnlineDriver, run_euroc_sequence,
                                         run_euroc_sequence_scan,
                                         run_rendered_sequence_scan)
+    from rvio_tpu_torch.parallel import (make_masked_segment_scan,
+                                         run_segments_warm, warm_initialize)
+    from rvio_tpu_torch.runtime import make_batched_sequence_scan
     from rvio_tpu_torch.state import make_initial_state, static_initialize
     z3 = np.zeros((4, 3))
     calls = {
@@ -163,6 +168,13 @@ def test_public_builders_default_to_cuda(build):
         # the device is resolved before the sequence is read
         "euroc_scan": lambda: run_euroc_sequence_scan(_image_cfg(), None),
         "euroc_per_frame": lambda: run_euroc_sequence(_image_cfg(), None),
+        "batched_scan": lambda: make_batched_sequence_scan(_cfg(tconfig)),
+        "masked_scan": lambda: make_masked_segment_scan(_cfg(tconfig)),
+        # the device is resolved before the state and bundles are read
+        "segments_warm": lambda: run_segments_warm(_cfg(tconfig), None,
+                                                   None, 4, 10),
+        "warm_init": lambda: warm_initialize(_cfg(tconfig),
+                                             np.array([0, 0, 9.8])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[build]()
