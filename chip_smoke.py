@@ -75,7 +75,20 @@ set to 0 just before it and read just after:
   its clusters' residency; then ``run_segments_warm`` on the card in f32
   on tests/test_handoff.py's 300 s split with that test's gates, and the
   same split with its last segment's body stripped of features, which
-  the repair pass (a B = 1 scan, a capture of its own) re-runs.
+  the repair pass (a B = 1 scan, a capture of its own) re-runs;
+- the set replay, the segment-batched image pipeline: four synthetic
+  sequences at ``RVIOConfig()`` (their own seeds and lengths, rendered
+  once and held in memory) through ``run_sequence_set`` (each frame of
+  the set one replay of the batched image frame) and each through its
+  single replay with the same seed: frames/s of both, each ATE below
+  0.05 m, every kernel once a batched frame (and once for each
+  sequence's init frame), each sequence within the image path's
+  card-vs-CPU limits of its single replay; one sequence four times,
+  every row bitwise the same; then K6, K8, K9 (B·N rows), K10, K11 and
+  K13 at B = 4 on tracked frame 100 of the four sequences, each against
+  its plain version segment by segment (K8 at every level, bitwise
+  against a single launch a segment), rows ``<kernel>@B4`` of the
+  kernels line.
 
 The public drivers run their frames as replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), so the phases that drive them measure
@@ -192,6 +205,20 @@ WARM_DURATION_S, WARM_SEED, WARM_SEGMENTS, WARM_WARMUP = 300.0, 5, 8, 150
 WARM_ATE_MARGIN_M = 0.05
 WARM_MAX_DEV_M = 0.6
 WARM_NGOOD_MIN = 3.0
+# the set replay: four synthetic sequences at RVIOConfig() (standing for
+# the four V1/V2 easy+medium sequences of BASELINE.json's set), each its
+# own seed and length (about 200-290 tracked frames at 20 Hz), rendered
+# once and held in memory; each sequence against its single replay with
+# the same seed within the image path's card-vs-CPU limits (the same
+# function in other library shapes: the batch changes the filter's and
+# the RANSAC's batched products)
+SET_SEEDS = (31, 32, 33, 34)
+SET_DURATIONS_S = (12.0, 13.5, 15.0, 16.5)
+SET_GAP_POS_M = IMG_CPU_GAP_POS_M
+SET_ACTIVE_AGREE = IMG_CPU_ACTIVE_AGREE
+# the image kernels at the batched tracker's shapes: tracked frame
+# KLT_FRAME of the set's sequences, one segment each
+SET_B = len(SET_SEEDS)
 
 
 def _events_ms(run, reps: int) -> float:
@@ -475,15 +502,18 @@ def workload_sim():
                              imu_noise=True)
 
 
-def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
+def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
     """The inputs of the tracker's K6, K8, K10, K9 and K13 calls at tracked
     frame ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``,
-    CLAHE on), in one run.  Returns (levels, K10's image, K9's call, K13's
-    image): per pyramid level, coarsest first, (level, the template
-    gather's (image, origins), the search gather's, K8's args, K8's
-    kwargs); the image of the last ``clahe_luts`` call (None with the
-    equalizer off); the (args, kwargs) of the frame's refill
-    ``subpix_refine`` and the image of its ``shi_tomasi_nms``.  The run's
+    CLAHE on), in one run: ``sim`` rendered, or ``seq``, a loaded sequence,
+    replayed (``sim`` then only gives the init frame's stamps).  Returns
+    (levels, K10's image, K9's call, K13's image): per pyramid level,
+    coarsest first, (level, the template gather's (image, origins), the
+    search gather's, K8's args, K8's kwargs); the image of the last
+    ``clahe_luts`` call (None with the equalizer off); the (args, kwargs)
+    of the frame's refill ``subpix_refine`` and the image of its
+    ``shi_tomasi_nms``.  The tracker is its batched body at B = 1, so the
+    recorders drop the segment axis of the batched calls.  The run's
     frames are eager (:func:`eager_frames`), so the recorders see every
     frame's calls."""
     from unittest import mock
@@ -491,7 +521,8 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
     import rvio_tpu_torch.frontend.detector as detector
     import rvio_tpu_torch.frontend.image as image
     import rvio_tpu_torch.frontend.klt as klt
-    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    from rvio_tpu_torch.runtime import (run_euroc_sequence_scan,
+                                        run_rendered_sequence_scan)
     cfg = image_config(True) if cfg is None else cfg
     levels = cfg.tracker.klt_levels + 1
     calls = {"lk_level": [], "gather_tiles": [], "clahe_luts": [],
@@ -499,14 +530,20 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
 
     def recorder(module, name, keep):
         fn = getattr(module, name)
+        # the calls with a segment axis (K9's take B·N rows)
+        segment = name != "subpix_refine"
 
         def record(*args, **kw):
-            kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            kept = tuple((a[0] if segment else a).clone()
+                         if torch.is_tensor(a) else a for a in args)
             calls[name] = (calls[name] + [(kept, dict(kw))])[-keep:]
             return fn(*args, **kw)
         return record
 
-    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    if seq is not None:
+        k0 = _init_frame(cfg, seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t)
+    else:
+        k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
     with mock.patch.object(klt, "lk_level", recorder(klt, "lk_level", levels)), \
             mock.patch.object(klt, "gather_tiles",
                               recorder(klt, "gather_tiles", 2 * levels)), \
@@ -517,8 +554,12 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME):
             mock.patch.object(detector, "shi_tomasi_nms",
                               recorder(detector, "shi_tomasi_nms", 1)), \
             eager_frames():
-        res = run_rendered_sequence_scan(cfg, sim, device=dev,
-                                         max_frames=k0 + 1 + frame)
+        if seq is not None:
+            res = run_euroc_sequence_scan(cfg, seq, device=dev,
+                                          max_frames=k0 + 1 + frame)
+        else:
+            res = run_rendered_sequence_scan(cfg, sim, device=dev,
+                                             max_frames=k0 + 1 + frame)
     if len(res.timestamps) != frame:
         raise AssertionError(f"the capture run tracked {len(res.timestamps)} "
                              f"frames, not {frame}")
@@ -1493,6 +1534,187 @@ def warm_split_phase(dev, kernels) -> None:
           f"bytes)", flush=True)
 
 
+def set_sequences():
+    """The set replay's sequences at ``RVIOConfig()``: (sims, sequences),
+    each sequence's frames rendered once (WRITE_THREADS threads) and held
+    in memory as a ``BagSequence``."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.dataio.rosbag import BagSequence
+    cfg = RVIOConfig()
+    sims, seqs = [], []
+    with ThreadPoolExecutor(WRITE_THREADS) as pool:
+        for seed, dur in zip(SET_SEEDS, SET_DURATIONS_S):
+            sim = simulate_sequence(cfg, duration=dur, static_time=1.5,
+                                    ramp_time=2.0, seed=seed,
+                                    n_landmarks=2000, motion_scale=0.8,
+                                    meas_noise=0.001, imu_noise=True)
+            imgs = np.stack(list(pool.map(lambda k, s=sim: _render_u8(
+                cfg, s, k), range(len(sim.frame_t)))))
+            sims.append(sim)
+            seqs.append(BagSequence(imu_t=sim.imu_t, imu_w=sim.imu_w,
+                                    imu_a=sim.imu_a, cam_t=sim.frame_t,
+                                    images=imgs))
+    return sims, seqs
+
+
+def set_replay_phase(dev, sims, seqs, kernels) -> dict:
+    """The set replay, this slice's main path: the SET_B sequences through
+    ``run_sequence_set`` on the card (each frame of the set one replay of
+    the batched image frame), then each through ``run_euroc_sequence_scan``
+    with the same seed: frames/s of both, each sequence's ATE, every
+    kernel's launches (one a batched frame, plus each sequence's init
+    frame), the largest set-vs-single gap and the share of slot-frames
+    that agree; then one sequence SET_B times, whose rows must be bitwise
+    equal.  Returns each kernel's launches in the set run."""
+    from unittest import mock
+
+    import rvio_tpu_torch.runtime.replay_set as replay_set
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.runtime import run_euroc_sequence_scan
+    cfg = RVIOConfig()
+    scans = []
+    build = replay_set.make_batched_image_chunk_scan
+
+    def kept(*args, **kw):
+        scans.append(build(*args, **kw))
+        return scans[-1]
+
+    def run_set(seq_list):
+        _zero(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(replay_set, "make_batched_image_chunk_scan",
+                               kept):
+            out = replay_set.run_sequence_set(cfg, seq_list, device=dev)
+        return out, time.perf_counter() - t0, _launches(kernels)
+
+    run_set(seqs)                          # warm-up: handles, the build
+    res, wall, launches = run_set(seqs)
+    n_frames = [len(r.timestamps) for r in res]
+    L = max(len(s.cam_t) - 1 - _init_frame(cfg, s.imu_t, s.imu_w, s.imu_a,
+                                           s.cam_t) for s in seqs)
+    want = dict.fromkeys(kernels, 0)
+    want.update(dict.fromkeys(FILTER_KERNELS, L))
+    want.update(gather_tiles=9 * L + SET_B, lk_level=4 * L,
+                subpix_refine=L + SET_B, shi_tomasi_nms=L + SET_B,
+                clahe_luts=L + SET_B, clahe_apply=L + SET_B)
+    if launches != want:
+        raise AssertionError(f"set replay launches {launches}, expected "
+                             f"{want} (one a batched frame and each "
+                             f"sequence's init frame)")
+    singles, walls = [], []
+    for s in seqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles.append(run_euroc_sequence_scan(cfg, s, device=dev))
+        walls.append(time.perf_counter() - t0)
+    ates, dps, dqs, agree = [], [], [], []
+    for sim, r, one in zip(sims, res, singles):
+        if not np.array_equal(r.timestamps, one.timestamps):
+            raise AssertionError("a set sequence filtered other frames than "
+                                 "its single replay")
+        idx = np.searchsorted(sim.frame_t, r.timestamps)
+        ates.append(ate_rmse(r.positions, sim.gt_p[idx]))
+        dps.append(float(np.abs(r.positions - one.positions).max()))
+        dqs.append(rotation_gap(r.quaternions, one.quaternions))
+        agree.append(float((r.active_slots == one.active_slots).mean()))
+        if not (np.isfinite(r.positions).all()
+                and r.positions.shape == (len(r.timestamps), 3)):
+            raise AssertionError("non-finite or misshapen set trajectory")
+    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+            for c in scans[-1].frame_scan.captures]
+    print(f"set replay, {SET_B} sequences ({n_frames} tracked frames, "
+          f"{L} batched frames): {sum(n_frames)} frames in {wall:.3f} s = "
+          f"{sum(n_frames) / wall:.1f} frames/s (init gates and frames "
+          f"included); single replays {sum(n_frames)} frames in "
+          f"{sum(walls):.3f} s = {sum(n_frames) / sum(walls):.1f} frames/s; "
+          f"ATE {[round(a, 4) for a in ates]} m (limit {ATE_LIMIT_M}); "
+          f"set vs single: max position gap {[f'{x:.3e}' for x in dps]} m "
+          f"(limit {SET_GAP_POS_M}), max attitude gap "
+          f"{[f'{x:.3e}' for x in dqs]} rad, slot-frames agreeing "
+          f"{[round(x, 5) for x in agree]} (limit {SET_ACTIVE_AGREE}); "
+          f"captures {caps} (frames, s, graph pool bytes); kernel launches "
+          f"a batched frame {dict((k, round(v / L, 3)) for k, v in launches.items() if v)}",
+          flush=True)
+    if not max(ates) < ATE_LIMIT_M:
+        raise AssertionError(f"a set sequence's ATE is over {ATE_LIMIT_M} m")
+    if not (max(dps) < SET_GAP_POS_M and min(agree) >= SET_ACTIVE_AGREE):
+        raise AssertionError("a set sequence and its single replay disagree")
+
+    copies, wall_c, _ = run_set([seqs[0]] * SET_B)
+    differ = [k for k in ("positions", "quaternions", "active_slots",
+                          "n_good")
+              if not all(np.array_equal(getattr(copies[0], k),
+                                        getattr(c, k)) for c in copies)]
+    m = sum(len(c.timestamps) for c in copies)
+    print(f"set replay of {SET_B} copies of sequence 0: {m} frames in "
+          f"{wall_c:.3f} s = {m / wall_c:.1f} frames/s; rows "
+          f"{'bitwise equal' if not differ else f'differ in {differ}'}",
+          flush=True)
+    if differ:
+        raise AssertionError(f"the copies' rows differ: {differ}")
+    return launches
+
+
+def batch_image_kernel_phase(dev, sims, seqs, records, launches) -> None:
+    """K6, K8, K9, K10, K11 and K13 at the batched tracker's shapes: the
+    inputs of tracked frame KLT_FRAME of each of the set's sequences
+    (:func:`capture_klt_frame`, one segment each), one launch for the SET_B
+    segments against the plain version on the same inputs, segment by
+    segment (K8 at every pyramid level, each segment with its own T,
+    bitwise against a single launch a segment, and against its plain
+    version on the features well posed in f32, ops/checks.py
+    ``lk_well_posed``); rows ``<kernel>@B4`` of the kernels line with the
+    set replay's launches."""
+    from rvio_tpu_torch.ops.checks import (batch_case, clahe_apply_case,
+                                           clahe_luts_case, lk_case,
+                                           shi_nms_case, subpix_case,
+                                           tile_case)
+    from rvio_tpu_torch.ops.clahe import clahe_luts_plain
+    t0 = time.perf_counter()
+    caps = [capture_klt_frame(dev, sim, frame=KLT_FRAME, seq=seq)
+            for sim, seq in zip(sims, seqs)]
+    print(f"batch image checks: tracked frame {KLT_FRAME} of {SET_B} "
+          f"sequences captured on the card in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    label = f" (frame {KLT_FRAME} of {SET_B} sequences)"
+    levels = len(caps[0][0])
+    for i in range(levels):
+        lvl = caps[0][0][i][0]
+        singles = [lk_case(dev, c[0][i][3], c[0][i][4], well_posed=True)
+                   for c in caps]
+        T = [int(c.trips.max(initial=0)) for c in singles]
+        print(f"lk_level@B{SET_B}{label}, level {lvl}: T {T} by segment",
+              flush=True)
+        if lvl == 0:
+            k8 = singles                   # the row's case
+            continue
+        chk = batch_case(singles, what=f"{label}, level {lvl}")
+        err = chk.check()
+        print(f"kernel lk_level@B{SET_B}{label}, level {lvl}: err "
+              f"{err:.3e}, alive agree {chk.info['alive_agree']}, set aside "
+              f"(not well posed in f32) {chk.info['set_aside']}, bitwise "
+              f"with a single launch a segment", flush=True)
+    top = [c[0][levels - 1] for c in caps]        # level 0
+    eq = [c[1].cpu() for c in caps]
+    checks = [
+        batch_case([tile_case(dev, *t[2]) for t in top], label),
+        batch_case(k8, label),
+        batch_case([subpix_case(dev, *c[2][0], **c[2][1]) for c in caps],
+                   label),
+        batch_case([clahe_luts_case(dev, x) for x in eq], label),
+        batch_case([clahe_apply_case(dev, x, clahe_luts_plain(x, 3.0, 5), 5)
+                    for x in eq], label),
+        batch_case([shi_nms_case(dev, c[3]) for c in caps], label)]
+    for chk in checks:
+        rec = measure(chk, f"@B{SET_B}{label}")
+        rec.update(name=f"{chk.name}@B{SET_B}", batch=SET_B,
+                   launches=launches[chk.name])
+        records.append((chk.kernel, rec))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1617,6 +1839,14 @@ def main() -> int:
     batch_launches = batched_phase(dev, sim, kernels)
     batch_kernel_phase(dev, sim, records, batch_launches)
     warm_split_phase(dev, kernels)
+
+    t0 = time.perf_counter()
+    set_sims, set_seqs = set_sequences()
+    print(f"set: {SET_B} sequences of {[len(s.cam_t) for s in set_seqs]} "
+          f"frames simulated and rendered in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    set_launches = set_replay_phase(dev, set_sims, set_seqs, kernels)
+    batch_image_kernel_phase(dev, set_sims, set_seqs, records, set_launches)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

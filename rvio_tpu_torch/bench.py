@@ -17,7 +17,11 @@ bench.py's segment-batched rate: ``batch`` = 16 (``BENCH_BATCH``) copies
 of the feature workload through the graphed
 ``make_batched_sequence_scan``, B·T frames over the wall of the best of 2
 runs, each ending in a readback of a sum over every frame's pose;
-``pipeline_batched_fps`` stays null until the tracker takes a batch axis.
+``pipeline_batched_fps`` is bench.py's batched image rate: ``pipeline_batch``
+= 8 (``BENCH_PIPELINE_BATCH``) copies of the image rates' first two chunks
+through the graphed ``make_batched_image_chunk_scan``, BP·2·32 frames over
+the wall of the best of 2 runs, each ending in a readback of a sum over
+every frame's position.
 ``BENCH_PIPELINE_ATE=0``, ``BENCH_STRESS=0`` and
 ``BENCH_LATENCY=0`` skip those parts, as in bench.py.  Without a CUDA
 device it exits 1 and prints no result.
@@ -159,9 +163,11 @@ def image_rates(cfg, sim, dev, idx0) -> dict:
     of PB frames after a tracker-init frame, with bench.py's synthetic IMU
     (no rotation, gravity, 10 samples a frame), each ended by a readback."""
     from rvio_tpu_torch.dataio.synthetic import render_frame
-    from rvio_tpu_torch.frontend import make_tracker
-    from rvio_tpu_torch.runtime import (make_frontend_chunk_scan,
+    from rvio_tpu_torch.frontend import make_tracker, stack_tracker_states
+    from rvio_tpu_torch.runtime import (make_batched_image_chunk_scan,
+                                        make_frontend_chunk_scan,
                                         make_image_chunk_scan)
+    from rvio_tpu_torch.state import stack_states
     K = cfg.tpu.imu_block
     N = cfg.tracker.num_features
     init_fn, _ = make_tracker(cfg, dev)
@@ -211,6 +217,31 @@ def image_rates(cfg, sim, dev, idx0) -> dict:
         res[f"{name}_fps"] = PB * NCHUNK / min(every)
         res[f"{name}_inscan_ms"] = ((min(every) - min(one)) * 1e3
                                     / (PB * (NCHUNK - 1)))
+
+    # bench.py's segment-batched pipeline: BP copies of the first two
+    # chunks through tracker + filter in lockstep
+    BP = int(os.environ.get("BENCH_PIPELINE_BATCH", "8"))
+    bscan = make_batched_image_chunk_scan(cfg, dev)
+    bcarry = (stack_tracker_states([ts0] * BP), stack_states([state0] * BP))
+    bchunks = [{k: v.expand((BP,) + tuple(v.shape)) for k, v in ch.items()}
+               for ch in chunks[:2]]
+
+    def run_batched():
+        carry = bcarry
+        for ch in bchunks:
+            carry, out = bscan(carry, ch)
+        return float(out["p_Gk"].sum())
+
+    run_batched()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_batched()
+        walls.append(time.perf_counter() - t0)
+    res["pipeline_batched_fps"] = BP * PB * len(bchunks) / min(walls)
+    res["pipeline_batch"] = BP
+    res["pipeline_batched_capture_s"] = sum(
+        c["seconds"] for c in bscan.frame_scan.captures)
     return res
 
 
@@ -317,7 +348,9 @@ def main() -> int:
         "frontend_inscan_ms": img["frontend_inscan_ms"],
         "pipeline_fps": img["pipeline_fps"],
         "pipeline_inscan_ms": img["pipeline_inscan_ms"],
-        "pipeline_batched_fps": None,
+        "pipeline_batched_fps": img["pipeline_batched_fps"],
+        "pipeline_batch": img["pipeline_batch"],
+        "pipeline_batched_capture_s": img["pipeline_batched_capture_s"],
         "latency_ms_p50": lat.get("latency_ms_p50"),
         "latency_ms_p99": lat.get("latency_ms_p99"),
         "latency_ms_pipelined": lat.get("latency_ms_pipelined"),

@@ -4,7 +4,10 @@
 // _apply_call / _apply_kernel) and computes the function of their oracle's
 // XLA path, rvio_tpu/frontend/image.py:clahe, on an (H, W) f32 image cut
 // into a g x g grid of th x tw tiles (th = ceil(H/g), tw = ceil(W/g)) over
-// its reflect-padded (g th, g tw) extension.
+// its reflect-padded (g th, g tw) extension.  B images of one size (a
+// batched tracker's segments) are one launch of each kernel: the image is
+// grid.y of K10 (one cluster per image and tile) and grid.z of K11 (one set
+// of blocks per image and cell).
 //
 // clahe_luts_kernel (K10): a thread block cluster of CL = 8 CTAs a tile.
 // Bound by bytes: one read of the image (1.44 MB at 752 x 480, about
@@ -139,6 +142,12 @@ clahe_luts_kernel(const float* __restrict__ img, float* __restrict__ luts,
   // every CTA of the cluster has started once this phase completes, so
   // rank 0's shared memory may be written (waited for before the send)
   cluster_arrive_relaxed();
+  {
+    const size_t b = blockIdx.y;   // the image
+    img += b * H * W;
+    luts += b * g * g * NBINS;
+    if (hist_out != nullptr) hist_out += b * g * g * NBINS;
+  }
   const int t = blockIdx.x / CL;
   const int p = t / g, q = t - p * g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -316,6 +325,12 @@ clahe_apply_kernel(const float* __restrict__ img,
                    int H, int W, int th, int tw, int g, float cy, float cx) {
   __shared__ float4 s4[NBINS];   // a bin's entries of the cell's four LUTs
   const int tid = threadIdx.y * APPLY_QX + threadIdx.x;
+  {
+    const size_t b = blockIdx.z;   // the image
+    img += b * H * W;
+    luts += b * g * g * NBINS;
+    out += b * H * W;
+  }
 
   // phase: the cell, the LUT copies
   // the block's cell and chunk along each axis; the four LUTs in the order
@@ -405,19 +420,32 @@ clahe_apply_kernel(const float* __restrict__ img,
 
 extern "C" {
 
-int rvio_clahe_luts(const float* img, float* luts, int* hist, int H, int W,
-                    int g, float limit, float scale, int any_order,
-                    cudaStream_t stream) {
+// B images (H, W) -> B x g^2 LUTs (and histograms); B < 65536.
+int rvio_clahe_luts_batch(const float* img, float* luts, int* hist, int B,
+                          int H, int W, int g, float limit, float scale,
+                          int any_order, cudaStream_t stream) {
+  if (B == 0) return 0;
   const int th = (H + g - 1) / g, tw = (W + g - 1) / g;
-  clahe_luts_kernel<<<g * g * CL, LUT_THREADS, 0, stream>>>(
+  clahe_luts_kernel<<<dim3(g * g * CL, B), LUT_THREADS, 0, stream>>>(
       img, luts, hist, H, W, th, tw, g, limit, scale, any_order);
   return static_cast<int>(cudaGetLastError());
 }
 
-int rvio_clahe_apply(const float* img, const float* luts, float* out, int H,
-                     int W, int g, float cy, float cx, cudaStream_t stream) {
+// One image: B = 1.
+int rvio_clahe_luts(const float* img, float* luts, int* hist, int H, int W,
+                    int g, float limit, float scale, int any_order,
+                    cudaStream_t stream) {
+  return rvio_clahe_luts_batch(img, luts, hist, 1, H, W, g, limit, scale,
+                               any_order, stream);
+}
+
+// B images (H, W) and their B x g^2 LUTs -> B images; B < 65536.
+int rvio_clahe_apply_batch(const float* img, const float* luts, float* out,
+                           int B, int H, int W, int g, float cy, float cx,
+                           cudaStream_t stream) {
+  if (B == 0) return 0;
   const int th = (H + g - 1) / g, tw = (W + g - 1) / g;
-  dim3 grid(0, 0);
+  dim3 grid(0, 0, B);
   for (int j = 0; j < g; ++j) {
     grid.x += cell_chunks(j, W, tw, g, 4, APPLY_QX);
     grid.y += cell_chunks(j, H, th, g, 1, APPLY_RY * APPLY_R);
@@ -432,6 +460,12 @@ int rvio_clahe_apply(const float* img, const float* luts, float* out, int H,
     clahe_apply_kernel<false><<<grid, block, 0, stream>>>(
         img, luts, out, H, W, th, tw, g, cy, cx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One image: B = 1.
+int rvio_clahe_apply(const float* img, const float* luts, float* out, int H,
+                     int W, int g, float cy, float cx, cudaStream_t stream) {
+  return rvio_clahe_apply_batch(img, luts, out, 1, H, W, g, cy, cx, stream);
 }
 
 }  // extern "C"

@@ -38,9 +38,16 @@
 //   oracle's batch loop runs T trips: a converged feature whose own trips
 //   ended before T is tested once more against the wander bound at its final
 //   position.  At the last level the result must also lie in bounds.  The
-//   ticket is one 32-bit counter per CUDA stream (ops/klt_iterate.py keeps
-//   them): launches on one stream run one after another, so they never
-//   share a count.
+//   ticket is one 32-bit counter per CUDA stream and segment
+//   (ops/klt_iterate.py keeps them): launches on one stream run one after
+//   another, so they never share a count.
+//
+//   B segments (a batched tracker's images) are one launch, grid.y the
+//   segment.  The oracle's batch loop, vmapped over segments, stops each
+//   segment at its own T, so the finish is per segment: no block holds
+//   features of two segments, each segment's blocks draw tickets on its own
+//   counter, and the block that draws the segment's last ticket takes that
+//   segment's T and writes its statuses.
 //
 // Where the time goes (scripts/filter_kernel_phases.py --kernel k8): a trip
 // costs about 450-600 cycles (the sample's shared-memory round trip, a
@@ -181,6 +188,22 @@ lk_level_kernel(const float* __restrict__ t_tiles,
                 unsigned* __restrict__ ticket, int N, int TH, int TW, int win,
                 int max_iters, float eps, float min_eig, float wander,
                 int last, int H, int W) {
+  // the segment: its features, outputs, scratch words and ticket
+  {
+    const size_t sg = blockIdx.y;
+    const size_t tt = (size_t)TH * TW;
+    t_tiles += sg * N * tt;
+    n_tiles += sg * N * tt;
+    loc0 += 2 * sg * N;
+    g_init += 2 * sg * N;
+    o1 += 2 * sg * N;
+    status += sg * N;
+    g_out += 2 * sg * N;
+    err_out += sg * N;
+    scratch += sg * N;
+    status_out += sg * N;
+    ticket += sg;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int red[WPB_MAX];
   __shared__ bool last_block;
@@ -402,7 +425,7 @@ lk_level_kernel(const float* __restrict__ t_tiles,
 }
 
 template <int KT>
-void launch(int grid, int wpb, const float* t_tiles, const float* n_tiles,
+void launch(dim3 grid, int wpb, const float* t_tiles, const float* n_tiles,
             const float* loc0, const float* g_init, const int* o1,
             const bool* status, float* g_out, float* err_out, int* scratch,
             bool* status_out, unsigned* ticket, int N, int TH, int TW,
@@ -419,22 +442,25 @@ void launch(int grid, int wpb, const float* t_tiles, const float* n_tiles,
 extern "C" {
 
 // The wrapper checks what it can name (shapes, types, 16-byte aligned tiles
-// with TH * TW % 4 == 0, win * win <= 256); this refuses the rest.
-int rvio_lk_level(const float* t_tiles, const float* n_tiles, const float* loc0,
-                  const float* g_init, const int* o1, const bool* status,
-                  float* g_out, bool* status_out, float* err_out, int* scratch,
-                  unsigned* ticket, int N, int TH, int TW, int win,
-                  int max_iters, float eps, float min_eig, float wander,
-                  int last, int H, int W, cudaStream_t stream) {
+// with TH * TW % 4 == 0, win * win <= 256, B within its ticket pool); this
+// refuses the rest.  `ticket` points at B counters, one a segment.
+int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
+                        const float* loc0, const float* g_init, const int* o1,
+                        const bool* status, float* g_out, bool* status_out,
+                        float* err_out, int* scratch, unsigned* ticket, int B,
+                        int N, int TH, int TW, int win, int max_iters,
+                        float eps, float min_eig, float wander, int last,
+                        int H, int W, cudaStream_t stream) {
   const int wb = warp_bytes(TH * TW);
   if (TH < 2 || TW < 2 || (TH * TW) % 4 || win < 1 || win > 16 ||
       wb > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   // taps a lane: ceil(win / (32 / win)), one of 1, 2, 3, 4, 6, 7, 8
   const int strips = 32 / win, kt = (win + strips - 1) / strips;
-  if (N == 0) return 0;
+  if (N == 0 || B == 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = min(WPB_MAX, SMEM_MAX / wb);
-  const int grid = (N + wpb - 1) / wpb;
+  const dim3 grid((N + wpb - 1) / wpb, B);
 #define RVIO_LK_ARGS                                                       \
   grid, wpb, t_tiles, n_tiles, loc0, g_init, o1, status, g_out, err_out,   \
       scratch, status_out, ticket, N, TH, TW, win, max_iters, eps, min_eig, \
@@ -450,6 +476,19 @@ int rvio_lk_level(const float* t_tiles, const float* n_tiles, const float* loc0,
   }
 #undef RVIO_LK_ARGS
   return static_cast<int>(cudaGetLastError());
+}
+
+// One segment: B = 1.
+int rvio_lk_level(const float* t_tiles, const float* n_tiles, const float* loc0,
+                  const float* g_init, const int* o1, const bool* status,
+                  float* g_out, bool* status_out, float* err_out, int* scratch,
+                  unsigned* ticket, int N, int TH, int TW, int win,
+                  int max_iters, float eps, float min_eig, float wander,
+                  int last, int H, int W, cudaStream_t stream) {
+  return rvio_lk_level_batch(t_tiles, n_tiles, loc0, g_init, o1, status,
+                             g_out, status_out, err_out, scratch, ticket, 1,
+                             N, TH, TW, win, max_iters, eps, min_eig, wander,
+                             last, H, W, stream);
 }
 
 }  // extern "C"

@@ -32,7 +32,10 @@
 // its 3x3 neighbourhood, taken as each lane's column maximum and two
 // shuffles: the same decision as the 8 comparisons (a NaN anywhere fails
 // both).  The kernel keeps no state between launches, so a CUDA graph
-// replays it and streams may run it at once.
+// replays it and streams may run it at once.  B images of one size (a
+// batched tracker's segments) are one launch, grid.y the image: a strip's
+// rows and columns stay inside its own image, whose edges it clamps to as
+// at B = 1, so no strip reads across from one image into the next.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -85,6 +88,11 @@ shi_strip_kernel(const float* __restrict__ img, float* __restrict__ out,
   static_assert(COLS == 32 - 2 * HALO, "a strip is the lanes less its halo");
   constexpr int NR = ROWS + 2 * (HALO - 2);   // response rows
   const int lane = threadIdx.x & 31;
+  {
+    const size_t b = blockIdx.y;   // the image
+    img += b * H * W;
+    out += b * H * W;
+  }
   const int strip = blockIdx.x * STRIP_WARPS + (threadIdx.x >> 5);
   const int sy = strip / strips_x, sx = strip - sy * strips_x;
   const int y0 = sy * ROWS;
@@ -153,14 +161,15 @@ shi_strip_kernel(const float* __restrict__ img, float* __restrict__ out,
 }
 
 template <int ROWS, bool NMS>
-int launch_strips(const float* img, float* out, int H, int W,
+int launch_strips(const float* img, float* out, int B, int H, int W,
                   cudaStream_t stream) {
   constexpr int COLS = NMS ? NMS_COLS : RESP_COLS;
+  if (B == 0) return 0;
   const int strips_x = (W + COLS - 1) / COLS;
   const int warps = strips_x * ((H + ROWS - 1) / ROWS);
-  shi_strip_kernel<ROWS, NMS><<<(warps + STRIP_WARPS - 1) / STRIP_WARPS,
-                                32 * STRIP_WARPS, 0, stream>>>(img, out, H,
-                                                               W, strips_x);
+  const dim3 grid((warps + STRIP_WARPS - 1) / STRIP_WARPS, B);
+  shi_strip_kernel<ROWS, NMS><<<grid, 32 * STRIP_WARPS, 0, stream>>>(
+      img, out, H, W, strips_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,14 +177,22 @@ int launch_strips(const float* img, float* out, int H, int W,
 
 extern "C" {
 
-int rvio_shi_tomasi_nms(const float* img, float* out, int H, int W,
-                        cudaStream_t stream) {
-  return launch_strips<NMS_ROWS, true>(img, out, H, W, stream);
+// B images (H, W) -> B maps; B < 65536.
+int rvio_shi_tomasi_nms_batch(const float* img, float* out, int B, int H,
+                              int W, cudaStream_t stream) {
+  return launch_strips<NMS_ROWS, true>(img, out, B, H, W, stream);
 }
 
+// One image: B = 1.
+int rvio_shi_tomasi_nms(const float* img, float* out, int H, int W,
+                        cudaStream_t stream) {
+  return launch_strips<NMS_ROWS, true>(img, out, 1, H, W, stream);
+}
+
+// K12 takes one image: B = 1 of the same template.
 int rvio_shi_tomasi(const float* img, float* out, int H, int W,
                     cudaStream_t stream) {
-  return launch_strips<RESP_ROWS, false>(img, out, H, W, stream);
+  return launch_strips<RESP_ROWS, false>(img, out, 1, H, W, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
-// Batched tile gathers: out[n, i, j] = img[min(oy + i, H-1), min(ox + j, W-1)]
-// with (ox, oy) the n-th origin clamped to [0, W-tw] x [0, H-th].
+// Batched tile gathers: out[b, n, i, j] = img[b, min(oy + i, H-1),
+// min(ox + j, W-1)] with (ox, oy) the n-th origin of image b clamped to
+// [0, W-tw] x [0, H-th].  B images (the segments of a batched tracker) are
+// one launch: grid.y is the image, and a tile reads its own image only.
 //
 // rvio_gather_tiles (K6) replaces rvio_tpu/ops/tile_gather.py
 // (gather_tiles_narrow_pallas / _gather_narrow_kernel) and computes the
@@ -43,8 +45,12 @@ template <bool ALIGN, bool VEC>
 __global__ void gather_tiles_kernel(const float* __restrict__ img,
                                     const int* __restrict__ origin,
                                     float* __restrict__ out,
-                                    int H, int W, int th, int tw) {
+                                    int H, int W, int N, int th, int tw) {
   const int n = blockIdx.x;
+  const size_t b = blockIdx.y;   // the image
+  img += b * H * W;
+  origin += 2 * b * N;
+  out += b * N * th * tw;
   int ox = origin[2 * n], oy = origin[2 * n + 1];
   ox = min(max(ox, 0), max(W - tw, 0));
   oy = min(max(oy, 0), max(H - th, 0));
@@ -78,10 +84,14 @@ template <int TH>
 __global__ void __launch_bounds__(32 * NARROW_WARPS)
 gather_narrow_kernel(const float* __restrict__ img,
                      const int* __restrict__ origin, float* __restrict__ out,
-                     int H, int W) {
+                     int H, int W, int N) {
   constexpr int TW = 32, R = TH / NARROW_WARPS;
   static_assert(TH % NARROW_WARPS == 0, "rows split evenly over the warps");
   const int n = blockIdx.x, lane = threadIdx.x & 31;
+  const size_t b = blockIdx.y;   // the image
+  img += b * H * W;
+  origin += 2 * b * N;
+  out += b * N * TH * TW;
   const int i0 = (threadIdx.x >> 5) * R;
   const int ox = min(max(origin[2 * n], 0), max(W - TW, 0));
   const int oy = min(max(origin[2 * n + 1], 0), max(H - TH, 0));
@@ -105,18 +115,27 @@ gather_narrow_kernel(const float* __restrict__ img,
 
 extern "C" {
 
+// B images (H, W), B x N origins, B x N tiles out; B < 65536.
+int rvio_gather_tiles_batch(const float* img, const int* origin, float* out,
+                            int H, int W, int B, int N, int th, int tw,
+                            cudaStream_t stream) {
+  if (N == 0 || B == 0) return 0;
+  const dim3 grid(N, B);
+  if (th == 40 && tw == 32)
+    gather_narrow_kernel<40><<<grid, 32 * NARROW_WARPS, 0, stream>>>(
+        img, origin, out, H, W, N);
+  else
+    gather_tiles_kernel<false, false><<<grid, 256, 0, stream>>>(
+        img, origin, out, H, W, N, th, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One image: B = 1.
 int rvio_gather_tiles(const float* img, const int* origin, float* out,
                       int H, int W, int N, int th, int tw,
                       cudaStream_t stream) {
-  if (N == 0) return 0;
-  if (th == 40 && tw == 32)
-    gather_narrow_kernel<40><<<N, 32 * NARROW_WARPS, 0, stream>>>(
-        img, origin, out, H, W);
-  else
-    gather_tiles_kernel<false, false><<<N, 256, 0, stream>>>(img, origin,
-                                                             out, H, W, th,
-                                                             tw);
-  return static_cast<int>(cudaGetLastError());
+  return rvio_gather_tiles_batch(img, origin, out, H, W, 1, N, th, tw,
+                                 stream);
 }
 
 int rvio_gather_tiles_aligned(const float* img, const int* origin,
@@ -125,10 +144,10 @@ int rvio_gather_tiles_aligned(const float* img, const int* origin,
   if (N == 0) return 0;
   if (vec)
     gather_tiles_kernel<true, true><<<N, 256, 0, stream>>>(img, origin, out,
-                                                           H, W, th, tw);
+                                                           H, W, N, th, tw);
   else
     gather_tiles_kernel<true, false><<<N, 256, 0, stream>>>(img, origin, out,
-                                                            H, W, th, tw);
+                                                            H, W, N, th, tw);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,9 @@ reference: src/rvio/Tracker.cc:183-202, and cv::calcOpticalFlowPyrLK's
 internal pyramid).  Every filter is a short chain of shifted slices of a
 reflect-padded image, added in the JAX package's order, so the f64 results
 match it to rounding.  ``clahe`` (the equalizer) runs kernels K10 and K11
-(``ops.clahe``).
+(``ops.clahe``).  The padding, the filters, ``pyr_down``, ``build_pyramid``
+and ``clahe`` take (..., H, W): B images of a batched tracker at once,
+each as alone.
 """
 
 from __future__ import annotations
@@ -17,26 +19,30 @@ from rvio_tpu_torch.ops.clahe import clahe_apply, clahe_luts
 
 
 def reflect_pad(img: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
-    """Reflect padding without edge repeat (numpy/OpenCV BORDER_REFLECT_101)."""
-    return F.pad(img[None, None], (rx, rx, ry, ry), mode="reflect")[0, 0]
+    """Reflect padding without edge repeat (numpy/OpenCV BORDER_REFLECT_101)
+    of the last two axes."""
+    H, W = img.shape[-2:]
+    lead = tuple(img.shape[:-2])
+    out = F.pad(img.reshape((-1, 1, H, W)), (rx, rx, ry, ry), mode="reflect")
+    return out.reshape(lead + tuple(out.shape[-2:]))
 
 
 def _sep_filter(img: torch.Tensor, ky, kx) -> torch.Tensor:
     """Separable filter as shift-adds (reflect border), zero taps skipped."""
     ry, rx = len(ky) // 2, len(kx) // 2
-    H, W = img.shape
+    H, W = img.shape[-2:]
     x = reflect_pad(img, ry, rx)
     rows = None
     for i, c in enumerate(ky):
         if c == 0:
             continue
-        t = x[i:i + H, :] * c
+        t = x[..., i:i + H, :] * c
         rows = t if rows is None else rows + t
     out = None
     for j, c in enumerate(kx):
         if c == 0:
             continue
-        t = rows[:, j:j + W] * c
+        t = rows[..., j:j + W] * c
         out = t if out is None else out + t
     return out
 
@@ -45,16 +51,16 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """cv::pyrDown: 5x5 Gaussian blur + decimate by 2 (ceil sizing), the
     blur evaluated only on the even output grid."""
     k5 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
-    H, W = img.shape
+    H, W = img.shape[-2:]
     Ho, Wo = -(-H // 2), -(-W // 2)
     x = reflect_pad(img, 2, 2)
     rows = None
     for i, c in enumerate(k5):
-        t = x[i:i + 2 * Ho - 1:2, :] * c
+        t = x[..., i:i + 2 * Ho - 1:2, :] * c
         rows = t if rows is None else rows + t
     out = None
     for j, c in enumerate(k5):
-        t = rows[:, j:j + 2 * Wo - 1:2] * c
+        t = rows[..., j:j + 2 * Wo - 1:2] * c
         out = t if out is None else out + t
     return out
 

@@ -12,6 +12,10 @@ the TPU-only forms of the same function (whole-window clamping on
 edge-padded tiles) and are not carried: K8 computes this oracle's function
 with its borders.  ``klt_track_gather`` (a test-only cross-check) is not
 ported yet.
+
+``klt_track`` also takes B segments at once (pyramids of (B, H, W) levels,
+points (B, N, 2), masks (B, N)): one K6 launch a gather and one K8 launch a
+level for the batch, each segment with its own finish (its own T).
 """
 
 from __future__ import annotations
@@ -29,17 +33,19 @@ TILE_H = 40     # tile height: 32 + 8 slack for the 8-aligned row origin
 
 
 def _align_origins(origin: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Clamp (N, 2) int xy origins in-bounds and 8-align the row origin."""
-    oy = torch.clamp(origin[:, 1], 0, max(H - TILE_H, 0))
+    """Clamp (..., 2) int xy origins in-bounds and 8-align the row
+    origin."""
+    oy = torch.clamp(origin[..., 1], 0, max(H - TILE_H, 0))
     oy = torch.div(oy, 8, rounding_mode="floor") * 8
-    ox = torch.clamp(origin[:, 0], 0, max(W - TILE, 0))
-    return torch.stack([ox, oy], dim=1)
+    ox = torch.clamp(origin[..., 0], 0, max(W - TILE, 0))
+    return torch.stack([ox, oy], dim=-1)
 
 
 def tile_origins(p: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Aligned int32 origins of the tiles around pixel positions (N, 2)."""
-    o = torch.stack([torch.round(p[:, 0]).int() - TILE // 2,
-                     torch.round(p[:, 1]).int() - TILE_H // 2], dim=1)
+    """Aligned int32 origins of the tiles around pixel positions
+    (..., 2)."""
+    o = torch.stack([torch.round(p[..., 0]).int() - TILE // 2,
+                     torch.round(p[..., 1]).int() - TILE_H // 2], dim=-1)
     return _align_origins(o, H, W)
 
 
@@ -51,7 +57,8 @@ def klt_track(prev_pyr: List[torch.Tensor], next_pyr: List[torch.Tensor],
 
     pts: (N, 2) pixel coords in the full-resolution previous image;
     active: (N,) bool — inactive lanes are skipped (status False).
-    Returns (new_pts (N, 2), status (N,), err (N,)).
+    Returns (new_pts (N, 2), status (N,), err (N,)); with a leading segment
+    axis B on the levels, points and masks, (B, N, ...).
     """
     levels = len(prev_pyr) - 1
     dtype = pts.dtype
@@ -60,9 +67,9 @@ def klt_track(prev_pyr: List[torch.Tensor], next_pyr: List[torch.Tensor],
 
     guess = pts / (2.0 ** levels)
     status = active
-    err = torch.zeros(pts.shape[0], dtype=dtype, device=pts.device)
+    err = torch.zeros(pts.shape[:-1], dtype=dtype, device=pts.device)
     for lvl in range(levels, -1, -1):
-        H, W = prev_pyr[lvl].shape
+        H, W = prev_pyr[lvl].shape[-2:]
         p_lvl = pts / (2.0 ** lvl)
         o0 = tile_origins(p_lvl, H, W)
         t_tiles = gather_tiles(prev_pyr[lvl], o0, TILE_H, TILE)
@@ -70,8 +77,8 @@ def klt_track(prev_pyr: List[torch.Tensor], next_pyr: List[torch.Tensor],
         # full window demanded in bounds only at level 0 (coarser levels
         # clamp-sample the border like OpenCV's padded pyramids)
         rb = r + 1 if lvl == 0 else 1
-        inb = ((p_lvl[:, 0] > rb) & (p_lvl[:, 0] < W - rb - 1)
-               & (p_lvl[:, 1] > rb) & (p_lvl[:, 1] < H - rb - 1))
+        inb = ((p_lvl[..., 0] > rb) & (p_lvl[..., 0] < W - rb - 1)
+               & (p_lvl[..., 1] > rb) & (p_lvl[..., 1] < H - rb - 1))
         o1 = tile_origins(guess, H, W)
         n_tiles = gather_tiles(next_pyr[lvl], o1, TILE_H, TILE)
         guess, status, e = lk_level(

@@ -57,6 +57,13 @@ on g).  Where the two would differ from these plain versions:
   without fusion.  Every other product, sum and division rounds on its
   own (IEEE division), so K11 is bitwise with the plain version on the
   CPU (on the card PyTorch divides by a scalar through its reciprocal).
+
+Every entry also takes B images of one size, (B, H, W) with (B, g^2, 256)
+LUTs (a batched tracker's segments): one launch of each kernel for the B
+images, K10 a cluster per (image, tile) and K11 a set of blocks per
+(image, cell); each image's result is its one-image call's.
+:func:`cdf_any_order` depends only on (limit, area), so one answer holds
+for the B images.
 """
 
 from __future__ import annotations
@@ -72,9 +79,13 @@ import torch.nn.functional as F
 from rvio_tpu_torch.ops import _lib
 
 _LIB = "clahe"
-# both entries: three pointers, H, W, grid, two floats (then the stream)
+# both one-image entries: three pointers, H, W, grid, two floats (then the
+# stream); the batched entries (``_batch``) take B before H
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
 _LUT_ARGS = _ARGS + [ctypes.c_int]     # K10 also takes cdf_any_order
+_BATCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+_LUT_BATCH_ARGS = _BATCH_ARGS + [ctypes.c_int]
+_MAX_IMAGES = 65535
 KERNEL_BINS = 256
 # K10's cluster: the CTAs of a tile, each counting a band of its rows, and
 # the threads of each (csrc/clahe.cu CL, LUT_THREADS)
@@ -118,32 +129,37 @@ def _bins(x: torch.Tensor, n_bins: int) -> torch.Tensor:
 def clahe_hist_plain(img: torch.Tensor, grid: int = 5,
                      n_bins: int = 256) -> torch.Tensor:
     """(grid^2, n_bins) int64 per-tile histograms of the reflect-padded
-    image, tiles in row-major order."""
-    H, W = img.shape
+    image, tiles in row-major order; (B, grid^2, n_bins) for B images."""
+    H, W = img.shape[-2:]
+    lead = tuple(img.shape[:-2])
+    B = img[..., 0, 0].numel()
     th, tw = tile_shape(H, W, grid)
     Hp, Wp = th * grid, tw * grid
-    x = F.pad(img[None, None], (0, Wp - W, 0, Hp - H), mode="reflect")[0, 0]
+    x = F.pad(img.reshape(B, 1, H, W), (0, Wp - W, 0, Hp - H),
+              mode="reflect")[:, 0]
     rows = torch.arange(Hp, device=img.device) // th
     cols = torch.arange(Wp, device=img.device) // tw
     tile = rows[:, None] * grid + cols[None, :]
-    key = tile * n_bins + _bins(x, n_bins)
-    return torch.bincount(key.reshape(-1), minlength=grid * grid * n_bins
-                          ).reshape(grid * grid, n_bins)
+    seg = torch.arange(B, device=img.device)[:, None, None]
+    key = (seg * grid * grid + tile) * n_bins + _bins(x, n_bins)
+    return torch.bincount(key.reshape(-1), minlength=B * grid * grid * n_bins
+                          ).reshape(lead + (grid * grid, n_bins))
 
 
 def clahe_luts_plain(img: torch.Tensor, clip_limit: float = 3.0,
                      grid: int = 5, n_bins: int = 256) -> torch.Tensor:
-    """(grid^2, n_bins) LUTs in the image's dtype (bf16 values)."""
-    H, W = img.shape
+    """(grid^2, n_bins) LUTs in the image's dtype (bf16 values);
+    (B, grid^2, n_bins) for B images."""
+    H, W = img.shape[-2:]
     th, tw = tile_shape(H, W, grid)
     counts = clahe_hist_plain(img, grid, n_bins)
     hist = counts.to(img.dtype)
     area = th * tw
     limit = max(clip_limit * area / n_bins, 1.0)
     clipped = torch.clamp(hist, max=limit)
-    excess = (hist - clipped).sum(dim=1, keepdim=True)
+    excess = (hist - clipped).sum(dim=-1, keepdim=True)
     clipped = clipped + excess / n_bins
-    cdf = torch.cumsum(clipped, dim=1)
+    cdf = torch.cumsum(clipped, dim=-1)
     return (cdf * ((n_bins - 1.0) / area)).to(torch.bfloat16).to(img.dtype)
 
 
@@ -165,30 +181,45 @@ def blend_axis(n: int, size: int, grid: int, dtype, device):
 def clahe_apply_plain(img: torch.Tensor, luts: torch.Tensor,
                       grid: int = 5) -> torch.Tensor:
     """(H, W): each pixel's LUT entry blended bilinearly over the 2 x 2
-    surrounding tiles."""
-    H, W = img.shape
+    surrounding tiles; (B, H, W) for B images and their (B, g^2, n_bins)
+    LUTs."""
+    if img.dim() == 2:
+        return clahe_apply_plain(img[None], luts[None], grid)[0]
+    H, W = img.shape[-2:]
     th, tw = tile_shape(H, W, grid)
-    n_bins = luts.shape[1]
+    n_bins = luts.shape[-1]
     dt, dev = img.dtype, img.device
     ty0, ty1, wy0, wy1 = (x[:, None] for x in
                           blend_axis(H, th, grid, dt, dev))
     tx0, tx1, wx0, wx1 = blend_axis(W, tw, grid, dt, dev)
     b = _bins(img, n_bins)
     lut = luts.to(dt)
+    seg = torch.arange(img.shape[0], device=dev)[:, None, None]
+
+    def entry(t):
+        return lut[seg, t, b]
 
     def rows(tj):
         """The row blend in tile column tj: wy0 v0 + wy1 v1 with the second
         product fused (torch.addcmul: one rounding), as the oracle's
         contraction rounds it."""
-        return torch.addcmul(wy0 * lut[ty0 * grid + tj, b], wy1,
-                             lut[ty1 * grid + tj, b])
+        return torch.addcmul(wy0 * entry(ty0 * grid + tj), wy1,
+                             entry(ty1 * grid + tj))
 
     return rows(tx0) * wx0 + rows(tx1) * wx1
 
 
 def _check_image(name: str, img: torch.Tensor, grid: int, n_bins: int):
-    H, W = img.shape
-    _lib.check(name, "img", img, (H, W), torch.float32, img.device)
+    """Raise unless ``img`` is one (H, W) image or B of them (B, H, W)
+    that the kernels take; returns (B, H, W) (B = 1 for one image)."""
+    if img.dim() not in (2, 3):
+        raise ValueError(f"{name}: img has shape {tuple(img.shape)}, "
+                         f"expected (H, W) or (B, H, W)")
+    H, W = img.shape[-2:]
+    B = img.shape[0] if img.dim() == 3 else 1
+    _lib.check(name, "img", img, tuple(img.shape), torch.float32, img.device)
+    if B > _MAX_IMAGES:
+        raise ValueError(f"{name}: {B} images exceed {_MAX_IMAGES}")
     if n_bins != KERNEL_BINS:
         raise ValueError(f"{name}: the CUDA kernel takes {KERNEL_BINS} bins, "
                          f"got {n_bins}")
@@ -196,23 +227,25 @@ def _check_image(name: str, img: torch.Tensor, grid: int, n_bins: int):
     if th * grid - H >= H or tw * grid - W >= W:
         raise ValueError(f"{name}: image {H}x{W} too small for a {grid}x"
                          f"{grid} grid")
-    return H, W
+    return B, H, W
 
 
 def _launch_luts(img: torch.Tensor, clip_limit: float, grid: int,
                  hist) -> torch.Tensor:
-    """Launch K10 on a checked CUDA f32 image; ``hist``: None, or an int32
-    (grid^2, 256) tensor that receives the counted histograms."""
-    H, W = img.shape
+    """Launch K10 on a checked CUDA f32 image (or B of them); ``hist``:
+    None, or an int32 (grid^2, 256) tensor ((B, grid^2, 256)) that receives
+    the counted histograms."""
+    H, W = img.shape[-2:]
+    B = img.shape[0] if img.dim() == 3 else 1
     th, tw = tile_shape(H, W, grid)
     area = th * tw
-    luts = torch.empty((grid * grid, KERNEL_BINS), dtype=torch.float32,
-                       device=img.device)
+    luts = torch.empty(tuple(img.shape[:-2]) + (grid * grid, KERNEL_BINS),
+                       dtype=torch.float32, device=img.device)
     limit = clip_limit_count(clip_limit, area)
-    fn = _lib.function(_LIB, "rvio_clahe_luts", _LUT_ARGS)
+    fn = _lib.function(_LIB, "rvio_clahe_luts_batch", _LUT_BATCH_ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts),
-              ctypes.c_void_p(None) if hist is None else _lib.ptr(hist), H, W,
-              grid, limit, (KERNEL_BINS - 1.0) / area,
+              ctypes.c_void_p(None) if hist is None else _lib.ptr(hist), B,
+              H, W, grid, limit, (KERNEL_BINS - 1.0) / area,
               int(cdf_any_order(limit, area)), device=img.device)
     _lib.launched(clahe_luts)
     return luts
@@ -220,10 +253,11 @@ def _launch_luts(img: torch.Tensor, clip_limit: float, grid: int,
 
 def clahe_luts(img: torch.Tensor, clip_limit: float = 3.0, grid: int = 5,
                n_bins: int = 256) -> torch.Tensor:
-    """(H, W) image -> (grid^2, 256) LUTs.
+    """(H, W) image -> (grid^2, 256) LUTs; B images (B, H, W) -> (B,
+    grid^2, 256).
 
-    A CUDA tensor runs the kernel (f32 image, 256 bins); a CPU tensor the
-    plain version."""
+    A CUDA tensor runs the kernel (f32 image, 256 bins; one launch for the
+    B images); a CPU tensor the plain version."""
     if not _lib.uses_kernel(img, "clahe_luts"):
         return clahe_luts_plain(img, clip_limit, grid, n_bins)
     _check_image("clahe_luts", img, grid, n_bins)
@@ -238,27 +272,30 @@ def _luts_and_hist(img: torch.Tensor, clip_limit: float = 3.0,
         return (clahe_luts_plain(img, clip_limit, grid),
                 clahe_hist_plain(img, grid).int())
     _check_image("clahe_luts", img, grid, KERNEL_BINS)
-    hist = torch.empty((grid * grid, KERNEL_BINS), dtype=torch.int32,
-                       device=img.device)
+    hist = torch.empty(tuple(img.shape[:-2]) + (grid * grid, KERNEL_BINS),
+                       dtype=torch.int32, device=img.device)
     return _launch_luts(img, clip_limit, grid, hist), hist
 
 
 def clahe_apply(img: torch.Tensor, luts: torch.Tensor,
                 grid: int = 5) -> torch.Tensor:
-    """(H, W) image + (grid^2, 256) LUTs -> (H, W) equalized image.
+    """(H, W) image + (grid^2, 256) LUTs -> (H, W) equalized image; B
+    images (B, H, W) + (B, grid^2, 256) LUTs -> (B, H, W).
 
-    A CUDA tensor runs the kernel (f32); a CPU tensor the plain version."""
+    A CUDA tensor runs the kernel (f32; one launch for the B images); a
+    CPU tensor the plain version."""
     if not _lib.uses_kernel(img, "clahe_apply"):
         return clahe_apply_plain(img, luts, grid)
-    H, W = _check_image("clahe_apply", img, grid, luts.shape[1])
+    B, H, W = _check_image("clahe_apply", img, grid, luts.shape[-1])
     dev = img.device
-    _lib.check("clahe_apply", "luts", luts, (grid * grid, KERNEL_BINS),
-               torch.float32, dev)
+    lead = tuple(img.shape[:-2])
+    _lib.check("clahe_apply", "luts", luts,
+               lead + (grid * grid, KERNEL_BINS), torch.float32, dev)
     th, tw = tile_shape(H, W, grid)
-    out = torch.empty((H, W), dtype=torch.float32, device=dev)
-    fn = _lib.function(_LIB, "rvio_clahe_apply", _ARGS)
-    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts), _lib.ptr(out), H, W,
-              grid, (th - 1) / 2.0, (tw - 1) / 2.0, device=dev)
+    out = torch.empty(lead + (H, W), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_clahe_apply_batch", _BATCH_ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(luts), _lib.ptr(out), B, H,
+              W, grid, (th - 1) / 2.0, (tw - 1) / 2.0, device=dev)
     _lib.launched(clahe_apply)
     return out
 

@@ -31,6 +31,10 @@ own trips, counts them, and the block that finishes last (a ticket drawn
 by every block, one counter per CUDA stream, kept here) takes T and
 applies that last wander test in the same launch; the plain version runs
 all ``max_iters`` trips with the test gated on "some feature still live".
+A batched tracker's B segments are one call, and the oracle vmapped over
+them stops each segment's loop at its own T: so T, the gate and the
+ticket are per segment (flattening the B·N features would change the
+function), and no kernel block holds features of two segments.
 
 Bounds on the H100 at the operating point (200 features, 40 x 32 f32
 tiles, win 15, 30 iterations at most; 10 iterations of a 17 x 17 patch for
@@ -65,10 +69,15 @@ import torch.nn.functional as F
 from rvio_tpu_torch.ops import _lib
 
 _LK_LIB = "lk_level"
+# rvio_lk_level (one segment), then rvio_lk_level_batch (B segments)
 _LK_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
             + [ctypes.c_int] * 3)
-# K8's finish tickets: per device a buffer of counters, one per stream
-_TICKET_SLOTS = 1024
+_LK_BATCH_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] * 3 + [ctypes.c_int] * 3)
+# K8's finish tickets: per device a buffer of counters, for each stream
+# one a segment of a call (at most _TICKET_SEGMENTS segments)
+_TICKET_SLOTS = 256
+_TICKET_SEGMENTS = 256
 _tickets: dict = {}
 _SP_LIB = "subpix_refine"
 _SP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -127,7 +136,25 @@ def lk_level_trips(t_tiles, n_tiles, loc0, g_init, o1, status, *, win: int,
                    max_iters: int, eps: float, min_eig: float, wander: float,
                    last: bool = False, hw=(0, 0)):
     """The plain version's outputs plus each feature's trip count (N,):
-    the Gauss-Newton trips it ran while live."""
+    the Gauss-Newton trips it ran while live.  With a leading segment axis
+    (every argument (B, N, ...)) the features run as B·N rows, each
+    segment's trips gated on its own live features; outputs (B, N, ...)."""
+    kw = dict(win=win, max_iters=max_iters, eps=eps, min_eig=min_eig,
+              wander=wander, last=last, hw=hw)
+    if t_tiles.dim() == 3:
+        return _lk_rows(t_tiles, n_tiles, loc0, g_init, o1, status, **kw,
+                        segments=1)
+    B, N = t_tiles.shape[:2]
+    rows = [x.reshape((B * N,) + tuple(x.shape[2:]))
+            for x in (t_tiles, n_tiles, loc0, g_init, o1, status)]
+    out = _lk_rows(*rows, **kw, segments=B)
+    return tuple(x.reshape((B, N) + tuple(x.shape[1:])) for x in out)
+
+
+def _lk_rows(t_tiles, n_tiles, loc0, g_init, o1, status, *, win, max_iters,
+             eps, min_eig, wander, last, hw, segments: int):
+    """:func:`lk_level_trips` on the feature rows of ``segments`` equal
+    segments in turn, each with its own "still live" gate."""
     dtype = loc0.dtype
     TH, TW = n_tiles.shape[1:]
     area = win * win
@@ -156,7 +183,9 @@ def lk_level_trips(t_tiles, n_tiles, loc0, g_init, o1, status, *, win: int,
     trips = torch.zeros(alive.shape, dtype=torch.int32, device=alive.device)
     for _ in range(max_iters):
         live = ~conv & alive
-        running = live.any()          # the oracle's batch loop still runs
+        # the oracle's batch loop still runs, in each segment
+        running = live.reshape(segments, -1).any(-1).repeat_interleave(
+            live.shape[0] // segments)
         trips = trips + live.int()
         d = torch.abs(g - g_init)
         alive = alive & (((d[:, 0] <= wander) & (d[:, 1] <= wander))
@@ -201,16 +230,21 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     o1 (N, 2) int origin of the search tiles; status (N,) bool live lanes
     (in-bounds already folded in).  ``last`` (level 0, image size ``hw`` =
     (H, W)) adds the in-bounds test of the result and the mean-abs error.
-    Returns (guess (N, 2), status (N,) bool, err (N,)).
+    Returns (guess (N, 2), status (N,) bool, err (N,)).  With a leading
+    segment axis B on every argument and output, each segment is the call
+    on its own features (its own T).
 
     A CUDA tensor runs the kernel (f32 tiles and points, int32 origins;
     tiles of a multiple of 4 pixels starting on 16-byte boundaries, a
-    window of at most 256 taps); a CPU tensor the plain version."""
+    window of at most 256 taps, at most 256 segments; one launch for the
+    B segments); a CPU tensor the plain version."""
     kw = dict(win=win, max_iters=max_iters, eps=eps, min_eig=min_eig,
               wander=wander, last=last, hw=hw)
     if not _lib.uses_kernel(t_tiles, "lk_level"):
         return lk_level_plain(t_tiles, n_tiles, loc0, g_init, o1, status, **kw)
-    N, TH, TW = t_tiles.shape
+    lead = tuple(t_tiles.shape[:1]) if t_tiles.dim() == 4 else ()
+    B = lead[0] if lead else 1
+    N, TH, TW = t_tiles.shape[-3:]
     dev = t_tiles.device
     f32 = torch.float32
     for name, t, shape, dt in (
@@ -219,7 +253,10 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
             ("loc0", loc0, (N, 2), f32), ("g_init", g_init, (N, 2), f32),
             ("o1", o1, (N, 2), torch.int32),
             ("status", status, (N,), torch.bool)):
-        _lib.check("lk_level", name, t, shape, dt, dev)
+        _lib.check("lk_level", name, t, lead + shape, dt, dev)
+    if B > _TICKET_SEGMENTS:
+        raise ValueError(f"lk_level: {B} segments exceed the "
+                         f"{_TICKET_SEGMENTS} finish tickets of a stream")
     if win * win > _MAX_TAPS:
         raise ValueError(f"lk_level: a {win}x{win} window exceeds "
                          f"{_MAX_TAPS} taps")
@@ -229,16 +266,16 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     if t_tiles.data_ptr() % 16 or n_tiles.data_ptr() % 16:
         raise ValueError("lk_level: the tiles must start on 16-byte "
                          "boundaries (bulk copies)")
-    g = torch.empty((N, 2), dtype=f32, device=dev)
-    out_status = torch.empty(N, dtype=torch.bool, device=dev)
-    err = torch.empty(N, dtype=f32, device=dev)
+    g = torch.empty(lead + (N, 2), dtype=f32, device=dev)
+    out_status = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    err = torch.empty(lead + (N,), dtype=f32, device=dev)
     # per-feature trips and flags, for the block that finishes last
-    scratch = torch.empty(N, dtype=torch.int32, device=dev)
-    fn = _lib.function(_LK_LIB, "rvio_lk_level", _LK_ARGS)
+    scratch = torch.empty(lead + (N,), dtype=torch.int32, device=dev)
+    fn = _lib.function(_LK_LIB, "rvio_lk_level_batch", _LK_BATCH_ARGS)
     H, W = hw
     _lib.call(_LK_LIB, fn, *map(_lib.ptr, (
         t_tiles, n_tiles, loc0, g_init, o1, status, g, out_status, err,
-        scratch)), _ticket(dev), N, TH, TW, win, max_iters,
+        scratch)), _ticket(dev), B, N, TH, TW, win, max_iters,
         ctypes.c_float(eps), ctypes.c_float(min_eig), ctypes.c_float(wander),
         int(last), H, W, device=dev)
     _lib.launched(lk_level)
@@ -246,15 +283,16 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
 
 
 def _ticket(dev: torch.device) -> ctypes.c_void_p:
-    """Address of K8's finish ticket for the current stream on ``dev``.
+    """Address of K8's finish tickets for the current stream on ``dev``:
+    ``_TICKET_SEGMENTS`` counters, one for each segment of a call.
 
-    The kernel counts its blocks on it and leaves it at 0, so launches on
-    one stream, which run one after another, reuse it; launches on two
-    streams may overlap, so each stream has its own.  The counters are
-    allocated, zeroed, at the first call on a device, which must not be
-    captured into a CUDA graph.  A graph keeps the counter of the stream
-    it was captured on: two graphs captured on one stream must be replayed
-    on one stream."""
+    The kernel counts a segment's blocks on its counter and leaves it at
+    0, so launches on one stream, which run one after another, reuse them;
+    launches on two streams may overlap, so each stream has its own.  The
+    counters are allocated, zeroed, at the first call on a device, which
+    must not be captured into a CUDA graph.  A graph keeps the counters of
+    the stream it was captured on: two graphs captured on one stream must
+    be replayed on one stream."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     pool = _tickets.get(dev.index)
     if pool is None:
@@ -262,14 +300,16 @@ def _ticket(dev: torch.device) -> ctypes.c_void_p:
             raise RuntimeError("lk_level: the first call on a device must "
                                "not be captured (it allocates the tickets)")
         pool = _tickets[dev.index] = (
-            torch.zeros(_TICKET_SLOTS, dtype=torch.int32, device=dev), {})
+            torch.zeros(_TICKET_SLOTS * _TICKET_SEGMENTS, dtype=torch.int32,
+                        device=dev), {})
     counters, slots = pool
     slot = slots.get(stream)
     if slot is None:
         if len(slots) == _TICKET_SLOTS:
             raise RuntimeError(f"lk_level: more than {_TICKET_SLOTS} streams")
         slot = slots[stream] = len(slots)
-    return ctypes.c_void_p(counters.data_ptr() + 4 * slot)
+    return ctypes.c_void_p(counters.data_ptr()
+                           + 4 * _TICKET_SEGMENTS * slot)
 
 
 def template_support(loc0: torch.Tensor, win: int, TH: int, TW: int):

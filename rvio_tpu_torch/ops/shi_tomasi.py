@@ -29,6 +29,11 @@ each lane with its 8 image rows in registers, and stores the response
 where it forms it.  It reads and writes as much as K13 (0.86 us) and is
 bound by bytes too.  The TPU kernel's lane rolls wrap at the edges and the
 JAX wrapper strips them; here there is nothing to strip.
+
+K13 also takes B images of one size (B, H, W), a batched tracker's
+segments: one launch, a grid row an image, each strip inside its own
+image.  K12 has no tracker caller and keeps its one-image entry (B = 1 of
+the same template).
 """
 
 from __future__ import annotations
@@ -40,12 +45,15 @@ import torch
 from rvio_tpu_torch.ops import _lib
 
 _LIB = "shi_tomasi_nms"
-_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2          # one image
+_BATCH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3    # B images
+_MAX_IMAGES = 65535
 
 
 def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
     """Plain version of K12: the min-eigenvalue corner response
-    (cv::cornerMinEigenVal semantics), a 2-px border zeroed."""
+    (cv::cornerMinEigenVal semantics), a 2-px border zeroed; any leading
+    axes (B images)."""
     # imported here: the frontend package imports this module
     from rvio_tpu_torch.frontend.image import box_filter, sobel_gradients
     ix, iy = sobel_gradients(img)
@@ -56,7 +64,7 @@ def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
     det = sxx * syy - sxy * sxy
     disc = torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))
     resp = (tr - disc) * 0.5
-    H, W = img.shape
+    H, W = img.shape[-2:]
     row = torch.arange(H, device=img.device)[:, None]
     col = torch.arange(W, device=img.device)[None, :]
     inner = (row >= 2) & (row < H - 2) & (col >= 2) & (col < W - 2)
@@ -65,15 +73,16 @@ def shi_tomasi_response(img: torch.Tensor, block: int = 3) -> torch.Tensor:
 
 
 def local_max_mask(m: torch.Tensor) -> torch.Tensor:
-    """True where ``m`` is >= each of its 8 neighbours (-inf beyond)."""
-    H, W = m.shape
+    """True where ``m`` is >= each of its 8 neighbours (-inf beyond), over
+    the last two axes."""
+    H, W = m.shape[-2:]
     mpad = torch.nn.functional.pad(m, (1, 1, 1, 1), value=float("-inf"))
     local_max = torch.ones_like(m, dtype=torch.bool)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             if dy == 0 and dx == 0:
                 continue
-            local_max &= m >= mpad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+            local_max &= m >= mpad[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
     return local_max
 
 
@@ -86,20 +95,28 @@ def shi_tomasi_nms_plain(img: torch.Tensor) -> torch.Tensor:
 
 
 def shi_tomasi_nms(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) image -> (H, W) NMS-masked response (-inf at non-maxima).
+    """(H, W) image -> (H, W) NMS-masked response (-inf at non-maxima);
+    B images (B, H, W) -> (B, H, W).
 
-    A CUDA tensor runs the kernel (f32 only); a CPU tensor the plain
-    version."""
+    A CUDA tensor runs the kernel (f32 only; one launch for the B images);
+    a CPU tensor the plain version."""
     if not _lib.uses_kernel(img, "shi_tomasi_nms"):
         return shi_tomasi_nms_plain(img)
-    H, W = img.shape
+    if img.dim() not in (2, 3):
+        raise ValueError(f"shi_tomasi_nms: img has shape {tuple(img.shape)},"
+                         f" expected (H, W) or (B, H, W)")
+    H, W = img.shape[-2:]
+    B = img.shape[0] if img.dim() == 3 else 1
     dev = img.device
-    _lib.check("shi_tomasi_nms", "img", img, (H, W), torch.float32, dev)
+    _lib.check("shi_tomasi_nms", "img", img, tuple(img.shape), torch.float32,
+               dev)
     if H < 5 or W < 5:
         raise ValueError(f"shi_tomasi_nms: image {H}x{W} under 5x5")
-    out = torch.empty((H, W), dtype=torch.float32, device=dev)
-    fn = _lib.function(_LIB, "rvio_shi_tomasi_nms", _ARGS)
-    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), H, W, device=dev)
+    if B > _MAX_IMAGES:
+        raise ValueError(f"shi_tomasi_nms: {B} images exceed {_MAX_IMAGES}")
+    out = torch.empty(tuple(img.shape), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_shi_tomasi_nms_batch", _BATCH_ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(out), B, H, W, device=dev)
     _lib.launched(shi_tomasi_nms)
     return out
 

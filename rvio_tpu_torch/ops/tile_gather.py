@@ -22,7 +22,9 @@ stores whole aligned 128-byte rows; a tile that cannot fit the image
 (H < 40 or W < 32) takes edge-clamped addresses inside the same kernel.
 Other shapes take a generic kernel, one thread a pixel.  No TMA tensor
 map: the pyramid levels are new allocations every frame, so one would be
-encoded on the host at every call.
+encoded on the host at every call.  A batched tracker's B images (the
+segments) are one launch, a grid row an image: each tile reads its own
+segment's image, and an (H, W) call is the same kernel at B = 1.
 
 K7 (``gather_tiles_aligned``) replaces ``gather_tiles_pallas``
 (``_gather_kernel``) and computes that kernel's own function, which no
@@ -46,40 +48,54 @@ import torch
 from rvio_tpu_torch.ops import _lib
 
 _LIB = "tile_gather"
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5     # one image
+_BATCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+_MAX_IMAGES = 65535     # K6's grid rows
 _ALIGNED_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
 
 
 def gather_tiles_plain(img: torch.Tensor, origin: torch.Tensor, th: int,
                        tw: int) -> torch.Tensor:
-    """Plain version: ``_gather_tiles`` (advanced indexing)."""
-    H, W = img.shape
-    oy = torch.clamp(origin[:, 1], 0, max(H - th, 0))
-    ox = torch.clamp(origin[:, 0], 0, max(W - tw, 0))
-    rows = oy[:, None] + torch.arange(th, device=img.device)[None, :]
-    cols = ox[:, None] + torch.arange(tw, device=img.device)[None, :]
-    rows = torch.clamp(rows, max=H - 1).long()
-    cols = torch.clamp(cols, max=W - 1).long()
-    return img[rows[:, :, None], cols[:, None, :]]
+    """Plain version: ``_gather_tiles`` (advanced indexing), for an (H, W)
+    image and (N, 2) origins or B images (B, H, W) and (B, N, 2)."""
+    if img.dim() == 2:
+        return gather_tiles_plain(img[None], origin[None], th, tw)[0]
+    H, W = img.shape[-2:]
+    oy = torch.clamp(origin[..., 1], 0, max(H - th, 0))
+    ox = torch.clamp(origin[..., 0], 0, max(W - tw, 0))
+    rows = torch.clamp(oy[..., None] + torch.arange(th, device=img.device),
+                       max=H - 1).long()
+    cols = torch.clamp(ox[..., None] + torch.arange(tw, device=img.device),
+                       max=W - 1).long()
+    seg = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[seg, rows[..., :, None], cols[..., None, :]]
 
 
 def gather_tiles(img: torch.Tensor, origin: torch.Tensor, th: int,
                  tw: int) -> torch.Tensor:
-    """(H, W) image + (N, 2) int (x, y) origins -> (N, th, tw) tiles.
+    """(H, W) image + (N, 2) int (x, y) origins -> (N, th, tw) tiles, or B
+    images (B, H, W) + (B, N, 2) origins -> (B, N, th, tw), tile (b, n)
+    from image b.
 
-    A CUDA tensor runs the kernel (f32 image, int32 origins); a CPU tensor
-    the plain version."""
+    A CUDA tensor runs the kernel (f32 image, int32 origins; one launch
+    for the B images, B <= 65535); a CPU tensor the plain version."""
     if not _lib.uses_kernel(img, "gather_tiles"):
         return gather_tiles_plain(img, origin, th, tw)
-    H, W = img.shape
-    N = origin.shape[0]
+    batched = img.dim() == 3
+    B = img.shape[0] if batched else 1
+    H, W = img.shape[-2:]
+    N = origin.shape[-2] if origin.dim() >= 2 else -1
     dev = img.device
-    _lib.check("gather_tiles", "img", img, (H, W), torch.float32, dev)
-    _lib.check("gather_tiles", "origin", origin, (N, 2), torch.int32, dev)
-    out = torch.empty((N, th, tw), dtype=torch.float32, device=dev)
-    fn = _lib.function(_LIB, "rvio_gather_tiles", _ARGS)
+    lead = (B,) if batched else ()
+    _lib.check("gather_tiles", "img", img, lead + (H, W), torch.float32, dev)
+    _lib.check("gather_tiles", "origin", origin, lead + (N, 2), torch.int32,
+               dev)
+    if B > _MAX_IMAGES:
+        raise ValueError(f"gather_tiles: {B} images exceed {_MAX_IMAGES}")
+    out = torch.empty(lead + (N, th, tw), dtype=torch.float32, device=dev)
+    fn = _lib.function(_LIB, "rvio_gather_tiles_batch", _BATCH_ARGS)
     _lib.call(_LIB, fn, _lib.ptr(img), _lib.ptr(origin), _lib.ptr(out),
-              H, W, N, th, tw, device=dev)
+              H, W, B, N, th, tw, device=dev)
     _lib.launched(gather_tiles)
     return out
 

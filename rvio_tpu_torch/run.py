@@ -14,8 +14,10 @@ Usage:
   python -m rvio_tpu_torch.run --euroc DIR --save-checkpoint s.npz     # then
   python -m rvio_tpu_torch.run --euroc DIR --resume s.npz              # resume
   python -m rvio_tpu_torch.run --info /data/V1_01_easy.bag             # topics
+  python -m rvio_tpu_torch.run --set /data/V1_01_easy /data/V2_01_easy \
+      --output out/                              # a set in lockstep, one card
 
-``--set`` and ``--sweep`` are not ported yet.
+``--sweep`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,9 +30,7 @@ import time
 import numpy as np
 
 # the slice of the port that will bring what a refused flag needs
-_LATER = {"--set": "the batched replay (the batch axis through the tracker "
-                   "kernels, make_batched_image_chunk_scan and replay_set)",
-          "--sweep": "the utilities and eval/sweep.py"}
+_LATER = {"--sweep": "the utilities and eval/sweep.py"}
 
 
 def main(argv=None) -> int:
@@ -39,7 +39,8 @@ def main(argv=None) -> int:
 
 
 def run(argv=None):
-    """The CLI's work: returns the run's DriverResult (None for --info)."""
+    """The CLI's work: returns the run's DriverResult (None for --info, a
+    list of them for --set)."""
     ap = argparse.ArgumentParser(description="rvio_tpu_torch sequence runner")
     ap.add_argument("--config", default=None,
                     help="YAML config (native or reference cv-format)")
@@ -56,7 +57,9 @@ def run(argv=None):
     ap.add_argument("--imu-topic", default="/imu0",
                     help="rosbag IMU topic (reference remaps this to /imu)")
     ap.add_argument("--set", nargs="+", default=None, metavar="SEQ",
-                    help="not ported yet: batch-replay several sequences")
+                    help="replay several sequences (EuRoC folders or .bag "
+                         "files) in lockstep on one device; one output "
+                         "folder each")
     ap.add_argument("--synthetic", type=float, default=None, metavar="SECONDS",
                     help="run the simulator for SECONDS instead of a dataset")
     ap.add_argument("--sweep", type=int, default=None, metavar="N",
@@ -84,7 +87,7 @@ def run(argv=None):
                          "trajectory")
     args = ap.parse_args(argv)
 
-    for flag, dest in (("--set", args.set), ("--sweep", args.sweep)):
+    for flag, dest in (("--sweep", args.sweep),):
         if dest is not None:
             ap.error(f"{flag} is not ported to rvio_tpu_torch yet: it comes "
                      f"with {_LATER[flag]}, a later slice of the port "
@@ -109,6 +112,9 @@ def run(argv=None):
     cfg = load_config(args.config) if args.config else RVIOConfig()
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     os.makedirs(args.output, exist_ok=True)
+
+    if args.set:
+        return _run_set(args, cfg, dtype)
 
     gt_aligned = None
     if args.synthetic is not None:
@@ -186,6 +192,55 @@ def run(argv=None):
         written.append("landmarks.xyz")
     print(f"wrote {', '.join(os.path.join(args.output, w) for w in written)}")
     return res
+
+
+def _run_set(args, cfg, dtype):
+    """``--set``: the sequences through ``run_sequence_set``; prints the
+    aggregate frames/s and a line a sequence (its ATE where the input has
+    ground truth) and writes each trajectory under the output folder, in
+    a folder named after the input (made unique)."""
+    from rvio_tpu_torch.dataio.tum import write_tum
+    from rvio_tpu_torch.eval.ate import ate_rmse, match_nearest
+    from rvio_tpu_torch.runtime.replay_set import run_sequence_set
+
+    def load_any(path):
+        if path.endswith(".bag"):
+            from rvio_tpu_torch.dataio.rosbag import load_rosbag
+            return load_rosbag(path, image_topic=args.image_topic,
+                               imu_topic=args.imu_topic, skip_s=args.skip)
+        from rvio_tpu_torch.dataio.euroc import load_euroc
+        return load_euroc(path, skip_s=args.skip)
+
+    seqs = [load_any(p) for p in args.set]
+    t0 = time.perf_counter()
+    results = run_sequence_set(cfg, seqs, dtype=dtype, device=args.device,
+                               seed=args.seed, progress=True)
+    wall = time.perf_counter() - t0
+    total = sum(len(r.timestamps) for r in results)
+    print(f"{total} frames / {len(seqs)} sequences in {wall:.1f} s "
+          f"({total / wall:.1f} fps aggregate)")
+    used = {}
+    for path, seq, res in zip(args.set, seqs, results):
+        name = os.path.basename(os.path.normpath(path)).replace(".bag", "")
+        # two inputs with the same basename must not overwrite each other
+        n = used.get(name, 0)
+        used[name] = n + 1
+        if n:
+            name = f"{name}.{n}"
+        line = f"{name:24s} {len(res.timestamps)} frames"
+        if seq.gt_p is not None:
+            gi, ok = match_nearest(seq.gt_t, res.timestamps)
+            if ok.sum() >= 3:
+                ate = ate_rmse(res.positions[ok], seq.gt_p[gi][ok])
+                line += f"  ATE {ate * 100:.2f} cm ({int(ok.sum())} matched)"
+            else:
+                line += "  ATE n/a (no gt within tolerance)"
+        print(line)
+        d = os.path.join(args.output, name)
+        os.makedirs(d, exist_ok=True)
+        write_tum(os.path.join(d, "stamped_pose_ests.dat"), res.timestamps,
+                  res.positions, res.quaternions)
+    return results
 
 
 if __name__ == "__main__":

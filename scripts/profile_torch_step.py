@@ -2,7 +2,7 @@
 """Where the port's per-frame path spends its time on a CUDA card.
 
     python3 scripts/profile_torch_step.py [--graph] [--image
-        [--no-equalizer] | --batch B] [--frames 200] [--trace PATH]
+        [--no-equalizer]] [--batch B] [--frames 200] [--trace PATH]
 
 Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
 ``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
@@ -11,9 +11,12 @@ the same workload's rendered 752 x 480 frames, images -> poses at
 ``RVIOConfig()`` (CLAHE on; ``--no-equalizer`` turns it off), with its
 front-end/back-end split.  With ``--batch B``: B copies of the feature
 workload through ``make_batched_sequence_scan`` (bench.py's batched
-rate), a frame of the B segments per step; it also times the graph's
-replays alone (the host's enqueue time against the device's time a
-frame).  The frames run eagerly, one launch after
+rate), a frame of the B segments per step; with ``--image --batch B``:
+B copies of the first ``--frames`` + 100 tracked frames of the rendered
+workload through ``make_batched_image_chunk_scan`` (the set replay's
+frame: tracker and filter over the B images).  With ``--graph`` both
+batched forms also time the graph's replays alone (the host's enqueue
+time against the device's time a frame).  The frames run eagerly, one launch after
 another from the host (chip_smoke.eager_frames), unless ``--graph``: then
 as the drivers run them, replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), whose capture happens in the whole run
@@ -99,7 +102,8 @@ def main() -> int:
                     help="the drivers' graphed frames (default: eager)")
     ap.add_argument("--batch", type=int, default=0,
                     help="B copies of the feature workload in the batched "
-                    "scan")
+                    "scan (with --image: of the rendered frames in the "
+                    "batched image scan)")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
     a = ap.parse_args()
@@ -118,6 +122,8 @@ def main() -> int:
           flush=True)
     from chip_smoke import eager_frames
     with _scans_kept() if a.graph else eager_frames():
+        if a.batch and a.image:
+            return _profile_batched_image(a)
         return _profile_batched(a) if a.batch else _profile(a)
 
 
@@ -165,10 +171,24 @@ def _profile_batched(a) -> int:
           f"{a.batch * T / wall:.1f} frames/s end to end "
           f"({', '.join(f'{a.batch * T / w:.1f}' for w in walls)}); "
           f"{loop_ms:.3f} ms a batched frame", flush=True)
-    # the replays alone: the host's time to enqueue one against the
-    # device's time a frame (CUDA events on the graph stream)
+    if a.graph:
+        _replays_alone(run.frame_scan, T)
+    m = min(a.frames, T)
+    win = dataclasses.replace(
+        bb, imu=map_fields(lambda x: x[:, :m], bb.imu),
+        batch=map_fields(lambda x: x[:, :m], bb.batch))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w = timed(win)
+    _report(a, prof, w, m, loop_ms)
+    return 0
+
+
+def _replays_alone(fs, T: int) -> None:
+    """The graph's replays alone: the host's time to enqueue one against
+    the device's time a frame (CUDA events on the graph stream)."""
     from rvio_tpu_torch.runtime.graph import device_stream
-    fs, (stream, _) = run.frame_scan, device_stream(torch.device("cuda", 0))
+    stream, _ = device_stream(torch.device("cuda", 0))
     for _ in range(3):
         fs._cursor.zero_()
         torch.cuda.synchronize()
@@ -184,13 +204,71 @@ def _profile_batched(a) -> int:
         print(f"replays: {(t1 - t0) / T * 1e3:.4f} ms of host time to "
               f"enqueue one, {e0.elapsed_time(e1) / T:.4f} ms of device "
               f"time a batched frame", flush=True)
-    m = min(a.frames, T)
-    win = dataclasses.replace(
-        bb, imu=map_fields(lambda x: x[:, :m], bb.imu),
-        batch=map_fields(lambda x: x[:, :m], bb.batch))
+
+
+def _profile_batched_image(a) -> int:
+    """The batched image frame: B copies of the workload's first tracked
+    frames (rendered once, held on the host) as one chunk through
+    make_batched_image_chunk_scan, whole runs timed, then a window of the
+    first ``--frames`` batched frames profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.dataio.synthetic import render_frame
+    from rvio_tpu_torch.frontend import make_tracker, stack_tracker_states
+    from rvio_tpu_torch.ops import _lib
+    from rvio_tpu_torch.runtime import (bundle_imu,
+                                        make_batched_image_chunk_scan)
+    from rvio_tpu_torch.runtime.image_driver import (_find_init_frame,
+                                                     _imu_chunk_arrays,
+                                                     uniform_table)
+    from rvio_tpu_torch.state import stack_states
+    _lib.build()
+    cfg = RVIOConfig()
+    sim = _workload(cfg)
+    B, dev = a.batch, torch.device("cuda", 0)
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    fs0, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
+                               dev)
+    T = a.frames + 100
+    ks = list(range(k0 + 1, k0 + 1 + T))
+    t0 = time.perf_counter()
+    u8 = np.stack([np.clip(render_frame(cfg, sim, k), 0, 255)
+                   for k in [k0] + ks]).astype(np.uint8)
+    print(f"rendered {T + 1} frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    init_fn, _ = make_tracker(cfg, dev)
+    ts0, _ = init_fn(torch.as_tensor(u8[0]))
+    ch = _imu_chunk_arrays(groups, ks, cfg.tpu.imu_block, torch.float32, dev)
+    ch["image"] = torch.as_tensor(u8[1:]).to(dev)
+    ch["u"] = uniform_table(0, T, cfg.tracker.num_features).to(dev).float()
+    chunk = {k: v.expand((B,) + tuple(v.shape)) for k, v in ch.items()}
+    carry = (stack_tracker_states([ts0] * B), stack_states([fs0] * B))
+    scan = make_batched_image_chunk_scan(cfg, dev)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = scan(carry, {k: v[:, :n] for k, v in chunk.items()})
+        float(out["p_Gk"].sum())
+        return time.perf_counter() - t0
+
+    timed(T)                                                 # warm-up
+    walls = [timed(T) for _ in range(3)]
+    wall = min(walls)
+    loop_ms = wall * 1e3 / T
+    print(f"whole run: {B} x {T} frames, best {wall:.3f} s = "
+          f"{B * T / wall:.1f} frames/s end to end "
+          f"({', '.join(f'{B * T / w:.1f}' for w in walls)}); "
+          f"{loop_ms:.3f} ms a batched frame; captures "
+          f"{[(c['frames'], round(c['seconds'], 4), c['pool_bytes']) for c in scan.frame_scan.captures]}",
+          flush=True)
+    if a.graph:
+        _replays_alone(scan.frame_scan, T)
+    m = a.frames
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        w = timed(win)
+        w = timed(m)
     _report(a, prof, w, m, loop_ms)
     return 0
 

@@ -41,7 +41,11 @@ and a capture that meets a host sync raising; the segment-batched filter:
 K1-K5 at its shapes against their plain versions, the graphed batched
 scan against single scans with one launch a batched frame, the masked
 scan keeping a masked segment's state, and the warm split with its
-repair pass.  Whether a
+repair pass; the batched tracker: K6, K8, K9 (B·N rows), K10, K11 and
+K13 at B = 1, 2 and 4 against their plain versions, K8's segments each
+with its own T bitwise against single launches, the batched wrappers
+refusing mismatched parts, and the set replay against the single
+replays.  Whether a
 card is present is decided in the fixture, so every process collects the
 same tests.
 """
@@ -808,14 +812,9 @@ def _lk_against_plain(cuda, args, kw):
     the plain f32 and f64 part by up to 0.14 px); at most a tenth of the
     features live in f64 are set aside (the most, 7 of 96, at win 5 with
     templates at the tile edges).  One launch.  Returns both outputs."""
-    from rvio_tpu_torch.ops.checks import LK_POS_TOL, compare_lk
+    from rvio_tpu_torch.ops.checks import compare_lk, lk_well_posed
     from rvio_tpu_torch.ops.klt_iterate import lk_level, lk_level_plain
-    g32, s32, _ = lk_level_plain(*args, **kw)
-    g64, s64, _ = lk_level_plain(*(x.double() if x.is_floating_point() else x
-                                   for x in args), **kw)
-    off = (g32.double() - g64).abs().amax(dim=1) > LK_POS_TOL / 4
-    posed = (s32 == s64) & ~(s64 & off)
-    assert int((~posed).sum()) <= 0.1 * max(int(s64.sum()), 1)
+    posed = lk_well_posed(args, kw)
     args = tuple(x.to(cuda) for x in args)
     before = lk_level.launches
     got = lk_level(*args, **kw)
@@ -1882,3 +1881,115 @@ def test_warm_split_on_card(cuda):
     assert info["repaired_segments"] == [3]
     assert [c["frames"] for c in info["repair_scan"].frame_scan.captures] \
         == [1]
+
+
+# ---- the batched tracker's image kernels and the set replay ----------------
+
+IMAGE_BATCH_NAMES = ["gather_tiles", "lk_level", "subpix_refine",
+                     "shi_tomasi_nms", "clahe_luts", "clahe_apply"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("name", IMAGE_BATCH_NAMES)
+def test_image_batch_kernel_matches_plain(cuda, name, B):
+    """Each image kernel at B segments (K9: B·N rows) in one launch
+    against its plain version on the same inputs, segment by segment at
+    the one-segment tolerance (K8 also bitwise against a single launch a
+    segment)."""
+    from rvio_tpu_torch.ops.checks import image_batch_checks
+    chk = {c.name: c for c in image_batch_checks(cuda, B)}[name]
+    before = chk.kernel.launches
+    chk.check()
+    torch.cuda.synchronize()
+    assert chk.kernel.launches == before + chk.check_launches
+
+
+def _two_T_segments(cuda):
+    """K8's arguments for two segments of 24 features whose largest trip
+    counts differ (the same texture moved by a small and a large shift)."""
+    from rvio_tpu_torch.frontend.image import bilinear_sample
+    from rvio_tpu_torch.ops.checks import _texture, lk_inputs
+    rng = np.random.default_rng(3)
+    H, W = 120, 160
+    cases = []
+    for shift in ((0.4, -0.3), (3.7, 2.9)):
+        base = _texture(rng, H + 40, W + 40)
+        yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                                torch.arange(W, dtype=torch.float64),
+                                indexing="ij")
+        img2 = bilinear_sample(base, torch.stack(
+            [xx + 20 - shift[0], yy + 20 - shift[1]], -1))
+        pts = rng.uniform([8, 8], [W - 9, H - 9], (24, 2))
+        args, _ = lk_inputs(base[20:20 + H, 20:20 + W].float(),
+                            img2.float(), pts, 15)
+        cases.append(tuple(x.to(cuda) for x in args))
+    kw = dict(win=15, max_iters=30, eps=1e-2, min_eig=1e-3, wander=7.5,
+              last=True, hw=(H, W))
+    return cases, kw
+
+
+@pytest.mark.gpu
+def test_lk_level_segments_keep_their_T(cuda):
+    """Two segments with different T in one launch: each is its single
+    launch bitwise, and the plain version's segments are its single
+    calls."""
+    from rvio_tpu_torch.ops.klt_iterate import (lk_level, lk_level_plain,
+                                                lk_level_trips)
+    cases, kw = _two_T_segments(cuda)
+    T = [int(lk_level_trips(*a, **kw)[3].max()) for a in cases]
+    assert T[0] != T[1]
+    stacked = tuple(torch.stack(x) for x in zip(*cases))
+    before = lk_level.launches
+    got = lk_level(*stacked, **kw)
+    assert lk_level.launches == before + 1
+    plain = lk_level_plain(*stacked, **kw)
+    for b, a in enumerate(cases):
+        one = lk_level(*a, **kw)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y)
+        for x, y in zip(plain, lk_level_plain(*a, **kw)):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.gpu
+def test_image_batch_wrappers_refuse(cuda):
+    """A batch whose parts do not match raises: origins of another segment
+    count, LUTs of another, more segments than K8's tickets."""
+    from rvio_tpu_torch.ops.clahe import clahe_apply
+    from rvio_tpu_torch.ops.klt_iterate import lk_level
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles
+    img = torch.zeros(2, 48, 64, device=cuda)
+    with pytest.raises(ValueError):
+        gather_tiles(img, torch.zeros(3, 5, 2, dtype=torch.int32,
+                                      device=cuda), 40, 32)
+    with pytest.raises(ValueError):
+        clahe_apply(img, torch.zeros(3, 25, 256, device=cuda))
+    cases, kw = _two_T_segments(cuda)
+    many = tuple(torch.stack([x] * 257) for x in cases[0])
+    with pytest.raises(ValueError):
+        lk_level(*many, **kw)
+
+
+@pytest.mark.gpu
+def test_set_replay_on_the_card(cuda):
+    """run_sequence_set on the card (f32, the small config of
+    tests/test_replay_set.py, 6 s and 4 s): each sequence as its single
+    replay within the image path's card limits, one launch a batched
+    frame of every image kernel."""
+    from test_torch_replay_set import _cfg, _mem_seq
+    from rvio_tpu_torch import config as tconfig
+    from rvio_tpu_torch.ops.klt_iterate import lk_level
+    from rvio_tpu_torch.runtime import (run_euroc_sequence_scan,
+                                        run_sequence_set)
+    cfg = _cfg(tconfig, True)
+    seqs = [_mem_seq(cfg, 6.0, 5)[0], _mem_seq(cfg, 4.0, 9)[0]]
+    lk_level.launches = 0
+    res = run_sequence_set(cfg, seqs, device=cuda, chunk_size=8)
+    L = lk_level.launches // (cfg.tracker.klt_levels + 1)
+    assert L == max(len(r.timestamps) for r in res)
+    for r, s in zip(res, seqs):
+        one = run_euroc_sequence_scan(cfg, s, device=cuda, chunk_size=8)
+        np.testing.assert_array_equal(r.timestamps, one.timestamps)
+        np.testing.assert_allclose(r.positions, one.positions, atol=5e-5)
+        assert (r.active_slots == one.active_slots).mean() >= 0.99

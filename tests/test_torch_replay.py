@@ -15,7 +15,8 @@ RANSAC draws.
   draws, and resumed with the JAX chain's continued draws is the JAX
   resumed run (1e-10 m);
 - the CLI writes its four outputs in the JAX CLI's formats, ``--info``
-  prints the topics, ``--set`` and ``--sweep`` are refused.
+  prints the topics, ``--sweep`` is refused (``--set`` runs:
+  tests/test_torch_replay_set.py).
 """
 
 import jax
@@ -257,7 +258,7 @@ def test_cli_info(data, capsys):
     assert "duration:" in printed
 
 
-@pytest.mark.parametrize("flag", [["--set", "a", "b"], ["--sweep", "3"]])
+@pytest.mark.parametrize("flag", [["--sweep", "3"]])
 def test_cli_refuses_later_slices(flag, capsys):
     from rvio_tpu_torch.run import main
     with pytest.raises(SystemExit):
