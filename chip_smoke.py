@@ -88,11 +88,26 @@ set to 0 just before it and read just after:
   K13 at B = 4 on tracked frame 100 of the four sequences, each against
   its plain version segment by segment (K8 at every level, bitwise
   against a single launch a segment), rows ``<kernel>@B4`` of the
-  kernels line.
+  kernels line;
+- the multi-device layer (rvio_tpu_torch/parallel): a (1, 1) NCCL mesh in
+  this process, ``make_parallel_sequence`` over the batched filter's 16
+  copies bitwise the batched scan (no collective of the port runs on a
+  (1, 1) mesh: both axes have size 1), and a probe, one NCCL
+  ``all_reduce`` of a frame's feat buffer at world size 1; then two
+  ranks on the card over
+  gloo (scripts/torch_multiprocess_check.py): the workload's four
+  quarters with seg = 2 and with feat = 2 against the unsharded batched
+  scan (the feat ranks' states bitwise equal, one ``all_reduce`` a frame,
+  K2-K4 once a frame on each rank), ``run_segments_warm(mesh=)`` with
+  seg = 2 against the warm split above, and the feat-split KLT through
+  ``make_image_chunk_scan(mesh=)`` on a 32-frame chunk against the
+  unsharded scan, each with its frames/s beside one rank's; K2-K4, K6 and
+  K8 on a rank's rows, rows ``<kernel>@feat2`` of the kernels line.
 
 The public drivers run their frames as replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), so the phases that drive them measure
-the graphed path; the eager frame loop (:class:`EagerFrameScan`) is the
+the graphed path; the eager frame loop (runtime/graph.py
+``EagerFrameScan``) is the
 reference of the graph-against-eager phase and drives the KLT frame
 capture, whose recorders see each frame's calls.
 
@@ -219,6 +234,28 @@ SET_ACTIVE_AGREE = IMG_CPU_ACTIVE_AGREE
 # the image kernels at the batched tracker's shapes: tracked frame
 # KLT_FRAME of the set's sequences, one segment each
 SET_B = len(SET_SEEDS)
+# the mesh layer (rvio_tpu_torch/parallel): the feature workload's
+# MESH_SEGMENTS quarters (each started from the unsplit scan's state at its
+# first frame) in two ranks on the one card over gloo
+# (scripts/torch_multiprocess_check.py), seg = 2 against the unsharded
+# batched scan (bitwise expected: each rank's frame is the batched body at
+# B = 2; held to the card-vs-CPU limits and equal n_good) and feat = 2
+# against it within the card-vs-CPU limits (the sums of two halves,
+# another summation order); the warm split with seg = 2 against mesh=None
+# within the same position limit, with its gates and the same repairs;
+# the feat-split KLT through make_image_chunk_scan(mesh=) on one
+# MESH_KLT_FRAMES-frame chunk at RVIOConfig() against the unsharded scan:
+# pos, hist and active equal (this chunk's data, on which K8's T rule, a
+# rank's T its own lanes' largest trip count, parts nothing), every pose
+# within the image path's card-vs-CPU limit
+MESH_SEGMENTS = 4
+MESH_GAP_POS_M = CPU_GAP_POS_M
+MESH_GAP_ROT_RAD = CPU_GAP_ROT_RAD
+MESH_KLT_FRAMES = 32
+MESH_KLT_GAP_M = IMG_CPU_GAP_POS_M
+MESH_TIMEOUT_S = 420
+MESH_KERNELS = ("lm_triangulate", "jac_project", "batched_quadform",
+                "gather_tiles", "lk_level")
 
 
 def _events_ms(run, reps: int) -> float:
@@ -304,20 +341,6 @@ def rotation_gap(q1: np.ndarray, q2: np.ndarray) -> float:
     return float(torch.arcsin(torch.linalg.vector_norm(s, dim=-1).clamp(max=1.0)).max())
 
 
-def _frame_scan_class():
-    from rvio_tpu_torch.runtime.graph import FrameScan
-
-    class EagerFrameScan(FrameScan):
-        """A FrameScan whose frames all run eagerly on the card: the same
-        body, buffers and cursor as the graphed scan, with no graph."""
-
-        def _run_graphed(self, T: int) -> None:
-            for _ in range(T):
-                self._frame()
-
-    return EagerFrameScan
-
-
 @contextlib.contextmanager
 def eager_frames():
     """Within the block, the public drivers and builders run their frames
@@ -326,9 +349,9 @@ def eager_frames():
 
     import rvio_tpu_torch.runtime.image_driver as image_driver
     import rvio_tpu_torch.runtime.step as step
-    eager = _frame_scan_class()
-    with mock.patch.object(step, "FrameScan", eager), \
-            mock.patch.object(image_driver, "FrameScan", eager):
+    from rvio_tpu_torch.runtime.graph import EagerFrameScan
+    with mock.patch.object(step, "FrameScan", EagerFrameScan), \
+            mock.patch.object(image_driver, "FrameScan", EagerFrameScan):
         yield
 
 
@@ -573,7 +596,7 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
             calls["shi_tomasi_nms"][-1][0][0])
 
 
-def klt_frame_phase(dev, sim, records) -> None:
+def klt_frame_phase(dev, sim, records):
     """K8 and K6 on the tracker's inputs at tracked frame KLT_FRAME of the
     CLAHE-on image path, at each pyramid level: each against its plain
     version (raises over the check's tolerance), T and the trip counts of
@@ -581,7 +604,8 @@ def klt_frame_phase(dev, sim, records) -> None:
     graph of 200); into each kernel's record as ``frame_levels``.  K10 on
     the same frame's image, K11 on that image with its LUTs (the tracker's
     CLAHE: clip 3.0, a 5 x 5 grid), K9 and K13 on that frame's refill
-    detection (:func:`frame_check`), all captured in the same run."""
+    detection (:func:`frame_check`), all captured in the same run.
+    Returns the per-level captures (:func:`capture_klt_frame`)."""
     from rvio_tpu_torch.ops.checks import (clahe_apply_case,
                                            clahe_luts_case, lk_case,
                                            shi_nms_case, subpix_case,
@@ -645,6 +669,7 @@ def klt_frame_phase(dev, sim, records) -> None:
         dev, nms_img, what=f" (frame {KLT_FRAME}'s level 0)"),
         f"tracked frame {KLT_FRAME}'s level 0, CLAHE on, "
         f"{nms_img.shape[0]}x{nms_img.shape[1]}")
+    return captured
 
 
 def _render_u8(cfg, sim, k):
@@ -1386,12 +1411,13 @@ def capture_batch_inputs(dev, sim):
     return cfg, captured
 
 
-def batch_kernel_phase(dev, sim, records, launches) -> None:
+def batch_kernel_phase(dev, sim, records, launches):
     """K1-K5 at the batched filter's shapes on frame BATCH_FRAME of BATCH
     segments (:func:`capture_batch_inputs`), each against its plain
     version with its own bound (:func:`measure`); their rows join the
     kernels line as ``<name>@B16`` with the batched phase's launches.  K5
-    also at B = 1 and 4 (its first systems), and its clusters' residency."""
+    also at B = 1 and 4 (its first systems), and its clusters' residency.
+    Returns the captured inputs."""
     from rvio_tpu_torch.ops import ekf_tail as k5
     from rvio_tpu_torch.ops.checks import (ekf_tail_case, jac_case, lm_case,
                                            propagate_case, quadform_case)
@@ -1437,14 +1463,17 @@ def batch_kernel_phase(dev, sim, records, launches) -> None:
                   f"{BATCH} runs in {-(-BATCH // max(fit, 1))} wave(s)",
                   flush=True)
             rec["max_active_clusters"] = fit
+    return cap
 
 
-def warm_split_phase(dev, kernels) -> None:
+def warm_split_phase(dev, kernels):
     """The warm split on the card in f32: tests/test_handoff.py
     TestWarmHandoff's case through run_segments_warm against the unsplit
     graphed scan, with that test's gates; then the same split with the
     last segment's body stripped of its features, so the repair pass runs
-    (its B = 1 scan, a capture of its own)."""
+    (its B = 1 scan, a capture of its own).  Returns the case (state0,
+    bundles, gt, the unsplit positions ``full`` and ATE ``ate_full``) and
+    the first split's stitched positions and info."""
     from rvio_tpu_torch import config as tconfig
     from rvio_tpu_torch.bench import feature_bundles
     from rvio_tpu_torch.dataio import simulate_sequence
@@ -1532,6 +1561,8 @@ def warm_split_phase(dev, kernels) -> None:
           f"repaired segments {info2['repaired_segments']} in {wall2:.2f} s; "
           f"the repair's B = 1 scan captures {caps} (frames, s, graph pool "
           f"bytes)", flush=True)
+    return dict(state0=state0, bundles=bundles, stitched=stitched,
+                info=info, gt=gt, full=full, ate_full=ate_full)
 
 
 def set_sequences():
@@ -1715,6 +1746,388 @@ def batch_image_kernel_phase(dev, sims, seqs, records, launches) -> None:
         records.append((chk.kernel, rec))
 
 
+def _arrays(prefix, obj) -> dict:
+    """The tensors of a dataclass as host arrays keyed ``prefix + field``."""
+    return {f"{prefix}{f.name}": getattr(obj, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(obj)}
+
+
+def _gap(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def mesh_quarters(dev, sim):
+    """The feature workload's MESH_SEGMENTS quarters at ``RVIOConfig()``:
+    segment s takes frames [s Q, (s + 1) Q) and starts from the graphed
+    single scan's state after s Q frames (a checkpoint continuation).
+    Returns (cfg, stacked states, (S, Q, ...) bundles)."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.runtime import FrameBundle, make_sequence_scan
+    from rvio_tpu_torch.state import stack_states
+    from rvio_tpu_torch.state.filter_state import map_fields
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    Q = int(bundles.imu.w.shape[0]) // MESH_SEGMENTS
+    run = make_sequence_scan(cfg, dev)
+    states, parts = [], []
+    for q in range(MESH_SEGMENTS):
+        if q == 0:
+            states.append(state0)
+        else:
+            states.append(run(state0, FrameBundle(
+                imu=map_fields(lambda x: x[:q * Q], bundles.imu),
+                batch=map_fields(lambda x: x[:q * Q], bundles.batch)))[0])
+        parts.append(FrameBundle(
+            imu=map_fields(lambda x: x[q * Q:(q + 1) * Q], bundles.imu),
+            batch=map_fields(lambda x: x[q * Q:(q + 1) * Q], bundles.batch)))
+    stacked = FrameBundle(
+        imu=dataclasses.replace(parts[0].imu, **{
+            f.name: torch.stack([getattr(p.imu, f.name) for p in parts])
+            for f in dataclasses.fields(parts[0].imu)}),
+        batch=dataclasses.replace(parts[0].batch, **{
+            f.name: torch.stack([getattr(p.batch, f.name) for p in parts])
+            for f in dataclasses.fields(parts[0].batch)}))
+    return cfg, stack_states(states), stacked
+
+
+def mesh_chunk(dev, sim):
+    """One MESH_KLT_FRAMES-frame chunk of images -> poses at ``RVIOConfig()``
+    (CLAHE on): the init frame's image and filter state (the init gate on
+    the card) and the next frames' chunk with the run's draws."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.runtime import bundle_imu
+    from rvio_tpu_torch.runtime.image_driver import (_find_init_frame,
+                                                     _imu_chunk_host,
+                                                     uniform_table)
+    cfg = RVIOConfig()
+    groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    st0, k0 = _find_init_frame(cfg, groups, len(sim.frame_t), torch.float32,
+                               dev)
+    ks = range(k0 + 1, k0 + 1 + MESH_KLT_FRAMES)
+    with ThreadPoolExecutor(WRITE_THREADS) as ex:
+        images = list(ex.map(lambda k: _render_u8(cfg, sim, k),
+                             range(k0, ks[-1] + 1)))
+    chunk = {**_imu_chunk_host(groups, ks, cfg.tpu.imu_block),
+             "image": np.stack(images[1:]),
+             "u": uniform_table(0, MESH_KLT_FRAMES,
+                                cfg.tracker.num_features).numpy()}
+    return cfg, images[0], st0, chunk
+
+
+def all_reduce_ms(dev, nbytes: int, reps: int = 200) -> float:
+    """Time of one NCCL ``all_reduce`` of ``nbytes`` of f32 on the card
+    in the current (one-rank) process group: CUDA events around ``reps``
+    calls."""
+    import torch.distributed as dist
+    buf = torch.zeros(nbytes // 4, dtype=torch.float32, device=dev)
+    for _ in range(3):
+        dist.all_reduce(buf)
+
+    def run():
+        for _ in range(reps):
+            dist.all_reduce(buf)
+
+    return _events_ms(run, reps)
+
+
+def mesh_phase(dev, sim, kernels, records, batch_cap, klt_cap,
+               warm) -> None:
+    """The mesh layer (rvio_tpu_torch/parallel) on the card:
+
+    - NCCL, one rank, in this process: ``make_parallel_sequence`` on a
+      (1, 1) mesh over BATCH copies of the feature workload, bitwise the
+      graphed batched scan (no collective of the port runs at (1, 1));
+      the per-frame bytes of the feat ``all_reduce`` (Cholesky: C, b and
+      the counts of each segment) and, a probe of its cost, an NCCL
+      ``all_reduce`` of that size at world size 1;
+    - two ranks on the card over gloo (scripts/torch_multiprocess_check.py,
+      one launch, the kernels built here first): the workload's quarters
+      with seg = 2 and with feat = 2 against the unsharded batched scan
+      (frames/s of each beside it), the feat ranks' states bitwise equal,
+      K2-K4 once a frame on each rank; ``run_segments_warm(mesh=)`` with
+      seg = 2 against this run's ``mesh=None`` split (``warm``); the
+      feat-split KLT through ``make_image_chunk_scan(mesh=)`` against the
+      unsharded graphed chunk scan;
+    - K2-K4 on a rank's rows (4 segments x F/2 lanes of frame BATCH_FRAME,
+      from ``batch_cap``) and K6 and K8 on a rank's N/2 lanes (level 0 of
+      tracked frame KLT_FRAME, from ``klt_cap``), each against its plain
+      version: rows ``<kernel>@feat2`` of the kernels line, with the
+      launches of rank 0 in the two-rank runs."""
+    import torch.distributed as dist
+
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import batch_copies, feature_bundles
+    from rvio_tpu_torch.frontend import make_tracker
+    from rvio_tpu_torch.ops.checks import (jac_case, lk_case, lm_case,
+                                           quadform_case, tile_case)
+    from rvio_tpu_torch.parallel import (make_mesh, make_parallel_sequence,
+                                         shard_bundles, shard_states)
+    from rvio_tpu_torch.runtime import (make_batched_sequence_scan,
+                                        make_image_chunk_scan)
+    from rvio_tpu_torch.runtime.graph import tree_leaves
+    from rvio_tpu_torch.state import stack_states
+
+    # ---- NCCL, world size 1, in this process ----
+    cfg = RVIOConfig()
+    state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    T = int(bundles.imu.w.shape[0])
+    states, bb = stack_states([state0] * BATCH), batch_copies(bundles, BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(seg=1, feat=1)
+            fs, out = make_batched_sequence_scan(cfg, dev)(states, bb)
+            _zero(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pfs, pout = make_parallel_sequence(cfg, mesh)(
+                shard_states(states, mesh), shard_bundles(bb, mesh))
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t0
+            launches = _launches(kernels)
+            M, B4 = cfg.window_size, MESH_SEGMENTS
+            n_sums = 3 + 2 * int(cfg.tpu.adaptive_noise)
+            frame_bytes = 4 * B4 * (36 * M * M + 6 * M + n_sums)
+            ar_ms = all_reduce_ms(dev, frame_bytes)
+        finally:
+            dist.destroy_process_group()
+    same = (all(torch.equal(pout[k], out[k]) for k in pout)
+            and all(torch.equal(x, y) for x, y in
+                    zip(tree_leaves(pfs), tree_leaves(fs), strict=True)))
+    want = dict.fromkeys(kernels, 0)
+    want.update(dict.fromkeys(FILTER_KERNELS, T))
+    print(f"mesh, NCCL world size 1 (1, 1): make_parallel_sequence over "
+          f"{BATCH} copies of the feature workload in {wall1:.3f} s "
+          f"({BATCH * T / wall1:.1f} frames/s), "
+          f"{'bitwise equal to' if same else 'DIFFERENT from'} the graphed "
+          f"batched scan; launches {dict((k, launches[k]) for k in FILTER_KERNELS)};"
+          f" the feat all_reduce a frame at {B4} segments a rank: "
+          f"{frame_bytes} B (C, b and {n_sums} counts a segment, f32), "
+          f"NCCL all_reduce of it at world size 1: {ar_ms * 1e3:.2f} us",
+          flush=True)
+    if not same or launches != want:
+        raise AssertionError(f"the (1, 1) mesh scan is not the batched scan "
+                             f"(launches {launches}, expected {want})")
+
+    # ---- two ranks on the card over gloo ----
+    t0 = time.perf_counter()
+    qcfg, qstates, qb = mesh_quarters(dev, sim)
+    Q = int(qb.imu.w.shape[1])
+    wstate0, wbundles, wstitched = (warm[k] for k in
+                                    ("state0", "bundles", "stitched"))
+    ccfg, image0, cst0, chunk = mesh_chunk(dev, sim)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        inputs, outd = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(inputs)
+        np.savez(os.path.join(inputs, "sequence.npz"), config="default",
+                 dtype="float32", **_arrays("state.", qstates),
+                 **_arrays("imu.", qb.imu), **_arrays("batch.", qb.batch))
+        np.savez(os.path.join(inputs, "warm.npz"), config="small",
+                 dtype="float32", segments=WARM_SEGMENTS, warmup=WARM_WARMUP,
+                 **_arrays("state.", wstate0), **_arrays("imu.", wbundles.imu),
+                 **_arrays("batch.", wbundles.batch))
+        np.savez(os.path.join(inputs, "chunk.npz"), config="default",
+                 dtype="float32", image0=image0, **_arrays("state.", cst0),
+                 **{f"chunk.{k}": v for k, v in chunk.items()})
+        print(f"mesh: inputs built in {time.perf_counter() - t0:.1f} s "
+              f"({MESH_SEGMENTS} quarters of {Q} frames, the warm split's "
+              f"case, a {MESH_KLT_FRAMES}-frame chunk)", flush=True)
+        runs = ("sequence:2x1", "sequence:1x2", "warm:2x1", "chunk:1x2")
+        cmd = [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "scripts", "torch_multiprocess_check.py"),
+            "--backend", "gloo", "--device", "cuda", "--world", "2",
+            "--inputs", inputs, "--out", outd,
+            "--timeout", str(MESH_TIMEOUT_S)]
+        for r in runs:
+            cmd += ["--run", r]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=MESH_TIMEOUT_S + 60)
+        wall2 = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the two-rank check failed "
+                                 f"({proc.returncode}):\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = {r.replace(":", "-"): [dict(np.load(os.path.join(
+            outd, f"{r.replace(':', '-')}.rank{i}.npz"))) for i in range(2)]
+            for r in runs}
+    print(f"mesh, two ranks on the card over gloo: {wall2:.1f} s for the "
+          f"launch, start-up and {len(runs)} runs; runs (s by rank) "
+          f"{ {k: [round(x, 3) for x in v['seconds']] for k, v in line['runs'].items()} }",
+          flush=True)
+
+    # the quarters: seg = 2 and feat = 2 against the unsharded batched scan
+    run4 = make_batched_sequence_scan(qcfg, dev)
+    run4(qstates, qb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qfs, qout = run4(qstates, qb)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    ref = {k: qout[k].cpu().numpy() for k in ("p_Gk", "q_kG", "n_good")}
+    fps1 = MESH_SEGMENTS * Q / wall4
+    for name in ("sequence-2x1", "sequence-1x2"):
+        r0, r1 = got[name]
+        secs = max(line["runs"][name]["seconds"])
+        warm_s = max(float(r["warm_seconds"]) for r in (r0, r1))
+        calls = [int(r["allreduce_calls"]) for r in (r0, r1)]
+        feat = name.endswith("1x2")
+        same = all(np.array_equal(r0[f"out.{k}"], ref[k]) for k in ref)
+        dp = _gap(r0["out.p_Gk"], ref["p_Gk"])
+        dq = max(rotation_gap(r0["out.q_kG"][s], ref["q_kG"][s])
+                 for s in range(MESH_SEGMENTS))
+        ranks_same = all(np.array_equal(r0[f"out.{k}"], r1[f"out.{k}"])
+                         for k in ref)
+        k24 = {k: [int(r[f"launches.{k}"]) for r in (r0, r1)]
+               for k in ("lm_triangulate", "jac_project", "batched_quadform")}
+        extra = ""
+        if name == "sequence-1x2":
+            states_same = all(np.array_equal(r0[k], r1[k]) for k in r0
+                              if k.startswith("state."))
+            extra = (f", the feat ranks' states "
+                     f"{'bitwise equal' if states_same else 'DIFFER'}")
+            if not states_same:
+                raise AssertionError("the feat ranks' states differ")
+        ar = (f"; all_reduce calls of the warm run by rank {calls}, "
+              f"{int(r0['allreduce_bytes'])} B each, a gloo all_reduce of "
+              f"that size on the card {float(r0['allreduce_ms']) * 1e3:.1f} "
+              f"us" if feat else f"; all_reduce calls {calls}")
+        print(f"mesh {name}: {MESH_SEGMENTS} x {Q} frames at "
+              f"{MESH_SEGMENTS * Q / warm_s:.1f} frames/s warm (the slower "
+              f"rank, {warm_s:.3f} s; the first call, building and capturing "
+              f"included, {secs:.3f} s) against {fps1:.1f} for the "
+              f"unsharded batched scan on one rank{ar}; "
+              f"{'bitwise equal' if same else 'not bitwise'}"
+              f" to it, max position gap {dp:.3e} m (limit {MESH_GAP_POS_M}),"
+              f" attitude {dq:.3e} rad (limit {MESH_GAP_ROT_RAD}), n_good "
+              f"{'equal' if np.array_equal(r0['out.n_good'], ref['n_good']) else 'differs'}"
+              f"{'' if feat else ' (gated)'}"
+              f", ranks' gathered outputs "
+              f"{'bitwise equal' if ranks_same else 'DIFFER'}{extra}; K2-K4 "
+              f"launches by rank {k24}", flush=True)
+        n_good_same = np.array_equal(r0["out.n_good"], ref["n_good"])
+        if not (dp < MESH_GAP_POS_M and dq < MESH_GAP_ROT_RAD and ranks_same
+                and (feat or n_good_same)
+                and all(v == [Q, Q] for v in k24.values())
+                and calls == [Q if feat else 0] * 2):
+            raise AssertionError(f"{name} misses a gate")
+
+    # the warm split with seg = 2 against mesh=None: its gates, the same
+    # repairs, and the gap to the mesh=None split
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    w0, w1 = got["warm-2x1"]
+    W = WARM_WARMUP
+    dw = _gap(w0["stitched"], wstitched)
+    ate = ate_rmse(w0["stitched"], warm["gt"])
+    dev_max = float(np.linalg.norm(w0["stitched"] - warm["full"],
+                                   axis=1).max())
+    ng, okm = w0["out.n_good"], w0["out.ok"]
+    ng_min = min(min(float(ng[s][okm[s]].mean()),
+                     float(ng[s, W:][okm[s, W:]].mean()))
+                 for s in range(WARM_SEGMENTS))
+    repaired = [int(x) for x in w0["repaired"]]
+    print(f"mesh warm-2x1: run_segments_warm(mesh=) over {WARM_SEGMENTS} "
+          f"segments, {max(line['runs']['warm-2x1']['seconds']):.2f} s: ATE "
+          f"{ate:.4f} m (limit {warm['ate_full'] + WARM_ATE_MARGIN_M:.4f}), "
+          f"deviation from the unsplit run {dev_max:.4f} m (limit "
+          f"{WARM_MAX_DEV_M}), least mean n_good {ng_min:.2f} (limit "
+          f"{WARM_NGOOD_MIN}), repaired {repaired} against "
+          f"{warm['info']['repaired_segments']} with mesh=None, max gap to "
+          f"the mesh=None split {dw:.3e} m (limit {MESH_GAP_POS_M}), ranks "
+          f"{'bitwise equal' if np.array_equal(w0['stitched'], w1['stitched']) else 'DIFFER'}",
+          flush=True)
+    if not (ate <= warm["ate_full"] + WARM_ATE_MARGIN_M
+            and dev_max < WARM_MAX_DEV_M and ng_min > WARM_NGOOD_MIN
+            and dw < MESH_GAP_POS_M
+            and np.isfinite(w0["stitched"]).all()
+            and np.array_equal(w0["stitched"], w1["stitched"])
+            and repaired == warm["info"]["repaired_segments"]):
+        raise AssertionError("the sharded warm split misses a gate")
+
+    # the feat-split KLT against the unsharded graphed chunk scan
+    init_fn, _ = make_tracker(ccfg, dev)
+    ts0, _ = init_fn(torch.as_tensor(image0))
+    scan = make_image_chunk_scan(ccfg, dev)
+    tens = {k: torch.as_tensor(v, device=dev) for k, v in chunk.items()}
+    tens = {k: v.float() if v.is_floating_point() else v
+            for k, v in tens.items()}
+    (ts, _), cout = scan((ts0, cst0), tens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan((ts0, cst0), tens)
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    c0, c1 = got["chunk-1x2"]
+    act = cout["active"].cpu().numpy()
+    agree = float((c0["out.active"] == act).mean())
+    dp = _gap(c0["out.p_Gk"], cout["p_Gk"].cpu().numpy())
+    dpos = _gap(np.where(act[-1][:, None], c0["ts.pos"], 0),
+                np.where(act[-1][:, None], ts.pos.cpu().numpy(), 0))
+    equal = (np.array_equal(c0["out.active"], act)
+             and np.array_equal(c0["ts.pos"], ts.pos.cpu().numpy())
+             and np.array_equal(c0["ts.hist"], ts.hist.cpu().numpy()))
+    ranks_same = all(np.array_equal(c0[k], c1[k]) for k in c0
+                     if k.startswith(("out.", "ts.")))
+    calls = [int(r["allreduce_calls"]) for r in (c0, c1)]
+    print(f"mesh chunk-1x2: the feat-split KLT over {MESH_KLT_FRAMES} frames "
+          f"(eager: {max(float(r['warm_seconds']) for r in (c0, c1)):.3f} s "
+          f"warm, {max(line['runs']['chunk-1x2']['seconds']):.2f} s the "
+          f"first call; all_reduce calls by rank {calls}, "
+          f"{int(c0['allreduce_bytes'])} B each, a gloo all_reduce of that "
+          f"size on the card {float(c0['allreduce_ms']) * 1e3:.1f} us; the "
+          f"unsharded graphed scan {MESH_KLT_FRAMES / cwall:.1f} frames/s "
+          f"warm) against the unsharded graphed scan: "
+          f"{'equal (pos, hist, active)' if equal else 'not equal'}, "
+          f"slot-frames agreeing {agree:.4f} "
+          f"({int((c0['out.active'] != act).sum())} of {act.size} differ), "
+          f"max pose gap {dp:.3e} m, last frame's live positions "
+          f"{dpos:.3e} px (limit {MESH_KLT_GAP_M} m on the poses), ranks "
+          f"{'bitwise equal' if ranks_same else 'DIFFER'}; K8 launches by "
+          f"rank {[int(r['launches.lk_level']) for r in (c0, c1)]}",
+          flush=True)
+    if not (equal and ranks_same and dp < MESH_KLT_GAP_M
+            and agree >= IMG_CPU_ACTIVE_AGREE
+            and calls == [MESH_KLT_FRAMES] * 2):
+        raise AssertionError("the feat-split KLT misses a gate")
+
+    # ---- the kernels on a rank's rows: <kernel>@feat2 ----
+    F = cfg.tracker.max_update_features
+
+    def shard(x):
+        if not torch.is_tensor(x) or x.dim() == 0 or x.shape[0] != BATCH * F:
+            return x
+        y = x.reshape((BATCH, F) + tuple(x.shape[1:]))
+        return y[:MESH_SEGMENTS, :F // 2].reshape(
+            (MESH_SEGMENTS * (F // 2),) + tuple(x.shape[1:])).contiguous()
+
+    label = (f" (frame {BATCH_FRAME} of {MESH_SEGMENTS} segments, F/2 = "
+             f"{F // 2} lanes)")
+    z, Rc, tc, tl = (shard(x) for x in batch_cap["lm_triangulate"][:4])
+    lvl, tmpl, search, args, kw = klt_cap[-1]            # level 0
+    half = len(args[5]) // 2
+    klabel = f" (frame {KLT_FRAME}, level {lvl}, N/2 = {half} lanes)"
+    checks = [
+        (lm_case(dev, z, Rc, tc, tl, cfg.camera.sigma_image, what=label),
+         "sequence-1x2", label),
+        (jac_case(dev, [shard(x) for x in batch_cap["jac_project"]],
+                  what=label), "sequence-1x2", label),
+        (quadform_case(dev, *(shard(x) for x in
+                              batch_cap["batched_quadform"]), what=label),
+         "sequence-1x2", label),
+        (tile_case(dev, search[0], search[1][:half], what=klabel),
+         "chunk-1x2", klabel),
+        (lk_case(dev, [a[:half] if torch.is_tensor(a) else a for a in args],
+                 kw, what=klabel), "chunk-1x2", klabel)]
+    for chk, run, what in checks:
+        rec = measure(chk, f"@feat2{what}")
+        rec.update(name=f"{chk.name}@feat2", feat=2,
+                   launches=int(got[run][0][f"launches.{chk.name}"]))
+        records.append((chk.kernel, rec))
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -1830,15 +2243,18 @@ def main() -> int:
         image_phase(dev, sim_f, kernels, records, equalizer=False,
                     n_frames=IMG_OFF_FRAMES)
         scan = image_phase(dev, sim_f, kernels, records, equalizer=True)
-        klt_frame_phase(dev, sim_f, records)
+        klt_cap = klt_frame_phase(dev, sim_f, records)
         drv = online_phase(dev, sim_f, kernels, scan)
         entries_phase(dev, sim_f, kernels, records, drv)
         replay_phase(dev, root, seq, kernels, records, tmp)
         replay_checks(dev, seq, kernels, scan, tmp)
 
     batch_launches = batched_phase(dev, sim, kernels)
-    batch_kernel_phase(dev, sim, records, batch_launches)
-    warm_split_phase(dev, kernels)
+    batch_cap = batch_kernel_phase(dev, sim, records, batch_launches)
+    warm = warm_split_phase(dev, kernels)
+    t0 = time.perf_counter()
+    mesh_phase(dev, sim, kernels, records, batch_cap, klt_cap, warm)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     set_sims, set_seqs = set_sequences()

@@ -28,6 +28,15 @@ threshold is per segment, as the JAX package's vmapped tracker has them.
 :func:`make_batched_tracker` is that body; :func:`make_tracker`'s
 single-image entries are it at B = 1, the axis added and removed as views
 at their edges.
+
+With a ``mesh`` whose ``feat`` axis has size feat > 1
+(parallel/mesh.py), the KLT stage alone is split, as the JAX package's
+``shard_map`` splits it (rvio_tpu/frontend/tracker.py:141-153): the
+pyramids stay replicated, each rank tracks its N/feat slots (K6 and K8 on
+its lanes, so K8's finish applies the T of its own lanes, as each JAX
+shard's loop stops at its own), and one ``all_reduce`` of zero-padded
+slots gathers the new positions, status and errors; RANSAC, the
+lifecycle and the refill run replicated on every rank.
 """
 
 from __future__ import annotations
@@ -98,7 +107,8 @@ def _cam_kwargs(cfg: RVIOConfig):
                 p1=c.p1, p2=c.p2, k3=c.k3, fisheye=c.is_fisheye)
 
 
-def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
+def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32,
+                 mesh=None):
     """Build the front-end entry points on ``device`` (``None``: the CUDA
     device; raises without one):
 
@@ -108,9 +118,17 @@ def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
 
     ``image`` is (H, W) gray or (H, W, 3) color of any real dtype (u8 frames
     are cast on the device); ``u`` holds the frame's N uniform RANSAC draws.
-    Both are :func:`make_batched_tracker`'s body at B = 1.
+    Both are :func:`make_batched_tracker`'s body at B = 1.  ``mesh``:
+    an optional (seg, feat) mesh; its ``feat`` axis splits the KLT stage
+    (module docstring; parallel/mesh.py ``klt_splitter``).
     """
-    init_b, track_b = make_batched_tracker(cfg, device, dtype)
+    klt = None
+    if mesh is not None:
+        # imported here: the parallel package imports the runtime, which
+        # imports this module
+        from rvio_tpu_torch.parallel.mesh import klt_splitter
+        klt = klt_splitter(mesh, cfg.tracker.num_features)
+    init_b, track_b = make_batched_tracker(cfg, device, dtype, klt)
 
     def init_fn(image) -> Tuple[TrackerState, torch.Tensor]:
         ts, n = init_b(torch.as_tensor(image)[None])
@@ -126,7 +144,8 @@ def make_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
     return init_fn, track_fn
 
 
-def make_batched_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
+def make_batched_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32,
+                         klt=None):
     """The tracker body for B images in lockstep, on ``device`` (``None``:
     the CUDA device; raises without one):
 
@@ -138,9 +157,13 @@ def make_batched_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
     or (B, H, W, 3) color, the IMU blocks (B, K, ...), the draws ``u``
     (B, N), every state field, batch field and debug value (B, ...).
     Segment b's results are those of :func:`make_tracker`'s entries on
-    segment b's inputs.
+    segment b's inputs.  ``klt`` replaces ``klt_track`` (same arguments
+    and results): the KLT stage split over a mesh's ``feat`` axis
+    (parallel/mesh.py ``klt_splitter``), as the update takes its
+    ``feat_reduce``.
     """
     device = resolve_device(device)
+    klt = klt or klt_track
     N = cfg.tracker.num_features
     L = cfg.tracker.max_tracking_length
     Lmin = cfg.tracker.min_tracking_length
@@ -207,8 +230,8 @@ def make_batched_tracker(cfg: RVIOConfig, device=None, dtype=torch.float32):
         B = pyr[0].shape[0]
 
         # --- KLT (Tracker.cc:237-244) ---
-        new_pos, status, err = klt_track(list(ts.pyramid), list(pyr),
-                                         ts.pos, ts.active, **klt_kw)
+        new_pos, status, err = klt(list(ts.pyramid), list(pyr), ts.pos,
+                                   ts.active, **klt_kw)
         zn = undistort_normalize(new_pos, **cam).to(dtype)
 
         # --- gyro-aided RANSAC (Tracker.cc:264) ---

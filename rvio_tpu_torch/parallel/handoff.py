@@ -22,8 +22,9 @@ kernel one launch a frame for the batch: runtime/step.py), and the
 per-segment trajectories are joined by the 4-DOF overlap fit + associative
 prefix product of :mod:`rvio_tpu_torch.parallel.stitch`.  A segment that
 diverged is re-run from the previous segment's final state (the repair
-pass).  The JAX function's ``mesh`` (segments sharded over devices) is the
-``torch.distributed`` slice, not ported yet.
+pass).  With a ``mesh`` (parallel/mesh.py) each ``seg`` rank runs its
+segments and every rank gathers all of them, then repairs and stitches
+as one card would.
 
 The bootstrap, the plan and the stitcher are numpy and copies of the JAX
 functions; tests/test_torch_handoff.py holds each to it.
@@ -42,11 +43,12 @@ from rvio_tpu_torch.config import RVIOConfig
 from rvio_tpu_torch.core.quaternion import rot_to_quat
 from rvio_tpu_torch.core.so3 import rodrigues_np
 from rvio_tpu_torch.device import resolve_device
+from rvio_tpu_torch.parallel.mesh import mesh_device, segment_slice
+from rvio_tpu_torch.parallel.segment import _step_body, gather_segments
 from rvio_tpu_torch.parallel.stitch import fit_yaw_transform, prefix_product
-from rvio_tpu_torch.parallel.segment import _step_body
 from rvio_tpu_torch.runtime.step import UNROLL, FrameBundle, _segment_scan
 from rvio_tpu_torch.state.filter_state import (FilterState,
-                                               make_initial_state,
+                                               make_initial_state, map_fields,
                                                stack_states)
 
 
@@ -407,7 +409,7 @@ def run_segments_warm(cfg: RVIOConfig, state0: FilterState,
                       dtype=None, mesh=None, overlap_fit: Optional[int] = None,
                       device=None):
     """Filter one long bundle-stacked sequence as warm segments side by
-    side on one card.
+    side.
 
     state0: the static init for segment 0; bundles: (T, ...) stacked
     FrameBundle from the init frame, both on ``device`` (``None``: the
@@ -415,25 +417,41 @@ def run_segments_warm(cfg: RVIOConfig, state0: FilterState,
     Returns (stitched_positions (T, 3) numpy, outputs dict of (S, W+B, ...)
     tensors on the device, info dict), as the JAX function does; ``info``
     also holds the segment scan (``scan``) and the repair pass's scan
-    (``repair_scan``, None without a repair).  ``mesh`` must be None:
-    sharding the segments over several cards is the ``torch.distributed``
-    slice, not ported yet.
+    (``repair_scan``, None without a repair).
+
+    ``mesh`` (parallel/mesh.py) shards the segments over its ``seg`` axis,
+    as the JAX function does: every rank builds the plan and the starts,
+    runs the masked scan over its own S/seg segments on its device (the
+    mesh's; ranks that differ only in ``feat`` run the same ones),
+    gathers every segment's outputs and final states
+    (``gather_segments``), and runs the repair pass and the stitch as one
+    card would, so every rank returns the same result.  A ValueError where
+    seg does not divide S.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_segments_warm: mesh= shards the segments over devices, "
-            "which the torch.distributed slice of the port adds; run the "
-            "segments on one card with mesh=None")
-    device = resolve_device(device)
+    S, W = n_segments, warmup
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        lo, hi = segment_slice(mesh, S)
+        device = mesh_device(mesh)
     dtype = state0.dtype if dtype is None else dtype
     T = int(bundles.imu.w.shape[0])
-    S, W = n_segments, warmup
     cfg, (idx, ok, B), sstates, sbundles, sok, boot_diags = warm_segments(
         cfg, state0, bundles, S, W, dtype, device)
     OV = overlap_fit if overlap_fit is not None else max(2, min(W // 2, B))
 
     run = make_masked_segment_scan(cfg, device, dtype)
-    fstates, outs = run(sstates, sbundles, sok)
+    if mesh is None:
+        fstates, outs = run(sstates, sbundles, sok)
+    else:
+        def mine(x):
+            return x[lo:hi]
+
+        fstates, outs = run(
+            map_fields(mine, sstates),
+            FrameBundle(imu=map_fields(mine, sbundles.imu),
+                        batch=map_fields(mine, sbundles.batch)), mine(sok))
+        fstates, outs = gather_segments((fstates, outs), mesh)
 
     # --- divergence repair (sequential fallback for failed segments) ---
     # A warm start occasionally lands outside the filter's basin (bad

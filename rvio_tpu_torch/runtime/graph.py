@@ -36,7 +36,10 @@ On a CUDA device:
   (ops/_lib.py ``tally``) are added to its count at every replay.
 
 On the CPU the same body runs eagerly, frame by frame, and nothing touches
-``torch.cuda``.
+``torch.cuda``.  :class:`EagerFrameScan` runs every frame eagerly on a
+CUDA device too: for a body that holds a collective no graph may capture
+(a gloo ``all_reduce``, parallel/segment.py), and as the graphed frames'
+reference.
 """
 
 from __future__ import annotations
@@ -295,3 +298,12 @@ class FrameScan:
             pool_bytes=torch.cuda.max_memory_allocated(self.device)
             - allocated))
         return graph, dict(counts)
+
+
+class EagerFrameScan(FrameScan):
+    """A :class:`FrameScan` whose frames all run eagerly, on the caller's
+    stream: the same body, buffers and cursor, and no graph."""
+
+    def _run_graphed(self, T: int) -> None:
+        for _ in range(T):
+            self._frame()

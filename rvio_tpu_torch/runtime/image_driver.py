@@ -50,9 +50,10 @@ from rvio_tpu_torch.frontend.tracker import (add_tracker_axis,
                                              drop_tracker_axis,
                                              make_batched_tracker,
                                              make_tracker)
+from rvio_tpu_torch.parallel.mesh import klt_splitter, needs_eager
 from rvio_tpu_torch.runtime.driver import (DriverResult, InitializationGate,
                                            bundle_imu, landmark_cloud)
-from rvio_tpu_torch.runtime.graph import FrameScan
+from rvio_tpu_torch.runtime.graph import EagerFrameScan, FrameScan
 from rvio_tpu_torch.runtime.step import (FrameBundle, _segment_body,
                                          make_filter_step)
 from rvio_tpu_torch.state.filter_state import (add_segment_axis,
@@ -151,14 +152,15 @@ def _select(ok: torch.Tensor, new, old):
                            for f in fields(new)})
 
 
-def _batched_halves(cfg: RVIOConfig, device, dtype):
+def _batched_halves(cfg: RVIOConfig, device, dtype, klt=None):
     """One frame's two halves for B segments (every state field and frame
     leaf (B, ...)), each keeping a segment's old state where its ``ok`` is
-    False: ``front(ts, frame) -> (ts, batch, debug)`` (the tracker body)
-    and ``back(fs, frame, batch) -> (fs, outputs)`` (the filter body, its
+    False: ``front(ts, frame) -> (ts, batch, debug)`` (the tracker body,
+    its KLT stage ``klt`` where given: make_batched_tracker) and
+    ``back(fs, frame, batch) -> (fs, outputs)`` (the filter body, its
     window chain in the form ``tpu.parallel_propagation`` picks, as the
     single step's)."""
-    _, track_fn = make_batched_tracker(cfg, device, dtype)
+    _, track_fn = make_batched_tracker(cfg, device, dtype, klt)
     step = _segment_body(cfg, device, dtype, cfg.tpu.parallel_propagation)
 
     def front(ts, f):
@@ -175,10 +177,10 @@ def _batched_halves(cfg: RVIOConfig, device, dtype):
     return front, back
 
 
-def _frame_halves(cfg: RVIOConfig, device, dtype):
+def _frame_halves(cfg: RVIOConfig, device, dtype, klt=None):
     """The halves of :func:`_batched_halves` for one sequence: the bodies
     at B = 1, the segment axis added and removed as views."""
-    front_b, back_b = _batched_halves(cfg, device, dtype)
+    front_b, back_b = _batched_halves(cfg, device, dtype, klt)
 
     def one(f):
         return {k: v[None] for k, v in f.items()}
@@ -210,7 +212,8 @@ def _tracker_outputs(ts, dbg):
             "n_new": dbg["n_new"], "active": ts.active}
 
 
-def make_image_chunk_scan(cfg: RVIOConfig, device=None, dtype=torch.float32):
+def make_image_chunk_scan(cfg: RVIOConfig, device=None, dtype=torch.float32,
+                          mesh=None):
     """Fused tracker + filter scan over a chunk of frames.
 
     Port of rvio_tpu/runtime/image_driver.py make_image_chunk_scan.
@@ -230,9 +233,15 @@ def make_image_chunk_scan(cfg: RVIOConfig, device=None, dtype=torch.float32):
     ``device=None`` means the CUDA device, where each frame is a replay of
     a captured graph; on the CPU the same body runs eagerly.  The returned
     carry and outputs are copies that later calls leave alone.
+
+    ``mesh``: an optional (seg, feat) mesh (parallel/mesh.py) whose
+    ``feat`` axis splits the tracker's KLT stage (frontend/tracker.py);
+    the filter runs replicated, as in the JAX function.  With feat > 1 the
+    frames run eagerly (the KLT's ``all_reduce`` is not captured).
     """
     device = resolve_device(device)
-    front, back = _frame_halves(cfg, device, dtype)
+    front, back = _frame_halves(cfg, device, dtype,
+                                klt_splitter(mesh, cfg.tracker.num_features))
 
     def body(carry, f):
         ts, fs = carry
@@ -241,7 +250,7 @@ def make_image_chunk_scan(cfg: RVIOConfig, device=None, dtype=torch.float32):
         return (ts, fs), {**_filter_outputs(out, f["ok"]),
                           **_tracker_outputs(ts, dbg)}
 
-    return FrameScan(body, device)
+    return (EagerFrameScan if needs_eager(mesh) else FrameScan)(body, device)
 
 
 def make_frontend_chunk_scan(cfg: RVIOConfig, device=None,

@@ -62,14 +62,17 @@ class FrameBundle:
                               is_type2=b.is_type2[t], valid=b.valid[t]))
 
 
-def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool
+def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool,
+                  feat_reduce=None
                   ) -> Callable[[FilterState, FrameBundle],
                                 Tuple[FilterState, Dict[str, torch.Tensor]]]:
     """The filter's one body: ``body(states, bundles) -> (states,
     outputs)`` for a state and a bundle with a leading segment axis B,
     every output (B, ...).  Every filter kernel launches once for the B
     segments.  ``parallel_chains`` picks the window chain's form
-    (filter/update.window_pose_chain)."""
+    (filter/update.window_pose_chain); ``feat_reduce`` joins the update's
+    halves when the bundles hold one shard of the feature lanes
+    (filter/update.msckf_update)."""
     imu_kw = dict(gravity=cfg.imu.gravity, small_angle=cfg.imu.small_angle,
                   sigma_g=cfg.imu.sigma_g, sigma_wg=cfg.imu.sigma_wg,
                   sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa)
@@ -82,7 +85,7 @@ def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool
                   fej=cfg.tpu.fej,
                   adaptive_noise=cfg.tpu.adaptive_noise,
                   adaptive_rampup=cfg.tpu.adaptive_rampup_frames,
-                  parallel_chains=parallel_chains)
+                  parallel_chains=parallel_chains, feat_reduce=feat_reduce)
 
     def body(states: FilterState, bundles: FrameBundle
              ) -> Tuple[FilterState, Dict[str, torch.Tensor]]:
@@ -176,12 +179,15 @@ def _sequence_scan(cfg: RVIOConfig, device, dtype, unroll: int):
 
 
 def _segment_scan(body, device: torch.device, dtype, unroll: int,
-                  masked: bool = False):
+                  masked: bool = False, frame_scan=None):
     """The frame loop of B segments over the segment ``body``
     (:func:`_segment_body`): ``run(states, bundles[, ok])``.  With
     ``masked``, ``ok`` (B, T) bool says which frames of which segments
     count: a frame that does not leaves that segment's state as it was
-    (its outputs are still written), and the outputs gain ``ok``."""
+    (its outputs are still written), and the outputs gain ``ok``.
+    ``frame_scan`` is the FrameScan class (default: runtime/graph.py's
+    ``FrameScan``; its ``EagerFrameScan`` for a body with a collective no
+    graph may capture)."""
     layout = {}      # "B"; "in", "out": (shape, dtype) of each packed leaf
 
     def frame_body(states, frame):
@@ -201,7 +207,7 @@ def _segment_scan(body, device: torch.device, dtype, unroll: int,
                                       for v in out.values()], dim=1
                                      ).reshape(-1)}
 
-    scan = FrameScan(frame_body, device, unroll)
+    scan = (frame_scan or FrameScan)(frame_body, device, unroll)
 
     def run(states: FilterState, bundles: FrameBundle, ok=None):
         B, T = bundles.imu.w.shape[:2]

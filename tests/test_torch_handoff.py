@@ -10,8 +10,10 @@
 - ``run_segments_warm`` on a 40 s sequence split into 4 segments with a
   60-frame warm-up: stitched positions at 1e-6 m, the same repaired
   segments and the same bootstrap decisions; then with one segment's body
-  frames stripped of their features, so the repair pass runs in both;
-  ``mesh`` refused;
+  frames stripped of their features, so the repair pass runs in both; a
+  ``mesh`` whose ``seg`` axis does not divide the segments refused (the
+  mesh runs themselves: tests/test_torch_mesh.py and
+  tests/test_torch_parallel_mp.py);
 - ``msckf_update`` with ``adaptive_noise`` and ``adaptive_rampup > 0``
   (the warm split's setting), one filter and a batch of two, against
   JAX's.
@@ -198,13 +200,24 @@ def test_run_segments_warm_repair_matches_jax(drive):
     assert tres[2]["repair_scan"] is not None
 
 
+class _Seg3Mesh:
+    """A (3, 1) mesh's coordinates on the CPU, without ranks."""
+
+    device_type = "cpu"
+
+    def size(self, dim):
+        return (3, 1)[dim]
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_run_segments_warm_refuses_mesh(drive):
     state0, bundles = drive
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(ValueError, match="do not divide over seg=3"):
         run_segments_warm(small_cfg(tconfig),
                           state_from_numpy(jax_state_np(state0), "cpu", F64),
-                          port_bundles(bundles), S, W, mesh=object(),
-                          device="cpu")
+                          port_bundles(bundles), S, W, mesh=_Seg3Mesh())
 
 
 def _update_inputs(seed):
