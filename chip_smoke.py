@@ -49,8 +49,8 @@ set to 0 just before it and read just after:
 - the live entry point, ``OnlineDriver``, fed frame by frame over the
   first 200 tracked frames: frames/s, push-to-pose latency, no drops, and
   the poses of the CLAHE-on run above (same seed, so the same draws);
-- graph against eager (the one-dispatch frame): ``SequenceDriver`` over the
-  whole workload through the eager frame loop and through the graphed
+- graph against eager (the one-dispatch frame): the feature path over the
+  workload's first 400 frames through the eager frame loop and through the graphed
   sequence scan with 1, 8 and 32 frames a graph (capture seconds, graph
   pool bytes, frames/s), every output of every frame bitwise or within
   1e-6 m; images -> poses with CLAHE on over the first GRAPH_IMG_FRAMES
@@ -102,7 +102,23 @@ set to 0 just before it and read just after:
   seg = 2 against the warm split above, and the feat-split KLT through
   ``make_image_chunk_scan(mesh=)`` on a 32-frame chunk against the
   unsharded scan, each with its frames/s beside one rank's; K2-K4, K6 and
-  K8 on a rank's rows, rows ``<kernel>@feat2`` of the kernels line.
+  K8 on a rank's rows, rows ``<kernel>@feat2`` of the kernels line;
+- the QR compression in graphed frames: the feature workload with
+  ``tpu.compression = "qr"`` through the graphed sequence scan (ATE, K5
+  never launched, a QR frame's time against a Cholesky frame's in turns)
+  and the graphed batched scan of 4 copies, each against the same frames
+  run eagerly; windows of 16 and 19 clones (n = 96, 114, past K5's 92)
+  through the graphed sequence scan, the unfused Cholesky chain in K5's
+  place (K5 launches 0), against the CPU over 100 frames; a one-seed
+  ``run_synthetic_sweep`` (15 s) on the card and on the CPU (the same frames,
+  each ATE below 0.05 m) and ``python -m rvio_tpu_torch.run --sweep 1``,
+  which prints the table;
+- bench.py's high-rate stress config (BASELINE.json's fourth: 800 slots,
+  400 update lanes, five pyramid levels down to 30 x 47): images -> poses
+  over 150 tracked frames (launches, ATE, the acceptance gates), then
+  K2-K4, K6 and K8 at each level, K9 and K13 on tracked frame 100's
+  inputs at those shapes against their plain versions, rows
+  ``<kernel>@stress`` of the kernels line.
 
 The public drivers run their frames as replays of captured CUDA graphs
 (rvio_tpu_torch/runtime/graph.py), so the phases that drive them measure
@@ -190,6 +206,9 @@ KLT_FRAME = 100
 # the frames a graph of the sequence scan holds
 GRAPH_IMG_FRAMES = 200
 UNROLLS = (1, 8, 32)
+# ... and the feature path's frames there (its first 400: the eager runs
+# of the whole workload took 49 s of the script's time on an H100)
+GRAPH_FEATURE_FRAMES = 400
 # graphed against eager: the same kernels in the same order, so 0 is
 # expected; the limit is PERF.md section 2's same-input limit
 GRAPH_GAP_M = 1e-6
@@ -256,6 +275,30 @@ MESH_KLT_GAP_M = IMG_CPU_GAP_POS_M
 MESH_TIMEOUT_S = 420
 MESH_KERNELS = ("lm_triangulate", "jac_project", "batched_quadform",
                 "gather_tiles", "lk_level")
+# QR compression in graphed frames (ROADMAP.md section 3): the feature
+# workload with tpu.compression = "qr" through the graphed sequence scan
+# (all of it: ATE) and the graphed batched scan (QR_B copies of its first
+# QR_FRAMES frames), each against the same frames run eagerly (the same
+# kernels and calls in the same order: 0 expected; held to the card-vs-CPU
+# limits, the issue's gate)
+QR_FRAMES = 300
+QR_B = 4
+# the sweep's sequence on the card and the CPU (the CLI's run keeps its
+# default, 30 s)
+SWEEP_DURATION_S = 15.0
+# windows the K5 kernel does not take (n = 6 x clones > 92): the graphed
+# sequence scan at these tracker.max_tracking_length over WIDE_FRAMES
+# frames on the card and on the CPU, within the card-vs-CPU limits
+WIDE_LENGTHS = (17, 20)
+WIDE_FRAMES = 100
+WIDE_DURATION_S = 10.0
+# bench.py's high-rate stress config (BASELINE.json's fourth: 800 slots,
+# five pyramid levels, ops/checks.py STRESS_ENV): images -> poses over
+# STRESS_FRAMES tracked frames of bench.py's sequence cut to
+# STRESS_DURATION_S, the kernels checked on tracked frame KLT_FRAME's
+# inputs (rows <kernel>@stress)
+STRESS_FRAMES = 150
+STRESS_DURATION_S = 14.0
 
 
 def _events_ms(run, reps: int) -> float:
@@ -362,17 +405,18 @@ EQUALIZER_KERNELS = ("clahe_luts", "clahe_apply")
 ENTRY_KERNELS = ("shi_tomasi", "gather_tiles_aligned")
 
 
-def expected_launches(n: int, equalizer: bool = True) -> dict:
+def expected_launches(n: int, equalizer: bool = True, levels: int = 4
+                      ) -> dict:
     """Launches of each kernel when the image path runs its init frame and
-    n tracked frames: per frame K6 twice per pyramid level (4) plus once
-    for the refill's subpix tiles, K8 once per level, K9 and K13 once for
-    the refill detection, K10 and K11 once with the equalizer on, every
-    filter kernel (K5 included) once; the init frame's preprocessing and
-    detection add one K10, K11, K6, K9 and K13.  K12 and K7 are on no
+    n tracked frames: per frame K6 twice per pyramid level (``levels``)
+    plus once for the refill's subpix tiles, K8 once per level, K9 and K13
+    once for the refill detection, K10 and K11 once with the equalizer on,
+    every filter kernel (K5 included) once; the init frame's preprocessing
+    and detection add one K10, K11, K6, K9 and K13.  K12 and K7 are on no
     path."""
     out = {name: n for name in FILTER_KERNELS}
-    out.update(gather_tiles=9 * n + 1, lk_level=4 * n, subpix_refine=n + 1,
-               shi_tomasi_nms=n + 1)
+    out.update(gather_tiles=(2 * levels + 1) * n + 1, lk_level=levels * n,
+               subpix_refine=n + 1, shi_tomasi_nms=n + 1)
     out.update({name: n + 1 if equalizer else 0 for name in EQUALIZER_KERNELS})
     out.update(dict.fromkeys(ENTRY_KERNELS, 0))
     return out
@@ -525,7 +569,8 @@ def workload_sim():
                              imu_noise=True)
 
 
-def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
+def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None,
+                      filters=None):
     """The inputs of the tracker's K6, K8, K10, K9 and K13 calls at tracked
     frame ``frame`` of images -> poses on ``dev`` (``cfg``: ``RVIOConfig()``,
     CLAHE on), in one run: ``sim`` rendered, or ``seq``, a loaded sequence,
@@ -538,7 +583,8 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
     ``shi_tomasi_nms``.  The tracker is its batched body at B = 1, so the
     recorders drop the segment axis of the batched calls.  The run's
     frames are eager (:func:`eager_frames`), so the recorders see every
-    frame's calls."""
+    frame's calls.  A dict ``filters`` receives the frame's K2, K3 and K4
+    calls (name -> args) as well."""
     from unittest import mock
 
     import rvio_tpu_torch.frontend.detector as detector
@@ -551,10 +597,10 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
     calls = {"lk_level": [], "gather_tiles": [], "clahe_luts": [],
              "subpix_refine": [], "shi_tomasi_nms": []}
 
-    def recorder(module, name, keep):
+    def recorder(module, name, keep, segment=None):
         fn = getattr(module, name)
         # the calls with a segment axis (K9's take B·N rows)
-        segment = name != "subpix_refine"
+        segment = name != "subpix_refine" if segment is None else segment
 
         def record(*args, **kw):
             kept = tuple((a[0] if segment else a).clone()
@@ -567,7 +613,15 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
         k0 = _init_frame(cfg, seq.imu_t, seq.imu_w, seq.imu_a, seq.cam_t)
     else:
         k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
-    with mock.patch.object(klt, "lk_level", recorder(klt, "lk_level", levels)), \
+    import rvio_tpu_torch.filter.update as update
+    stack = contextlib.ExitStack()
+    for name in (("lm_triangulate", "jac_project", "batched_quadform")
+                 if filters is not None else ()):
+        calls[name] = []
+        stack.enter_context(mock.patch.object(
+            update, name, recorder(update, name, 1, segment=False)))
+    with stack, \
+            mock.patch.object(klt, "lk_level", recorder(klt, "lk_level", levels)), \
             mock.patch.object(klt, "gather_tiles",
                               recorder(klt, "gather_tiles", 2 * levels)), \
             mock.patch.object(image, "clahe_luts",
@@ -592,6 +646,9 @@ def capture_klt_frame(dev, sim, cfg=None, frame: int = KLT_FRAME, seq=None):
         args, kw = calls["lk_level"][i]
         out.append((levels - 1 - i, tmpl, search, args, kw))
     eq = calls["clahe_luts"]
+    if filters is not None:
+        filters.update({name: calls[name][-1][0] for name in (
+            "lm_triangulate", "jac_project", "batched_quadform")})
     return (out, eq[-1][0][0] if eq else None, calls["subpix_refine"][-1],
             calls["shi_tomasi_nms"][-1][0][0])
 
@@ -777,9 +834,11 @@ def entries_phase(dev, sim, kernels, records, drv) -> None:
 
 def capture_frame_inputs(cfg, args, frame_t, batches):
     """The feature path on the CPU plain path, keeping the inputs of the
-    last K1, K3 and K5 calls: a real frame's IMU block, state and P24; its
-    update features' measurements, chains and triangulation; and its C, b,
-    P and sigma^2.  Returns (result, K1 inputs, K5 inputs, K3 inputs)."""
+    last K1, K3 and K5 calls: a real frame's IMU block, state and P24 (the
+    inputs of the propagation's form on the CPU, K1's plain version or the
+    parallel prefix, which take the same arguments); its update features'
+    measurements, chains and triangulation; and its C, b, P and sigma^2.
+    Returns (result, K1 inputs, K5 inputs, K3 inputs)."""
     from unittest import mock
 
     import rvio_tpu_torch.filter.propagation as propagation
@@ -801,7 +860,9 @@ def capture_frame_inputs(cfg, args, frame_t, batches):
             mock.patch.object(update, "jac_project",
                               recorder("k3", k3.jac_project)), \
             mock.patch.object(propagation, "propagate_block",
-                              recorder("k1", k1.propagate_block)):
+                              recorder("k1", k1.propagate_block)), \
+            mock.patch.object(propagation, "propagate_parallel",
+                              recorder("k1", propagation.propagate_parallel)):
         res = SequenceDriver(cfg, dtype=torch.float32,
                              device="cpu").run(*args, frame_t, batches)
     return (res, [x.numpy() for x in captured["k1"]],
@@ -1176,8 +1237,9 @@ def _same(a, b):
 def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
     """The one-dispatch frame against the eager frame loop, in one run.
 
-    The feature path over the whole workload: the sequence scan eagerly,
-    then graphed with each of UNROLLS frames a graph (its first run
+    The feature path over its first GRAPH_FEATURE_FRAMES frames: the
+    sequence scan eagerly, then graphed with each of UNROLLS frames a
+    graph (its first run
     captures; the best of two more is timed), every output of every frame
     compared.  Images -> poses, CLAHE on, over GRAPH_IMG_FRAMES frames:
     eagerly, then through the graphed fused chunk scan, the front-end and
@@ -1191,6 +1253,7 @@ def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
 
     cfg = RVIOConfig()
     state0, bundles, _ = feature_bundles(cfg, sim, dev)
+    bundles = _head(bundles, GRAPH_FEATURE_FRAMES)
     T = int(bundles.imu.w.shape[0])
     want = dict.fromkeys(kernels, 0)
     want.update(dict.fromkeys(FILTER_KERNELS, T))
@@ -2128,6 +2191,289 @@ def mesh_phase(dev, sim, kernels, records, batch_cap, klt_cap,
                    launches=int(got[run][0][f"launches.{chk.name}"]))
         records.append((chk.kernel, rec))
 
+def _head(bundles, n: int):
+    """The first n frames of (T, ...) bundles."""
+    from rvio_tpu_torch.state.filter_state import map_fields
+    return dataclasses.replace(
+        bundles, imu=map_fields(lambda x: x[:n], bundles.imu),
+        batch=map_fields(lambda x: x[:n], bundles.batch))
+
+
+def _pose_gaps(p, q, p_ref, q_ref):
+    """Largest position (m) and attitude (rad) gaps of two pose runs."""
+    return (float(np.abs(p - p_ref).max()),
+            rotation_gap(q.reshape(-1, 4), q_ref.reshape(-1, 4)))
+
+
+def qr_phase(dev, sim, kernels) -> dict:
+    """QR compression in graphed frames (ROADMAP.md section 3): the feature
+    workload with ``tpu.compression = "qr"`` through the graphed sequence
+    scan over all its frames (ATE, every kernel but K5 once a frame: the
+    QR route does not reach K5) and the graphed batched scan over QR_B
+    copies of its first QR_FRAMES frames, each against the same frames run
+    eagerly; a graphed QR frame's time against a Cholesky frame's, in
+    turns.  Returns the record of the phase."""
+    from rvio_tpu_torch.bench import batch_copies, bench_config, feature_bundles
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.runtime import (make_batched_sequence_scan,
+                                        make_sequence_scan)
+    from rvio_tpu_torch.state import stack_states
+    cfg = bench_config({"BENCH_COMPRESSION": "qr"})
+    state0, bundles, idx0 = feature_bundles(cfg, sim, dev)
+    n = int(bundles.imu.w.shape[0])
+    runs = {"qr": make_sequence_scan(cfg, dev),
+            "cholesky": make_sequence_scan(bench_config({}), dev)}
+    first = {}
+    for name, run in runs.items():          # capture, then steady runs
+        t0 = time.perf_counter()
+        run(state0, bundles)
+        torch.cuda.synchronize()
+        first[name] = time.perf_counter() - t0
+    walls = {"qr": [], "cholesky": []}
+    for name in ("qr", "cholesky", "cholesky", "qr"):
+        _zero(kernels)
+        t0 = time.perf_counter()
+        _, out = runs[name](state0, bundles)
+        float(out["p_Gk"].sum())
+        walls[name].append(time.perf_counter() - t0)
+        if name == "qr":
+            launches = _launches(kernels)
+            got = {k: out[k].cpu().numpy() for k in ("p_Gk", "q_kG")}
+    want = dict.fromkeys(FILTER_KERNELS, n)
+    want[TAIL_KERNEL] = 0
+    if {k: launches[k] for k in FILTER_KERNELS} != want or any(
+            v for k, v in launches.items() if k not in FILTER_KERNELS):
+        raise AssertionError(f"QR path launches {launches}, expected {want}")
+    ate = ate_rmse(got["p_Gk"], sim.gt_p[idx0:])
+    ms = {k: min(v) / n * 1e3 for k, v in walls.items()}
+    head = _head(bundles, QR_FRAMES)
+    states = stack_states([state0] * QR_B)
+    _, outb = make_batched_sequence_scan(cfg, dev)(
+        states, batch_copies(head, QR_B))
+    with eager_frames():
+        _, ref = make_sequence_scan(cfg, dev)(state0, head)
+        _, refb = make_batched_sequence_scan(cfg, dev)(
+            states, batch_copies(head, QR_B))
+    gaps = {
+        "single": _pose_gaps(got["p_Gk"][:QR_FRAMES], got["q_kG"][:QR_FRAMES],
+                             ref["p_Gk"].cpu().numpy(),
+                             ref["q_kG"].cpu().numpy()),
+        f"B{QR_B}": _pose_gaps(outb["p_Gk"].cpu().numpy(),
+                               outb["q_kG"].cpu().numpy(),
+                               refb["p_Gk"].cpu().numpy(),
+                               refb["q_kG"].cpu().numpy())}
+    print(f"QR compression, graphed: {n} frames (the whole workload) in "
+          f"{ms['qr']:.3f} ms a frame against {ms['cholesky']:.3f} ms for the "
+          f"Cholesky (K5) frame (best of 2 each, in turns; first runs with "
+          f"capture {first['qr']:.2f} and {first['cholesky']:.2f} s); ATE "
+          f"{ate:.4f} m (limit {ATE_LIMIT_M}); launches {launches} (K5 0: "
+          f"the QR route is one torch.linalg.qr, then the EKF correction by "
+          f"two triangular solves); against the eager frames over {QR_FRAMES} "
+          f"frames, single and B = {QR_B}: max gaps (m, rad) {gaps} (limits "
+          f"{CPU_GAP_POS_M}, {CPU_GAP_ROT_RAD})", flush=True)
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"QR ATE {ate:.4f} m over {ATE_LIMIT_M} m")
+    for key, (dp, dq) in gaps.items():
+        if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
+            raise AssertionError(f"graphed QR scan ({key}) and its eager "
+                                 f"frames disagree: {dp:.3e} m, {dq:.3e} rad")
+    return {"frames": n, "ms_qr": ms["qr"], "ms_cholesky": ms["cholesky"],
+            "ate_m": ate, "gaps": gaps}
+
+
+def wide_window_phase(dev, kernels) -> None:
+    """Windows K5 does not take (n = 6 x clones > 92, ROADMAP.md section
+    3): the graphed sequence scan at each of WIDE_LENGTHS over WIDE_FRAMES
+    frames on the card and on the CPU: the tail is the unfused Cholesky
+    chain (K5 launches 0, the other filter kernels once a frame), within
+    the card-vs-CPU limits."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.ops.ekf_tail import NMAX
+    from rvio_tpu_torch.runtime import make_sequence_scan
+    for length in WIDE_LENGTHS:
+        base = RVIOConfig()
+        cfg = base.replace(tracker=dataclasses.replace(
+            base.tracker, max_tracking_length=length))
+        nn = 6 * cfg.window_size
+        sim = simulate_sequence(cfg, duration=WIDE_DURATION_S,
+                                static_time=1.5, ramp_time=5.0, seed=7,
+                                n_landmarks=2000, motion_scale=0.8,
+                                meas_noise=0.001, imu_noise=True)
+        out = {}
+        for where in (dev, "cpu"):
+            state0, bundles, _ = feature_bundles(cfg, sim, where)
+            head = _head(bundles, WIDE_FRAMES)
+            run = make_sequence_scan(cfg, where)
+            if where == dev:
+                run(state0, head)                   # capture
+                _zero(kernels)
+            t0 = time.perf_counter()
+            _, o = run(state0, head)
+            out[str(where)] = {k: v.cpu().numpy() for k, v in o.items()}
+            if where == dev:
+                wall = time.perf_counter() - t0
+                launches = _launches(kernels)
+        want = dict.fromkeys(FILTER_KERNELS, WIDE_FRAMES)
+        want[TAIL_KERNEL] = 0
+        card, cpu = out[str(dev)], out["cpu"]
+        dp, dq = _pose_gaps(card["p_Gk"], card["q_kG"], cpu["p_Gk"],
+                            cpu["q_kG"])
+        print(f"window of {cfg.window_size} clones (max_tracking_length "
+              f"{length}, n = {nn} > NMAX {NMAX}): the tail is the unfused "
+              f"chain (cholesky_tail); graphed, {WIDE_FRAMES} frames in "
+              f"{wall * 1e3 / WIDE_FRAMES:.3f} ms a frame, n_good mean "
+              f"{card['n_good'].mean():.1f}, launches "
+              f"{ {k: launches[k] for k in FILTER_KERNELS} }; against the CPU: "
+              f"max position gap {dp:.3e} m (limit {CPU_GAP_POS_M}), attitude "
+              f"{dq:.3e} rad (limit {CPU_GAP_ROT_RAD})", flush=True)
+        if {k: launches[k] for k in FILTER_KERNELS} != want:
+            raise AssertionError(f"wide window launches {launches}, "
+                                 f"expected {want}")
+        if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
+            raise AssertionError(f"window {length}: card and CPU disagree")
+        if not card["n_good"][WIDE_FRAMES // 2:].mean() > 4:
+            raise AssertionError(f"window {length}: too few good features")
+
+
+def sweep_phase(dev, kernels) -> None:
+    """``run_synthetic_sweep`` with one seed over SWEEP_DURATION_S on the
+    card (every filter kernel once a filtered frame) and on the CPU: the
+    same frames, each ATE below ATE_LIMIT_M; then ``python -m
+    rvio_tpu_torch.run --sweep 1`` in process, which prints the table."""
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch import run as run_cli
+    from rvio_tpu_torch.eval.sweep import format_table, run_synthetic_sweep
+    cfg = RVIOConfig()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    rows = run_synthetic_sweep(cfg, seeds=(0,), duration=SWEEP_DURATION_S,
+                               device=dev)
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    cpu = run_synthetic_sweep(cfg, seeds=(0,), duration=SWEEP_DURATION_S,
+                              device="cpu")
+    print(f"sweep, one seed on the card ({wall:.1f} s with the simulation):\n"
+          f"{format_table(rows)}\nlaunches {launches}; on the CPU:\n"
+          f"{format_table(cpu)}", flush=True)
+    n = rows[0].frames
+    if {k: launches[k] for k in FILTER_KERNELS} != dict.fromkeys(
+            FILTER_KERNELS, n):
+        raise AssertionError(f"sweep launches {launches}, {n} frames")
+    if n != cpu[0].frames:
+        raise AssertionError(f"sweep frames {n} on the card, "
+                             f"{cpu[0].frames} on the CPU")
+    for r in rows + cpu:
+        if not r.ate_m < ATE_LIMIT_M:
+            raise AssertionError(f"sweep ATE {r.ate_m:.4f} m over the limit")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as out, \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        run_cli.main(["--sweep", "1", "--output", out])
+    text = printed.getvalue()
+    print(f"python -m rvio_tpu_torch.run --sweep 1 printed:\n{text}",
+          end="", flush=True)
+    if "synthetic_seed0" not in text or "mean" not in text:
+        raise AssertionError("run --sweep printed no table")
+
+
+def stress_phase(dev, kernels, records) -> None:
+    """bench.py's high-rate stress config (BASELINE.json's fourth: 800
+    slots, 400 update lanes, five pyramid levels, the coarsest 30 x 47):
+    images -> poses over STRESS_FRAMES tracked frames on the card (every
+    kernel as often as the path implies, ATE, the acceptance gates), then
+    the kernels whose shapes the config changes on tracked frame
+    KLT_FRAME's inputs against their plain versions (:func:`measure`):
+    K2-K4 on the update's lanes, K6 and K8 at each level, K9 on the
+    refill, K13 on the refill's image (K1, K5, K10 and K11 keep the
+    default config's shapes); rows ``<kernel>@stress`` with the run's
+    launches."""
+    from rvio_tpu_torch.bench import bench_config
+    from rvio_tpu_torch.dataio import simulate_sequence
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.ops.checks import (STRESS_ENV, jac_case, lk_case,
+                                           lm_case, quadform_case,
+                                           shi_nms_case, subpix_case,
+                                           tile_case)
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    cfg = bench_config(STRESS_ENV)
+    levels = cfg.tracker.klt_levels + 1
+    sim = simulate_sequence(cfg, duration=STRESS_DURATION_S, static_time=1.5,
+                            ramp_time=5.0, seed=7, n_landmarks=2000,
+                            motion_scale=0.8, meas_noise=0.001,
+                            imu_noise=True)
+    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 9)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    res = run_rendered_sequence_scan(cfg, sim, device=dev, timing_split=True,
+                                     max_frames=k0 + 1 + STRESS_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    n = len(res.timestamps)
+    idx = np.searchsorted(sim.frame_t, res.timestamps)
+    ate = ate_rmse(res.positions, sim.gt_p[idx])
+    acc = res.acceptance_stats()
+    usable = float(res.diag["n_usable"].mean())
+    active = float(res.active_slots.sum(-1).mean())
+    print(f"stress image path ({cfg.tracker.num_features} slots, "
+          f"{cfg.tracker.max_update_features} update lanes, {levels} pyramid "
+          f"levels): {n} frames, {n / wall:.1f} frames/s images -> poses "
+          f"({wall:.2f} s, host rendering included); front-end "
+          f"{float(res.frontend_ms.mean()):.3f} ms/frame, back-end "
+          f"{float(res.backend_ms.mean()):.3f} ms/frame on the card; active "
+          f"slots mean {active:.1f}; ATE {ate:.4f} m (limit {ATE_LIMIT_M}); "
+          f"acceptance {json.dumps(acc)}, n_usable mean {usable:.1f}; "
+          f"launches {launches}", flush=True)
+    want = expected_launches(n, True, levels)
+    if n != STRESS_FRAMES or launches != want:
+        raise AssertionError(f"stress launches {launches} over {n} frames, "
+                             f"expected {want}")
+    if not (np.isfinite(res.positions).all() and ate < ATE_LIMIT_M):
+        raise AssertionError(f"stress ATE {ate:.4f} m")
+    for key, (op, lim) in ACCEPT_GATES.items():
+        if not (acc[key] > lim if op == ">" else acc[key] < lim):
+            raise AssertionError(f"stress {key} {acc[key]:.3f} fails {op} "
+                                 f"{lim}")
+    if not usable > N_USABLE_MIN:
+        raise AssertionError(f"stress n_usable mean {usable:.1f}")
+
+    t0 = time.perf_counter()
+    filters = {}
+    captured, _, subpix, nms_img = capture_klt_frame(
+        dev, sim, cfg=cfg, filters=filters)
+    print(f"stress: tracked frame {KLT_FRAME}'s inputs captured on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    what = f" (stress, frame {KLT_FRAME})"
+    z, Rc, tc, tl = filters["lm_triangulate"]
+    F = len(tl)
+    checks = [(lm_case(dev, z, Rc, tc, tl, cfg.camera.sigma_image, what=what),
+               f", {F} lanes", None),
+              (jac_case(dev, filters["jac_project"], what=what),
+               f", {F} lanes", None),
+              (quadform_case(dev, *filters["batched_quadform"], what=what),
+               f", {F} lanes", None)]
+    for lvl, tmpl, search, args, kw in captured:
+        hw = f"{tmpl[0].shape[0]}x{tmpl[0].shape[1]}"
+        at = f" (stress, frame {KLT_FRAME}, level {lvl}, {hw})"
+        checks += [(tile_case(dev, *tmpl, what=at), f", level {lvl}, {hw}",
+                    lvl),
+                   (lk_case(dev, args, kw, what=at, well_posed=True),
+                    f", level {lvl}, {hw}, {len(args[0])} lanes", lvl)]
+    (tiles, origin, pts), kw = subpix
+    checks += [(subpix_case(dev, tiles, origin, pts, **kw, what=what),
+                f", {len(pts)} refill corners", None),
+               (shi_nms_case(dev, nms_img, what=what), "", None)]
+    for chk, label, lvl in checks:
+        rec = measure(chk, f"@stress{label}")
+        rec.update(name=f"{chk.name}@stress", launches=launches[chk.name],
+                   features=cfg.tracker.num_features)
+        if lvl is not None:
+            rec["level"] = lvl
+        records.append((chk.kernel, rec))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2226,6 +2572,13 @@ def main() -> int:
     filter_frame_phase(dev, records, prop_inputs, jac_inputs)
     ekf_tail_phase(dev, records, tail_inputs)
     library_chain_phase(dev, sim, batches, kernels, res, driver)
+    for phase, call in (
+            ("QR", lambda: qr_phase(dev, sim, kernels)),
+            ("wide window", lambda: wide_window_phase(dev, kernels)),
+            ("sweep", lambda: sweep_phase(dev, kernels))):
+        t0 = time.perf_counter()
+        call()
+        print(f"{phase} phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # set-up: the folder, and the native PNG loader built before the
@@ -2263,6 +2616,9 @@ def main() -> int:
           f"s", flush=True)
     set_launches = set_replay_phase(dev, set_sims, set_seqs, kernels)
     batch_image_kernel_phase(dev, set_sims, set_seqs, records, set_launches)
+    t0 = time.perf_counter()
+    stress_phase(dev, kernels, records)
+    print(f"stress phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -8,7 +8,14 @@ root on a machine with a CUDA card:
 
 The workload is bench.py's: ``RVIOConfig()`` (200 features, 15-frame
 tracks, 20 Hz camera, 200 Hz IMU, CLAHE on, f32) on the 60 s synthetic
-sequence of seed 7 (2000 landmarks).  Prints ONE JSON line with bench.py's
+sequence of seed 7 (2000 landmarks), with bench.py's knobs
+(:func:`bench_config`): ``BENCH_FEATURES`` (the slot budget),
+``BENCH_KLT_LEVELS`` (the pyramid's top level) and ``BENCH_COMPRESSION``
+(``cholesky`` or ``qr``).  BASELINE.json's high-rate stress config is
+
+    BENCH_FEATURES=800 BENCH_KLT_LEVELS=4 python -m rvio_tpu_torch.bench
+
+(800 slots, 400 update lanes, five pyramid levels).  Prints ONE JSON line with bench.py's
 keys (``value`` is the feature path's frames/s through the graphed
 ``make_sequence_scan``, best of 3, each run ending in a readback of a sum
 over every frame's pose; ``vs_baseline`` against the reference's 20 Hz
@@ -40,6 +47,28 @@ import torch
 
 REFERENCE_FPS = 20.0  # the reference's real-time operating point (camera)
 PB, NCHUNK = 32, 4    # the image rates: chunks of 32 frames, 4 of them
+
+
+def bench_config(environ=None):
+    """The benchmark's config from bench.py's knobs (bench.py:81-95):
+    ``RVIOConfig()`` with ``BENCH_FEATURES`` slots and ``BENCH_KLT_LEVELS``
+    as the pyramid's top level where set (non-zero), and a ``TpuConfig``
+    of defaults with ``BENCH_COMPRESSION`` (default ``cholesky``)."""
+    import dataclasses
+
+    from rvio_tpu_torch import RVIOConfig
+    environ = os.environ if environ is None else environ
+    compression = environ.get("BENCH_COMPRESSION", "cholesky")
+    cfg = RVIOConfig()
+    n_feat = int(environ.get("BENCH_FEATURES", "0"))
+    klt_lvl = int(environ.get("BENCH_KLT_LEVELS", "0"))
+    if n_feat or klt_lvl:
+        trk = dataclasses.replace(
+            cfg.tracker,
+            **({"num_features": n_feat} if n_feat else {}),
+            **({"klt_levels": klt_lvl} if klt_lvl else {}))
+        cfg = cfg.replace(tracker=trk)
+    return cfg.replace(tpu=cfg.tpu.__class__(compression=compression))
 
 
 def _sim(cfg):
@@ -312,11 +341,10 @@ def main() -> int:
         print("rvio_tpu_torch.bench: no CUDA device; the benchmark measures "
               "the card", file=sys.stderr)
         return 1
-    from rvio_tpu_torch import RVIOConfig
     from rvio_tpu_torch.ops import _lib
     dev = torch.device("cuda", 0)
     _lib.build()
-    cfg = RVIOConfig()
+    cfg = bench_config()
     sim = _sim(cfg)
     feat = feature_path(cfg, sim, dev)
     bat = batched_path(cfg, sim, dev, int(os.environ.get("BENCH_BATCH", "16")))
@@ -359,6 +387,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": (f"euroc_{cfg.tracker.num_features}feat_window"
                    f"{cfg.tracker.max_tracking_length}"),
+        "klt_levels": cfg.tracker.klt_levels,
     }))
     return 0
 

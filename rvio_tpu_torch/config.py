@@ -17,10 +17,13 @@ recompiles.
 
 In the PyTorch port the tensor's device, not the config, selects kernels:
 ``tpu.use_pallas``, ``tpu.klt_fused`` and ``tpu.ekf_tail_fused`` select
-nothing, and ``tpu.parallel_propagation`` selects only the window-chain
-form (filter/update.window_pose_chain); IMU propagation always runs the
-sequential recursion.  The Cholesky compression and EKF core are always
-kernel K5 (ops/ekf_tail.py) on a CUDA tensor.
+nothing.  ``tpu.parallel_propagation`` selects the form of the window
+chain (filter/update.window_pose_chain) and of IMU propagation off the
+card (filter/propagation.propagate: a CUDA f32 state always runs kernel
+K1), as in the JAX package; the segment-batched scans keep both
+sequential.  The Cholesky compression and EKF core are kernel K5
+(ops/ekf_tail.py) on a CUDA tensor wherever K5 takes the window (up to 15
+clones), else the unfused chain.
 """
 
 from __future__ import annotations

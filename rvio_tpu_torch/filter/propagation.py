@@ -11,10 +11,14 @@ per frame (reference: src/rvio/PreIntegrator.cc:51-194):
 - clone cross-covariance multiplied by the accumulated Psi once per frame,
 - final symmetrization.
 
-The per-sample recursion is the K1 kernel (ops/propagate_block.py) on a
-CUDA tensor and its plain version, the JAX package's sequential fp-order
-oracle, on a CPU tensor.  The JAX package's parallel-prefix form (a TPU
-latency workaround computing the same math) is not ported yet.
+Three evaluations of the one recursion, dispatched as the JAX package
+dispatches them (rvio_tpu/filter/propagation.py:99-114): a CUDA f32
+tensor runs kernel K1 (ops/propagate_block.py, as the JAX package runs
+its Pallas kernel on its accelerator); otherwise ``parallel=True`` runs the
+parallel-prefix form (:func:`propagate_parallel`: every per-sample term
+batched, the rotation and covariance chains as log-depth prefix scans,
+another fp order of the same math); otherwise K1's plain version, the
+sequential fp-order oracle.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from rvio_tpu_torch.core.prefix import prefix_scan
 from rvio_tpu_torch.core.quaternion import quat_to_rot, rot_to_quat
+from rvio_tpu_torch.core.so3 import delta_rot, skew, so3_integration_coeffs
 from rvio_tpu_torch.device import resolve_device
-from rvio_tpu_torch.ops.propagate_block import propagate_block
+from rvio_tpu_torch.ops.propagate_block import _sig, propagate_block
 from rvio_tpu_torch.state.filter_state import (FilterState, add_segment_axis,
                                                drop_segment_axis)
 
@@ -75,10 +81,115 @@ def make_imu_block(w: np.ndarray, a: np.ndarray, dt: np.ndarray,
                     valid=torch.as_tensor(valid, device=device))
 
 
+def propagate_parallel(w, a, dte, R0, vR, gR, bg, ba, P0, *,
+                       gravity: float, small_angle: float, sigma_g: float,
+                       sigma_wg: float, sigma_a: float, sigma_wa: float):
+    """One frame's propagation as a parallel prefix: port of
+    rvio_tpu/filter/propagation.py ``_propagate_parallel``, for B streams,
+    with the inputs and outputs of ops/propagate_block.propagate_block
+    ((Rk, pk, vk, P24, Psi)).
+
+    1. every per-sample increment built batched (dR, f1..f4, the dp/dv
+       integrands, F, Phi, Q: no serial dependency);
+    2. the rotation chain Rk_i = dR_i ... dR_1 R0 and the covariance chain
+       (P -> Phi P Phi^T + Q, composing as (A2, Q2)∘(A1, Q1) =
+       (A2 A1, A2 Q1 A2^T + Q2)) as prefix scans (core/prefix.py);
+    3. dv, dp as cumulative sums of rotated increments, and the pre-sample
+       (vk, gk) that F needs in closed form from the prefixes.
+
+    Padding is masked by dt = 0 alone: dR = I, f1..f4 = 0, Phi = I, Q = 0,
+    an exact identity step whatever w and a hold.  The same math as the
+    sequential recursion in another fp order (about 1e-13 apart in f64)."""
+    dtype, dev = P0.dtype, P0.device
+    B, K = dte.shape
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye24 = torch.eye(24, dtype=dtype, device=dev)
+
+    def col(x):
+        return x[..., None, None]
+
+    w = w - bg[:, None]
+    a = a - ba[:, None]
+    wx = skew(w)                                          # (B, K, 3, 3)
+    wx2 = wx @ wx
+    dRs = delta_rot(w, dte, small_angle)
+    f1, f2, f3, f4 = so3_integration_coeffs(
+        torch.linalg.vector_norm(w, dim=-1), dte, small_angle)
+
+    # rotation prefix: pref_i = dR_i ... dR_1 (combine = later @ earlier)
+    (pref,) = prefix_scan((dRs,), lambda e, l: (l[0] @ e[0],), dim=1)
+    Rk = pref @ R0[:, None]                               # post-sample
+    prev_R = torch.cat([R0[:, None], Rk[:, :-1]], dim=1)
+
+    Dt = torch.cumsum(dte, dim=1)                         # post-sample
+    prev_Dt = Dt - dte
+
+    # dv/dp prefix sums (PreIntegrator.cc:168-173 with the updated Rk)
+    RkT = Rk.transpose(-1, -2)
+    Mv = col(dte) * eye3 + col(f3) * wx + col(f4) * wx2
+    ev = (RkT @ (Mv @ a[..., None]))[..., 0]              # dv increments
+    dv = torch.cumsum(ev, dim=1)
+    prev_dv = dv - ev
+    Mp = col(0.5 * dte ** 2) * eye3 + col(f1) * wx + col(f2) * wx2
+    ep = prev_dv * dte[..., None] + (RkT @ (Mp @ a[..., None]))[..., 0]
+    dp = torch.cumsum(ep, dim=1)
+
+    # pre-sample vk/gk for F (sample 0 uses the frame-entry state,
+    # PreIntegrator.cc:63-66)
+    vk_form = (prev_R @ (vR[:, None] - gravity * gR[:, None]
+                         * prev_Dt[..., None] + prev_dv)[..., None])[..., 0]
+    gk_form = (prev_R @ gR[:, None, :, None])[..., 0]
+    gk_form = gk_form / torch.linalg.vector_norm(gk_form, dim=-1,
+                                                 keepdim=True)
+    first = (torch.arange(K, device=dev) == 0)[None, :, None]
+    prev_vk = torch.where(first, vR[:, None], vk_form)
+    prev_gk = torch.where(first, gR[:, None], gk_form)
+
+    # batched F, Phi, Q (PreIntegrator.cc:122-142)
+    vx = skew(prev_vk)
+    prev_RT = prev_R.transpose(-1, -2)
+    F = torch.zeros(B, K, 24, 24, dtype=dtype, device=dev)
+    F[..., 9:12, 9:12] = -wx
+    F[..., 9:12, 18:21] = -eye3
+    F[..., 12:15, 9:12] = -(prev_RT @ vx)
+    F[..., 12:15, 15:18] = prev_RT
+    F[..., 15:18, 6:9] = -gravity * prev_R
+    F[..., 15:18, 9:12] = -gravity * skew(prev_gk)
+    F[..., 15:18, 15:18] = -wx
+    F[..., 15:18, 18:21] = -vx
+    F[..., 15:18, 21:24] = -eye3
+    Phi = eye24 + col(dte) * F
+
+    sig = torch.cat([torch.full((3,), s, dtype=dtype, device=dev)
+                     for s in _sig(sigma_g, sigma_wg, sigma_a, sigma_wa)])
+    G = torch.zeros(B, K, 24, 12, dtype=dtype, device=dev)
+    G[..., 9:12, 0:3] = -eye3
+    G[..., 15:18, 0:3] = -vx
+    G[..., 15:18, 6:9] = -eye3
+    G[..., 18:21, 3:6] = eye3
+    G[..., 21:24, 9:12] = eye3
+    Q = (col(dte) * (G * sig)) @ G.transpose(-1, -2)
+
+    def combine(e, l):
+        (Ae, Qe), (Al, Ql) = e, l
+        return Al @ Ae, Al @ Qe @ Al.transpose(-1, -2) + Ql
+
+    Psis, Qacc = prefix_scan((Phi, Q), combine, dim=1)
+    Psi = Psis[:, -1]
+    P24 = Psi @ P0 @ Psi.transpose(-1, -2) + Qacc[:, -1]
+
+    # finals (PreIntegrator.cc:171-178 at the last sample)
+    Dt_f = Dt[:, -1, None]
+    pk = vR * Dt_f - 0.5 * gravity * gR * Dt_f ** 2 + dp[:, -1]
+    vk = (Rk[:, -1] @ (vR - gravity * gR * Dt_f + dv[:, -1])[..., None]
+          )[..., 0]
+    return Rk[:, -1], pk, vk, P24, Psi
+
+
 def propagate(state: FilterState, imu: ImuBlock, *,
               gravity: float, small_angle: float,
               sigma_g: float, sigma_wg: float, sigma_a: float,
-              sigma_wa: float) -> FilterState:
+              sigma_wa: float, parallel: bool = False) -> FilterState:
     """Propagate the state/covariance through one frame's IMU block.
 
     Faithful to reference PreIntegrator::propagate (PreIntegrator.cc:51-194):
@@ -90,15 +201,23 @@ def propagate(state: FilterState, imu: ImuBlock, *,
     A state with a segment axis B takes an ImuBlock with the same leading
     axis ((B, K, 3), ...): K1 runs the B streams in one launch.  One
     filter's state runs as a batch of one.
+
+    A CUDA f32 state runs K1; any other takes the parallel-prefix form
+    (:func:`propagate_parallel`) with ``parallel`` and the sequential
+    recursion (K1's plain version) without it, as the JAX function's
+    ``parallel`` picks (its default is True; the port's callers pass
+    ``tpu.parallel_propagation``).
     """
     if not state.batched:
         return drop_segment_axis(propagate(
             add_segment_axis(state), add_segment_axis(imu), gravity=gravity,
             small_angle=small_angle, sigma_g=sigma_g, sigma_wg=sigma_wg,
-            sigma_a=sigma_a, sigma_wa=sigma_wa))
+            sigma_a=sigma_a, sigma_wa=sigma_wa, parallel=parallel))
     dtype = state.dtype
+    on_k1 = state.device.type == "cuda" and dtype == torch.float32
+    terms = propagate_parallel if parallel and not on_k1 else propagate_block
     dte = torch.where(imu.valid, imu.dt, torch.zeros_like(imu.dt)).to(dtype)
-    Rk, pk, vk, P24, Psi = propagate_block(
+    Rk, pk, vk, P24, Psi = terms(
         imu.w.to(dtype).contiguous(), imu.a.to(dtype).contiguous(),
         dte.contiguous(), quat_to_rot(state.q_R), state.v_R.contiguous(),
         state.g.contiguous(), state.bg.contiguous(), state.ba.contiguous(),

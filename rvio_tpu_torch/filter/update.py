@@ -20,7 +20,8 @@ the B·F feature rows, K5 on the B systems, every gate per segment):
 6. EKF update with multiplicative quaternion retraction and Joseph-form
    covariance (Updater.cc:538-619).  With Cholesky compression the tail
    after C = Hw^T Hw, b = Hw^T ro is one launch of kernel K5
-   (ops/ekf_tail.py).
+   (ops/ekf_tail.py) wherever K5 takes the window, else the unfused chain
+   (``tail``, chosen when the step is built).
 
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs its
 plain version on a CPU tensor.  Gates are ``torch.where`` on device
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from rvio_tpu_torch.core.chi2 import chi2_gate_thresholds, chi2_truncated_means
+from rvio_tpu_torch.core.prefix import prefix_scan
 from rvio_tpu_torch.core.quaternion import (quat_mul, quat_to_rot,
                                             small_quat_from_dtheta)
 from rvio_tpu_torch.ops.ekf_tail import (ekf_correction, ekf_tail,
@@ -108,16 +110,12 @@ def window_pose_chain(clones: torch.Tensor, parallel: bool = False
     Rc = quat_to_rot(clones[..., :4])
     pc = clones[..., 4:7]
     if parallel:
-        Rs = Rc
-        ts = -(Rc @ pc[..., None])[..., 0]
-        step = 1
-        while step < M:
-            Rl, tl = Rs[..., step:, :, :], ts[..., step:, :]
-            Re, te = Rs[..., :-step, :, :], ts[..., :-step, :]
-            Rs = torch.cat([Rs[..., :step, :, :], Rl @ Re], dim=-3)
-            ts = torch.cat([ts[..., :step, :],
-                            (Rl @ te[..., None])[..., 0] + tl], dim=-2)
-            step *= 2
+        def compose(e, l):
+            (Re, te), (Rl, tl) = e, l
+            return Rl @ Re, (Rl @ te[..., None])[..., 0] + tl
+
+        Rs, ts = prefix_scan((Rc, -(Rc @ pc[..., None])[..., 0]), compose,
+                             dim=len(lead))
     else:
         Rw = torch.eye(3, **kw).expand(lead + (3, 3))
         tw = torch.zeros(lead + (3,), **kw)
@@ -419,10 +417,12 @@ def merge_partials(parts: Sequence[UpdatePartials]) -> UpdatePartials:
 def update_tail(state: FilterState, parts: UpdatePartials, *,
                 min_clone_states: int, compression: str = "qr",
                 adaptive_noise: bool = False, adaptive_alpha: float = 0.02,
-                adaptive_rampup: int = 0):
+                adaptive_rampup: int = 0, tail: Optional[Callable] = None):
     """The replicated half of :func:`msckf_update` on the (summed)
-    partials: the EKF correction (K5 on C, b; or, with QR compression,
-    the correction on R after one more block QR of the shards' stacked R's,
+    partials: the EKF correction (``tail`` on C, b: by default K5,
+    :func:`ekf_tail`; the unfused chain, ops/ekf_tail.py ``cholesky_tail``,
+    where K5 does not take the window; or, with QR compression, the
+    correction on R after one more block QR of the shards' stacked R's,
     :func:`tsqr_compress`), the retraction, the gates and the
     adaptive-noise step.  Returns (new_state, diagnostics)."""
     dev = state.device
@@ -436,10 +436,10 @@ def update_tail(state: FilterState, parts: UpdatePartials, *,
     if compression == "cholesky":
         # C = L L^T, Hn = L^T, rn = L^-1 b, ridge-regularized on the (zero)
         # invalid-clone diagonal: the tail after C and b is K5
-        # (ops/ekf_tail.py), one launch for the B systems
-        dx, P_new, ridge_fallback = ekf_tail(sums["C"], sums["b"],
-                                             P.contiguous(),
-                                             sig2_eff.contiguous())
+        # (ops/ekf_tail.py), one launch for the B systems, or the unfused
+        # chain where K5 does not take n
+        dx, P_new, ridge_fallback = (tail or ekf_tail)(
+            sums["C"], sums["b"], P.contiguous(), sig2_eff.contiguous())
     else:
         Hn_cl, rn = parts.stacks["R"], parts.stacks["rn"]
         if parts.shards > 1:
@@ -522,7 +522,8 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
                  fej: bool = False, adaptive_noise: bool = False,
                  adaptive_alpha: float = 0.02, adaptive_rampup: int = 0,
                  feat_reduce: Optional[Callable[[UpdatePartials],
-                                                UpdatePartials]] = None):
+                                                UpdatePartials]] = None,
+                 tail: Optional[Callable] = None):
     """Full measurement update; returns (new_state, diagnostics).
 
     Equivalent to Updater::update (reference: Updater.cc:72-628) plus the
@@ -551,6 +552,9 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
     ``all_reduce`` of parallel/segment.py), identical on every shard, so
     every shard applies the same correction.  The per-lane diagnostics
     (passed, mahalanobis, landmarks, rho) are then the shard's lanes.
+
+    ``tail`` (:func:`update_tail`) is chosen when a step is built, from
+    its window (runtime/step.py): K5 only where it takes the window.
     """
     if not state.batched:
         new_state, diag = msckf_update(
@@ -559,7 +563,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
             compression=compression, parallel_chains=parallel_chains,
             fej=fej, adaptive_noise=adaptive_noise,
             adaptive_alpha=adaptive_alpha, adaptive_rampup=adaptive_rampup,
-            feat_reduce=feat_reduce)
+            feat_reduce=feat_reduce, tail=tail)
         return (drop_segment_axis(new_state),
                 {k: v.squeeze(0) for k, v in diag.items()})
     parts = update_partials(state, batch, R_bc=R_bc, t_bc=t_bc,
@@ -572,4 +576,4 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
                        compression=compression,
                        adaptive_noise=adaptive_noise,
                        adaptive_alpha=adaptive_alpha,
-                       adaptive_rampup=adaptive_rampup)
+                       adaptive_rampup=adaptive_rampup, tail=tail)

@@ -556,11 +556,17 @@ def tile_case(dev, img, o, what: str = "") -> KernelCheck:
     H, W = img.shape
     o = o.to(dev)
     img = img.to(dev)
-    rows = (o[:, 1, None] + torch.arange(TILE_H, device=dev)).long()
-    cols = (o[:, 0, None] + torch.arange(TILE, device=dev)).long()
+    # the tiles' pixel indices, clamped as the plain version clamps them
+    # (tiles taller or wider than the image repeat its last row or column)
+    oy = torch.clamp(o[:, 1], 0, max(H - TILE_H, 0))
+    ox = torch.clamp(o[:, 0], 0, max(W - TILE, 0))
+    rows = torch.clamp(oy[:, None] + torch.arange(TILE_H, device=dev),
+                       max=H - 1).long()
+    cols = torch.clamp(ox[:, None] + torch.arange(TILE, device=dev),
+                       max=W - 1).long()
 
     def library(*_):
-        """The one indexing call (tile origins already in bounds)."""
+        """The one indexing call (the clamped indices made beforehand)."""
         return img[rows[:, :, None], cols[:, None, :]]
 
     def compare(ko, po):
@@ -1391,3 +1397,59 @@ def image_batch_checks(device, B: int = 4, seed: int = 0
               _clahe_luts_case, _clahe_apply_case)
     return [batch_case([make(cfg, dev, rng) for _ in range(B)],
                        what=f" (B = {B})") for make in makers]
+
+
+# BASELINE.json's high-rate stress config, 4x the feature budget and a
+# deeper pyramid, as the bench's knobs set it (rvio_tpu_torch/bench.py
+# ``bench_config``)
+STRESS_ENV = {"BENCH_FEATURES": "800", "BENCH_KLT_LEVELS": "4"}
+
+
+def stress_checks(device, seed: int = 0) -> List[KernelCheck]:
+    """K6 and K8 at the stress config's coarsest pyramid level (level 4 of
+    480 x 752: a 30 x 47 image, smaller than a tile, so K6 takes its
+    edge-clamped branch) and K9 near the corners of a full frame, each at
+    N = 800 lanes on seeded inputs."""
+    from rvio_tpu_torch.bench import bench_config
+    from rvio_tpu_torch.frontend.image import bilinear_sample
+    from rvio_tpu_torch.frontend.klt import TILE, TILE_H, tile_origins
+    from rvio_tpu_torch.ops.tile_gather import gather_tiles_plain
+    cfg = bench_config(STRESS_ENV)
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    N = cfg.tracker.num_features
+    top = cfg.tracker.klt_levels
+    scale = 2 ** top
+    H, W = cfg.camera.height // scale, cfg.camera.width // scale
+    base = _texture(rng, H + 40, W + 40)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                            torch.arange(W, dtype=torch.float64),
+                            indexing="ij")
+    img1 = base[20:20 + H, 20:20 + W].float()
+    img2 = bilinear_sample(base, torch.stack([xx + 19.6, yy + 20.3],
+                                             -1)).float()
+    pts = rng.uniform((1.0, 1.0), (W - 2.0, H - 2.0), (N, 2))
+    win = cfg.tracker.klt_window
+    args, hw = lk_inputs(img1, img2, pts, win)
+    kwargs = dict(win=win, max_iters=cfg.tracker.klt_max_iters,
+                  eps=cfg.tracker.klt_eps, min_eig=cfg.tracker.klt_min_eig,
+                  wander=float(TILE - win) / 2.0 - 1.0, last=False, hw=hw)
+    level = f" (level {top}, {H}x{W}, N = {N})"
+    checks = [tile_case(dev, img1, tile_origins(torch.as_tensor(
+                  pts, dtype=torch.float32), H, W), what=level),
+              lk_case(dev, args, kwargs, what=level)]
+    # K9 near the checker corners of a rendered-like frame (its corner
+    # positions drawn again from the same seed), a px or so off each
+    Hf, Wf = cfg.camera.height, cfg.camera.width
+    img = _checker_frame(np.random.default_rng(seed), Hf, Wf, N)
+    at = np.random.default_rng(seed)
+    xy = np.stack([at.integers(0, Wf, N), at.integers(0, Hf, N)], -1)
+    p = torch.as_tensor(np.clip(xy + rng.uniform(-1.0, 1.0, (N, 2)),
+                                (8.0, 8.0), (Wf - 9.0, Hf - 9.0)),
+                        dtype=torch.float32)
+    o = tile_origins(p, Hf, Wf)
+    checks.append(subpix_case(
+        dev, gather_tiles_plain(img, o, TILE_H, TILE), o, p,
+        int(cfg.tracker.min_distance) // 2, cfg.tracker.subpix_iters,
+        what=f" (a full frame's corners, N = {N})"))
+    return checks

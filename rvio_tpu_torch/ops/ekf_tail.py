@@ -17,8 +17,10 @@ took the wider ridge (see :func:`info_cholesky`).
 
 The function is the port's unfused Cholesky chain, :func:`cholesky_tail`;
 the plain version runs it once per batch entry.  The filter's Cholesky
-branch always calls :func:`ekf_tail`, so the tensor's device picks the
-kernel or the chain (``tpu.ekf_tail_fused`` selects nothing).  The JAX
+branch calls :func:`ekf_tail` wherever n <= NMAX, so the tensor's device
+picks the kernel or the chain (``tpu.ekf_tail_fused`` selects nothing),
+and the chain itself above NMAX (chosen when the step is built,
+runtime/step.py: a window of 16 or more clones).  The JAX
 package launches its kernel only on a TPU in f32; elsewhere its flag runs
 the same unfused chain, which is therefore the reference.
 
@@ -58,8 +60,9 @@ NMAX = 92
 
 
 def info_cholesky(C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lower Cholesky factor of the information matrix C (n x n) plus a
-    ridge, and whether the wider ridge was needed (a 0-d bool tensor).
+    """Lower Cholesky factor of the information matrix C (..., n, n) plus a
+    ridge, and whether the wider ridge was needed (a bool tensor of C's
+    leading shape).
 
     The ridge is the JAX package's 1e-8 * max(trace C, 1), and the factor
     is the JAX function's wherever that factorization succeeds.  Only where
@@ -71,15 +74,19 @@ def info_cholesky(C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     factor that fails both ways is NaN, as in the JAX package."""
     n = C.shape[-1]
     eye = torch.eye(n, dtype=C.dtype, device=C.device)
-    scale = torch.clamp(torch.trace(C), min=1.0)
+    # torch.trace's sum for one matrix (the plain version's bits)
+    trace = (torch.trace(C) if C.dim() == 2
+             else torch.diagonal(C, dim1=-2, dim2=-1).sum(-1))
+    scale = torch.clamp(trace, min=1.0)[..., None, None]
     L, info = torch.linalg.cholesky_ex(C + (INFO_RIDGE * scale) * eye)
     fallback = info != 0
     wide = n * torch.finfo(C.dtype).eps
     if wide > INFO_RIDGE:
         L2, info2 = torch.linalg.cholesky_ex(C + (wide * scale) * eye)
-        L = torch.where(fallback, L2, L)
+        L = torch.where(fallback[..., None, None], L2, L)
         info = torch.where(fallback, info2, info)
-    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    L = torch.where((info == 0)[..., None, None], L,
+                    torch.full_like(L, float("nan")))
     return L, fallback
 
 
@@ -90,6 +97,16 @@ def nan_cholesky(A: torch.Tensor) -> torch.Tensor:
     L, info = torch.linalg.cholesky_ex(A)
     return torch.where((info == 0)[..., None, None], L,
                        torch.full_like(L, float("nan")))
+
+
+def cholesky_solve(L: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(L L^T)^-1 X for a lower factor L (..., k, k) and X (..., k, m) by
+    two triangular solves (cuBLAS trsm on the card), the two steps of
+    LAPACK's potrs.  ``torch.cholesky_solve`` does not serve the filter:
+    on a batched CUDA tensor it goes to MAGMA, which cannot be captured
+    into a CUDA graph (the graphed frame aborts)."""
+    Y = torch.linalg.solve_triangular(L, X, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
 
 
 def ekf_correction(P: torch.Tensor, Hn_cl: torch.Tensor, rn: torch.Tensor,
@@ -109,8 +126,8 @@ def ekf_correction(P: torch.Tensor, Hn_cl: torch.Tensor, rn: torch.Tensor,
     PHt = P @ HnT                                              # (..., D, k)
     S = Hn @ PHt + sig2 * torch.eye(k, dtype=dtype, device=dev)
     S = 0.5 * (S + S.transpose(-1, -2))
-    K = torch.cholesky_solve(PHt.transpose(-1, -2), nan_cholesky(S)
-                             ).transpose(-1, -2)               # (..., D, k)
+    K = cholesky_solve(nan_cholesky(S), PHt.transpose(-1, -2)
+                       ).transpose(-1, -2)                     # (..., D, k)
     dx = (K @ rn[..., None])[..., 0]
     I_KH = torch.eye(D, dtype=dtype, device=dev) - K @ Hn
     P_new = (I_KH @ P @ I_KH.transpose(-1, -2)
@@ -120,12 +137,16 @@ def ekf_correction(P: torch.Tensor, Hn_cl: torch.Tensor, rn: torch.Tensor,
 
 def cholesky_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor, sig2
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The unfused chain for one system: information-form compression
-    (C = Lc Lc^T, Hn = Lc^T, rn = Lc^-1 b) and the EKF core.  Returns
-    (dx (D,), P_new (D, D), fallback 0-d bool)."""
+    """The unfused chain: information-form compression (C = Lc Lc^T,
+    Hn = Lc^T, rn = Lc^-1 b) and the EKF core, for one system (C (n, n),
+    b (n,), P (D, D), sig2 a scalar) or a batch of them (leading axes on
+    every input).  Returns (dx (..., D), P_new (..., D, D), fallback, a
+    bool of the leading shape).  Every call in it can be captured into a
+    CUDA graph: the filter runs it in K5's place where K5 does not take n,
+    a window of 16 or more clones (runtime/step.py ``_segment_body``)."""
     Lc, fallback = info_cholesky(C)
-    rn = torch.linalg.solve_triangular(Lc, b[:, None], upper=False)[:, 0]
-    dx, P_new = ekf_correction(P, Lc.T, rn, sig2)
+    rn = torch.linalg.solve_triangular(Lc, b[..., None], upper=False)[..., 0]
+    dx, P_new = ekf_correction(P, Lc.transpose(-1, -2), rn, sig2)
     return dx, P_new, fallback
 
 

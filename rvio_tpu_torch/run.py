@@ -16,8 +16,7 @@ Usage:
   python -m rvio_tpu_torch.run --info /data/V1_01_easy.bag             # topics
   python -m rvio_tpu_torch.run --set /data/V1_01_easy /data/V2_01_easy \
       --output out/                              # a set in lockstep, one card
-
-``--sweep`` is not ported yet.
+  python -m rvio_tpu_torch.run --sweep 5 --noise # an N-seed synthetic sweep
 """
 
 from __future__ import annotations
@@ -29,9 +28,6 @@ import time
 
 import numpy as np
 
-# the slice of the port that will bring what a refused flag needs
-_LATER = {"--sweep": "the utilities and eval/sweep.py"}
-
 
 def main(argv=None) -> int:
     run(argv)
@@ -40,7 +36,7 @@ def main(argv=None) -> int:
 
 def run(argv=None):
     """The CLI's work: returns the run's DriverResult (None for --info, a
-    list of them for --set)."""
+    list of them for --set, the sweep's rows for --sweep)."""
     ap = argparse.ArgumentParser(description="rvio_tpu_torch sequence runner")
     ap.add_argument("--config", default=None,
                     help="YAML config (native or reference cv-format)")
@@ -63,7 +59,7 @@ def run(argv=None):
     ap.add_argument("--synthetic", type=float, default=None, metavar="SECONDS",
                     help="run the simulator for SECONDS instead of a dataset")
     ap.add_argument("--sweep", type=int, default=None, metavar="N",
-                    help="not ported yet: an N-seed synthetic sweep")
+                    help="run an N-seed synthetic accuracy/throughput sweep")
     ap.add_argument("--skip", type=float, default=0.0,
                     help="seconds of data to skip (MH_* needs ~40)")
     ap.add_argument("--output", default="out",
@@ -87,12 +83,6 @@ def run(argv=None):
                          "trajectory")
     args = ap.parse_args(argv)
 
-    for flag, dest in (("--sweep", args.sweep),):
-        if dest is not None:
-            ap.error(f"{flag} is not ported to rvio_tpu_torch yet: it comes "
-                     f"with {_LATER[flag]}, a later slice of the port "
-                     f"(ROADMAP.md)")
-
     if args.info:
         from rvio_tpu_torch.dataio.rosbag import bag_info
         info = bag_info(args.info)
@@ -112,6 +102,14 @@ def run(argv=None):
     cfg = load_config(args.config) if args.config else RVIOConfig()
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     os.makedirs(args.output, exist_ok=True)
+
+    if args.sweep is not None:
+        from rvio_tpu_torch.eval.sweep import format_table, run_synthetic_sweep
+        rows = run_synthetic_sweep(cfg, seeds=range(args.sweep), dtype=dtype,
+                                   noise=args.noise, progress=True,
+                                   device=args.device)
+        print(format_table(rows))
+        return rows
 
     if args.set:
         return _run_set(args, cfg, dtype)

@@ -718,7 +718,8 @@ class ImagePipeline:
         self._imu_kw = dict(gravity=cfg.imu.gravity,
                             small_angle=cfg.imu.small_angle,
                             sigma_g=cfg.imu.sigma_g, sigma_wg=cfg.imu.sigma_wg,
-                            sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa)
+                            sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa,
+                            parallel=cfg.tpu.parallel_propagation)
 
         def body(carry, f):
             ts, fs = carry

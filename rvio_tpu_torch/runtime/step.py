@@ -31,6 +31,7 @@ from rvio_tpu_torch.config import RVIOConfig
 from rvio_tpu_torch.device import resolve_device
 from rvio_tpu_torch.filter.propagation import ImuBlock, propagate
 from rvio_tpu_torch.filter.update import UpdateBatch, msckf_update
+from rvio_tpu_torch.ops.ekf_tail import NMAX, cholesky_tail
 from rvio_tpu_torch.runtime.graph import FrameScan, tree_leaves, tree_map
 from rvio_tpu_torch.state import FilterState, augment_window, compose_state
 from rvio_tpu_torch.state.filter_state import (add_segment_axis,
@@ -69,13 +70,15 @@ def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool,
     """The filter's one body: ``body(states, bundles) -> (states,
     outputs)`` for a state and a bundle with a leading segment axis B,
     every output (B, ...).  Every filter kernel launches once for the B
-    segments.  ``parallel_chains`` picks the window chain's form
-    (filter/update.window_pose_chain); ``feat_reduce`` joins the update's
+    segments.  ``parallel_chains`` picks the form of the window chain
+    (filter/update.window_pose_chain) and of propagation off the card
+    (filter/propagation.propagate); ``feat_reduce`` joins the update's
     halves when the bundles hold one shard of the feature lanes
     (filter/update.msckf_update)."""
     imu_kw = dict(gravity=cfg.imu.gravity, small_angle=cfg.imu.small_angle,
                   sigma_g=cfg.imu.sigma_g, sigma_wg=cfg.imu.sigma_wg,
-                  sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa)
+                  sigma_a=cfg.imu.sigma_a, sigma_wa=cfg.imu.sigma_wa,
+                  parallel=parallel_chains)
     # extrinsics moved to the device once, not per frame
     upd_kw = dict(R_bc=torch.as_tensor(cfg.camera.R_bc, device=device).to(dtype),
                   t_bc=torch.as_tensor(cfg.camera.t_bc, device=device).to(dtype),
@@ -85,7 +88,11 @@ def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool,
                   fej=cfg.tpu.fej,
                   adaptive_noise=cfg.tpu.adaptive_noise,
                   adaptive_rampup=cfg.tpu.adaptive_rampup_frames,
-                  parallel_chains=parallel_chains, feat_reduce=feat_reduce)
+                  parallel_chains=parallel_chains, feat_reduce=feat_reduce,
+                  # the Cholesky tail, fixed here: K5 (None, the update's
+                  # default) where K5 takes n = 6 x the window's clones,
+                  # else the unfused chain (the JAX package's default tail)
+                  tail=None if 6 * cfg.window_size <= NMAX else cholesky_tail)
 
     def body(states: FilterState, bundles: FrameBundle
              ) -> Tuple[FilterState, Dict[str, torch.Tensor]]:
@@ -153,8 +160,9 @@ def make_batched_sequence_scan(cfg: RVIOConfig, device=None,
     A frame of the B segments is one row of the input table (each
     segment's packed row in turn) and one replay of a captured graph on a
     CUDA device: every filter kernel launches once a frame for the whole
-    batch.  As the JAX function does, the window chain runs in its
-    sequential form whatever ``tpu.parallel_propagation`` says.
+    batch.  As the JAX function does, the window chain and propagation
+    off the card run in their sequential forms whatever
+    ``tpu.parallel_propagation`` says.
     ``device`` ``None`` means the CUDA device; ``run.frame_scan`` is the
     :class:`FrameScan`."""
     device = resolve_device(device)

@@ -45,7 +45,11 @@ repair pass; the batched tracker: K6, K8, K9 (B·N rows), K10, K11 and
 K13 at B = 1, 2 and 4 against their plain versions, K8's segments each
 with its own T bitwise against single launches, the batched wrappers
 refusing mismatched parts, and the set replay against the single
-replays.  Whether a
+replays; QR compression in graphed frames (single and B = 4, run in a
+child process) against the same frames run eagerly, windows of 16 and 19
+clones (the unfused chain in K5's place) against the CPU, K6, K8 and K9
+at the stress config's shapes (800 lanes, the 30 x 47 fifth level), and
+the bench's feature path with ``BENCH_COMPRESSION=qr``.  Whether a
 card is present is decided in the fixture, so every process collects the
 same tests.
 """
@@ -2094,3 +2098,142 @@ def _cut_time(obj, n):
 def _at(obj, t):
     from rvio_tpu_torch.state.filter_state import map_fields
     return map_fields(lambda x: x[:, t], obj)
+
+
+# --- the QR route and wide windows in graphed frames; the stress shapes --------
+
+_QR_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, "tests")
+from test_torch_cuda import _qr_runs
+np.savez(sys.argv[1], **_qr_runs("cuda"))
+"""
+
+
+def _feature_workload(cfg, dev, duration=20.0):
+    """bench.py's synthetic sequence (seed 7), ``duration`` seconds, at
+    ``cfg``: (sim, init state, stacked bundles on ``dev``, init frame)."""
+    from rvio_tpu_torch.bench import feature_bundles
+    from rvio_tpu_torch.dataio import simulate_sequence
+    sim = simulate_sequence(cfg, duration=duration, static_time=1.5,
+                            ramp_time=5.0, seed=7, n_landmarks=2000,
+                            motion_scale=0.8, meas_noise=0.001,
+                            imu_noise=True)
+    return (sim, *feature_bundles(cfg, sim, dev))
+
+
+def _qr_runs(dev, B=4):
+    """The feature workload with QR compression through
+    ``make_sequence_scan`` and ``make_batched_sequence_scan`` (B copies):
+    every frame's pose as numpy, and the ground truth."""
+    from rvio_tpu_torch.bench import batch_copies, bench_config
+    from rvio_tpu_torch.runtime import (make_batched_sequence_scan,
+                                        make_sequence_scan)
+    from rvio_tpu_torch.state import stack_states
+    cfg = bench_config({"BENCH_COMPRESSION": "qr"})
+    sim, state0, bundles, idx0 = _feature_workload(cfg, dev)
+    _, one = make_sequence_scan(cfg, dev)(state0, bundles)
+    _, many = make_batched_sequence_scan(cfg, dev)(
+        stack_states([state0] * B), batch_copies(bundles, B))
+    return {"p1": one["p_Gk"].cpu().numpy(), "q1": one["q_kG"].cpu().numpy(),
+            "pB": many["p_Gk"].cpu().numpy(),
+            "qB": many["q_kG"].cpu().numpy(), "gt": sim.gt_p[idx0:]}
+
+
+@pytest.mark.gpu
+def test_qr_scans_graphed_match_eager(cuda, tmp_path):
+    """QR compression in graphed frames (ROADMAP.md §3): the graphed
+    sequence scan and the graphed batched scan (B = 4) run in a child
+    process, so that a call that refuses capture shows as its return code
+    and not as a dead pytest; their poses match the same frames run
+    eagerly within the card-vs-CPU limits (1e-4 m, 1e-5 rad), and the
+    single run's ATE is below 0.05 m."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from chip_smoke import eager_frames, rotation_gap
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    root = Path(__file__).resolve().parent.parent
+    out = tmp_path / "qr.npz"
+    env = dict(os.environ, PYTHONPATH=str(root))
+    p = subprocess.run([sys.executable, "-c", _QR_CHILD, str(out)], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=900)
+    assert p.returncode == 0, (p.returncode, p.stderr[-3000:])
+    got = np.load(out)
+    with eager_frames():
+        ref = _qr_runs(cuda)
+    for k in ("1", "B"):
+        dp = float(np.abs(got["p" + k] - ref["p" + k]).max())
+        dq = rotation_gap(got["q" + k].reshape(-1, 4),
+                          ref["q" + k].reshape(-1, 4))
+        assert dp < 1e-4 and dq < 1e-5, (k, dp, dq)
+    assert ate_rmse(got["p1"], got["gt"]) < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [17, 20])
+def test_wide_window_graphed_matches_cpu(cuda, length):
+    """A window of 16 or 19 clones (n = 96, 114 > K5's 92): the graphed
+    sequence scan runs the unfused Cholesky chain in K5's place (K5 never
+    launches) and stays within the card-vs-CPU limits (1e-4 m, 1e-5 rad)
+    of the CPU run over 100 frames."""
+    import dataclasses
+
+    from chip_smoke import rotation_gap
+    from rvio_tpu_torch import RVIOConfig
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    from rvio_tpu_torch.runtime import make_sequence_scan
+    from rvio_tpu_torch.state.filter_state import map_fields
+    cfg = RVIOConfig()
+    cfg = cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, max_tracking_length=length))
+    outs = {}
+    for dev in (cuda, "cpu"):
+        _, state0, bundles, _ = _feature_workload(cfg, dev, duration=10.0)
+        cut = dataclasses.replace(
+            bundles, imu=map_fields(lambda x: x[:100], bundles.imu),
+            batch=map_fields(lambda x: x[:100], bundles.batch))
+        ekf_tail.launches = 0
+        _, out = make_sequence_scan(cfg, dev)(state0, cut)
+        outs[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
+        assert ekf_tail.launches == 0
+    gpu, cpu = outs[str(cuda)], outs["cpu"]
+    assert len(gpu["p_Gk"]) == 100 and gpu["n_good"][40:].mean() > 4
+    dp = float(np.abs(gpu["p_Gk"] - cpu["p_Gk"]).max())
+    dq = rotation_gap(gpu["q_kG"], cpu["q_kG"])
+    assert dp < 1e-4 and dq < 1e-5, (dp, dq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gather_tiles", "lk_level",
+                                  "subpix_refine"])
+def test_stress_shapes_match_plain(cuda, name):
+    """K6 and K8 at the stress config's level 4 (30 x 47, smaller than a
+    tile) and K9 on a full frame, each at 800 lanes
+    (ops/checks.stress_checks), against their plain versions."""
+    from rvio_tpu_torch.ops.checks import stress_checks
+    chk = {c.name: c for c in stress_checks(cuda)}[name]
+    before = chk.kernel.launches
+    chk.check()
+    torch.cuda.synchronize()
+    assert chk.kernel.launches == before + chk.check_launches
+
+
+@pytest.mark.gpu
+def test_bench_feature_path_with_qr(cuda):
+    """``BENCH_COMPRESSION=qr`` through the port bench's feature path (a
+    short sequence): it runs graphed, finite, with an ATE below 0.05 m."""
+    from rvio_tpu_torch.bench import bench_config, feature_path
+    from rvio_tpu_torch.dataio import simulate_sequence
+    cfg = bench_config({"BENCH_COMPRESSION": "qr"})
+    assert cfg.tpu.compression == "qr"
+    sim = simulate_sequence(cfg, duration=15.0, static_time=1.5,
+                            ramp_time=5.0, seed=7, n_landmarks=2000,
+                            motion_scale=0.8, meas_noise=0.001,
+                            imu_noise=True)
+    feat = feature_path(cfg, sim, cuda)
+    assert feat["frames"] > 200 and np.isfinite(feat["fps"])
+    assert feat["synthetic_ate_m"] < 0.05

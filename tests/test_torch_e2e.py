@@ -3,8 +3,9 @@
 - ``SequenceDriver`` in f64 on a short sequence at a small config against
   the JAX driver: with ``parallel_propagation=False`` both run the same
   sequential recursion and trajectories agree to 1e-8 m; with the default
-  config the JAX side evaluates propagation and the window chain as
-  parallel prefixes (another fp order), and the stated bound is 1e-7 m;
+  config both evaluate propagation and the window chain as parallel
+  prefixes (two tree orders of one prefix), and the stated bound is
+  1e-12 m (the gap reached: 4.4e-15 m);
 - an ATE bound on the port alone, as tests/test_e2e_synthetic.py has;
 - import hygiene: the port and chip_smoke.py import neither jax nor
   rvio_tpu, and the entry points refuse a missing device.
@@ -42,7 +43,7 @@ def _cfg(mod, **tpu):
 
 
 @pytest.mark.parametrize("parallel,compression,tol", [
-    (False, "qr", 1e-8), (True, "cholesky", 1e-7)])
+    (False, "qr", 1e-8), (True, "cholesky", 1e-12)])
 def test_driver_matches_jax_f64(parallel, compression, tol):
     kw = dict(parallel_propagation=parallel, compression=compression)
     jcfg, tcfg = _cfg(jconfig, **kw), _cfg(tconfig, **kw)
@@ -134,7 +135,8 @@ def test_entry_point_refuses_missing_cuda():
                                    "image_pipeline", "online_driver",
                                    "euroc_scan", "euroc_per_frame",
                                    "batched_scan", "masked_scan",
-                                   "segments_warm", "warm_init"])
+                                   "segments_warm", "warm_init",
+                                   "synthetic_sweep", "euroc_sweep"])
 def test_public_builders_default_to_cuda(build):
     """Every public function that makes tensors means CUDA by default and
     raises without it, as SequenceDriver does."""
@@ -148,6 +150,7 @@ def test_public_builders_default_to_cuda(build):
                                         run_rendered_sequence_scan)
     from rvio_tpu_torch.parallel import (make_masked_segment_scan,
                                          run_segments_warm, warm_initialize)
+    from rvio_tpu_torch.eval.sweep import run_euroc_sweep, run_synthetic_sweep
     from rvio_tpu_torch.runtime import make_batched_sequence_scan
     from rvio_tpu_torch.state import make_initial_state, static_initialize
     z3 = np.zeros((4, 3))
@@ -175,6 +178,10 @@ def test_public_builders_default_to_cuda(build):
                                                    None, 4, 10),
         "warm_init": lambda: warm_initialize(_cfg(tconfig),
                                              np.array([0, 0, 9.8])),
+        "synthetic_sweep": lambda: run_synthetic_sweep(_cfg(tconfig),
+                                                       seeds=(0,)),
+        # the device is resolved before any folder is read
+        "euroc_sweep": lambda: run_euroc_sweep(_cfg(tconfig), ["missing"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[build]()

@@ -15,8 +15,10 @@ RANSAC draws.
   draws, and resumed with the JAX chain's continued draws is the JAX
   resumed run (1e-10 m);
 - the CLI writes its four outputs in the JAX CLI's formats, ``--info``
-  prints the topics, ``--sweep`` is refused (``--set`` runs:
-  tests/test_torch_replay_set.py).
+  prints the topics (``--set`` runs: tests/test_torch_replay_set.py;
+  ``--sweep``: tests/test_torch_sweep.py);
+- ``run_euroc_sweep`` over the folder is one row of the per-frame
+  replay's frames, ATE and RPE.
 """
 
 import jax
@@ -258,9 +260,29 @@ def test_cli_info(data, capsys):
     assert "duration:" in printed
 
 
-@pytest.mark.parametrize("flag", [["--sweep", "3"]])
-def test_cli_refuses_later_slices(flag, capsys):
-    from rvio_tpu_torch.run import main
-    with pytest.raises(SystemExit):
-        main(flag + ["--device", "cpu"])
-    assert "not ported to rvio_tpu_torch yet" in capsys.readouterr().err
+def test_euroc_sweep_row(data, monkeypatch):
+    """``run_euroc_sweep`` on the folder: one row named after it, whose
+    frames, ATE and RPE are those of the per-frame replay it ran (ground
+    truth matched by ``match_nearest``), and a finite table."""
+    from rvio_tpu_torch.eval import ate
+    from rvio_tpu_torch.eval.sweep import format_table, run_euroc_sweep
+    from rvio_tpu_torch.runtime import image_driver
+    path, _, _, tcfg, _ = data
+    runs = []
+
+    def recorded(*args, **kw):
+        runs.append(run_euroc_sequence(*args, **kw))
+        return runs[-1]
+
+    monkeypatch.setattr(image_driver, "run_euroc_sequence", recorded)
+    rows = run_euroc_sweep(tcfg, [path + "/"], dtype=torch.float64,
+                           device="cpu")
+    res, seq = runs[0], euroc.load_euroc(path)
+    gi, ok = ate.match_nearest(seq.gt_t, res.timestamps)
+    assert ok.sum() >= 3 and len(rows) == 1
+    row = rows[0]
+    assert (row.name, row.frames) == ("asl", len(res.timestamps))
+    assert row.ate_m == ate.ate_rmse(res.positions[ok], seq.gt_p[gi][ok])
+    assert row.rpe_m == ate.rpe_rmse(res.positions[ok], seq.gt_p[gi][ok])
+    assert row.ate_m < 0.1 and row.n_good_mean > 0 and row.fps > 0
+    assert "asl" in format_table(rows)
