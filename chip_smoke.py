@@ -41,7 +41,11 @@ set to 0 just before it and read just after:
   plain version, and K11 on that image with its LUTs, pixels bitwise with
   the CPU plain version; K9 and K13 on the same frame's refill detection (its
   corners and tiles, and its level-0 image), each against its plain
-  version, with the device time;
+  version, with the device time; then images -> poses at a 21 x 21 LK
+  window over 40 tracked frames through the graphed chunk scan (every
+  kernel as the path implies, ATE below 0.05 m, within the image path's
+  card-vs-CPU limits of the CPU plain path) and K8 on its last frame's
+  inputs at every level (row ``lk_level@win21``);
 - the public entries that no path reaches, the detector's
   ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
   workload's frames and the tracker's live positions, each against its
@@ -107,9 +111,15 @@ set to 0 just before it and read just after:
   ``tpu.compression = "qr"`` through the graphed sequence scan (ATE, K5
   never launched, a QR frame's time against a Cholesky frame's in turns)
   and the graphed batched scan of 4 copies, each against the same frames
-  run eagerly; windows of 16 and 19 clones (n = 96, 114, past K5's 92)
-  through the graphed sequence scan, the unfused Cholesky chain in K5's
-  place (K5 launches 0), against the CPU over 100 frames; a one-seed
+  run eagerly; windows of 16, 19, 32 and 64 clones (max_tracking_length
+  17, 20, 33, 65: K5 past its narrow kernel's n = 92, K4 past m = 64 at
+  33 and 65, K3 past L = 64 at 65) through the graphed sequence scan,
+  every filter kernel (K5's wide route included) once a frame, against
+  the CPU over 100 frames (n_good above 4; at 65, where the workload
+  offers fewer usable features, above 0.9 of the CPU run's), and K3-K5
+  on each length's last update against their plain versions (rows
+  ``<kernel>@wide<L>``; K5 also on four updates at once at 33); a
+  one-seed
   ``run_synthetic_sweep`` (15 s) on the card and on the CPU (the same frames,
   each ATE below 0.05 m) and ``python -m rvio_tpu_torch.run --sweep 1``,
   which prints the table;
@@ -286,12 +296,35 @@ QR_B = 4
 # the sweep's sequence on the card and the CPU (the CLI's run keeps its
 # default, 30 s)
 SWEEP_DURATION_S = 15.0
-# windows the K5 kernel does not take (n = 6 x clones > 92): the graphed
-# sequence scan at these tracker.max_tracking_length over WIDE_FRAMES
-# frames on the card and on the CPU, within the card-vs-CPU limits
-WIDE_LENGTHS = (17, 20)
+# windows past the narrow filter kernels (K5's narrow kernel takes n = 6 x
+# clones <= 92, K4's warps m = 2L <= 64, K3's instances L <= 64): the
+# graphed sequence scan at these tracker.max_tracking_length over
+# WIDE_FRAMES frames on the card and on the CPU, within the card-vs-CPU
+# limits (the window of 64 clones fills at frame 64), and K3-K5 on each
+# length's last frame with accepted features (rows <kernel>@wide<L>), K5
+# also on WIDE_B of the run's last such frames at once at WIDE_B_LENGTH
+WIDE_LENGTHS = (17, 20, 33, 65)
 WIDE_FRAMES = 100
 WIDE_DURATION_S = 10.0
+WIDE_B = 4
+WIDE_B_LENGTH = 33
+# the second half's mean n_good must pass WIDE_NGOOD_MIN at every length
+# but those of WIDE_FEW_USABLE, where the workload offers fewer usable
+# features a frame than that (valid, triangulated and within the window: a
+# window of 64 clones ends fewer tracks a frame, about 3.4 in the second
+# half, on the CPU plain path too; ROADMAP.md section 3): there the card's
+# must pass WIDE_ACCEPT of the usable features of the CPU run
+WIDE_NGOOD_MIN = 4.0
+WIDE_FEW_USABLE = (65,)
+WIDE_ACCEPT = 0.9
+# an LK window past 16 x 16 (OpenCV's usual 21): images -> poses with
+# CLAHE on at tracker.klt_window WIN_WIDE over the first WIN_WIDE_FRAMES
+# tracked frames through the graphed image chunk scan, within ATE_LIMIT_M
+# and the image path's card-vs-CPU limits of the CPU run, then K8 on the
+# last frame's inputs (recorded by an eager run) at every pyramid level
+# (row lk_level@win21)
+WIN_WIDE = 21
+WIN_WIDE_FRAMES = 40
 # bench.py's high-rate stress config (BASELINE.json's fourth: 800 slots,
 # five pyramid levels, ops/checks.py STRESS_ENV): images -> poses over
 # STRESS_FRAMES tracked frames of bench.py's sequence cut to
@@ -507,7 +540,8 @@ def image_phase(dev, sim, kernels, records, equalizer: bool,
     launches = _launches(kernels)
     if equalizer:
         for kernel, rec in records:
-            if rec["name"] not in FILTER_KERNELS + ENTRY_KERNELS:
+            if rec["name"] not in FILTER_KERNELS + ENTRY_KERNELS and (
+                    "@" not in rec["name"]):      # rows of other paths
                 rec["launches"] = kernel.launches
     n = len(res.timestamps)
     if n != k_end - k0 - 1:
@@ -2281,16 +2315,36 @@ def qr_phase(dev, sim, kernels) -> dict:
             "ate_m": ate, "gaps": gaps}
 
 
-def wide_window_phase(dev, kernels) -> None:
-    """Windows K5 does not take (n = 6 x clones > 92, ROADMAP.md section
-    3): the graphed sequence scan at each of WIDE_LENGTHS over WIDE_FRAMES
-    frames on the card and on the CPU: the tail is the unfused Cholesky
-    chain (K5 launches 0, the other filter kernels once a frame), within
-    the card-vs-CPU limits."""
+def _kernel_row(records, chk, label: str, name: str, launches: int,
+                **extra) -> None:
+    """A kernel's check (:func:`measure`) as a row ``name`` of the kernels
+    line, with the launches of the run it belongs to."""
+    rec = measure(chk, label)
+    rec.update(name=name, launches=launches, **extra)
+    records.append((chk.kernel, rec))
+
+
+def wide_window_phase(dev, kernels, records) -> None:
+    """Windows past the narrow filter kernels (WIDE_LENGTHS): the graphed
+    sequence scan at each length over WIDE_FRAMES frames on the card
+    (every filter kernel, K5 included, once a frame) and on the CPU,
+    within the card-vs-CPU limits, the second half's mean n_good above
+    WIDE_NGOOD_MIN (at WIDE_FEW_USABLE, above WIDE_ACCEPT of the features
+    the CPU run found usable).  The CPU run records the K3 and K4 calls of
+    the last frame in which a feature has two or more measurements, and
+    the K5 calls of the last frames whose C is not zero;
+    K3-K5 on those inputs against their plain versions (:func:`measure`)
+    are rows ``<kernel>@wide<L>`` with the card run's launches, and K5 on
+    WIDE_B such frames at once at WIDE_B_LENGTH a row
+    ``ekf_tail@wide<L>B<B>``."""
+    from unittest import mock
+
+    import rvio_tpu_torch.filter.update as update
     from rvio_tpu_torch import RVIOConfig
     from rvio_tpu_torch.bench import feature_bundles
     from rvio_tpu_torch.dataio import simulate_sequence
-    from rvio_tpu_torch.ops.ekf_tail import NMAX
+    from rvio_tpu_torch.ops.checks import (ekf_tail_case, jac_case,
+                                           quadform_case)
     from rvio_tpu_torch.runtime import make_sequence_scan
     for length in WIDE_LENGTHS:
         base = RVIOConfig()
@@ -2301,40 +2355,183 @@ def wide_window_phase(dev, kernels) -> None:
                                 static_time=1.5, ramp_time=5.0, seed=7,
                                 n_landmarks=2000, motion_scale=0.8,
                                 meas_noise=0.001, imu_noise=True)
+        calls = {"jac_project": [], "batched_quadform": [], "ekf_tail": []}
+        frame = {}      # this frame's K3 call, while it has a measurement
+
+        def recorder(name):
+            fn = getattr(update, name)
+
+            def record(*args, **kw):
+                kept = [a.detach().clone() if torch.is_tensor(a) else a
+                        for a in args]
+                if name == "jac_project":       # t_eff: args[10]
+                    frame["k3"] = kept if bool((kept[10] >= 2).any()) else None
+                elif name == "batched_quadform":
+                    if frame.get("k3") is not None:
+                        calls["jac_project"] = [frame["k3"]]
+                        calls[name] = [kept]
+                elif bool(kept[0].abs().sum() > 0):
+                    calls[name] = (calls[name] + [kept])[-WIDE_B:]
+                return fn(*args, **kw)
+            return record
+
         out = {}
         for where in (dev, "cpu"):
             state0, bundles, _ = feature_bundles(cfg, sim, where)
             head = _head(bundles, WIDE_FRAMES)
             run = make_sequence_scan(cfg, where)
-            if where == dev:
-                run(state0, head)                   # capture
-                _zero(kernels)
-            t0 = time.perf_counter()
-            _, o = run(state0, head)
-            out[str(where)] = {k: v.cpu().numpy() for k, v in o.items()}
+            with contextlib.ExitStack() as stack:
+                if where == dev:
+                    run(state0, head)                   # capture
+                    _zero(kernels)
+                else:
+                    for name in calls:
+                        stack.enter_context(mock.patch.object(
+                            update, name, recorder(name)))
+                t0 = time.perf_counter()
+                _, o = run(state0, head)
+                out[str(where)] = {k: v.cpu().numpy() for k, v in o.items()}
             if where == dev:
                 wall = time.perf_counter() - t0
                 launches = _launches(kernels)
         want = dict.fromkeys(FILTER_KERNELS, WIDE_FRAMES)
-        want[TAIL_KERNEL] = 0
         card, cpu = out[str(dev)], out["cpu"]
         dp, dq = _pose_gaps(card["p_Gk"], card["q_kG"], cpu["p_Gk"],
                             cpu["q_kG"])
+        half = slice(WIDE_FRAMES // 2, WIDE_FRAMES)
+        good = float(card["n_good"][half].mean())
+        usable = float(cpu["n_usable"][half].mean())
+        need = (WIDE_ACCEPT * usable if length in WIDE_FEW_USABLE
+                else WIDE_NGOOD_MIN)
         print(f"window of {cfg.window_size} clones (max_tracking_length "
-              f"{length}, n = {nn} > NMAX {NMAX}): the tail is the unfused "
-              f"chain (cholesky_tail); graphed, {WIDE_FRAMES} frames in "
+              f"{length}: K3 at L = {length}, K4 at m = {2 * length}, K5 at "
+              f"n = {nn}); graphed, {WIDE_FRAMES} frames in "
               f"{wall * 1e3 / WIDE_FRAMES:.3f} ms a frame, n_good mean "
-              f"{card['n_good'].mean():.1f}, launches "
-              f"{ {k: launches[k] for k in FILTER_KERNELS} }; against the CPU: "
-              f"max position gap {dp:.3e} m (limit {CPU_GAP_POS_M}), attitude "
-              f"{dq:.3e} rad (limit {CPU_GAP_ROT_RAD})", flush=True)
+              f"{card['n_good'].mean():.2f} (second half {good:.2f}, the "
+              f"CPU's {float(cpu['n_good'][half].mean()):.2f} of "
+              f"{usable:.2f} usable a frame; limit {need:.2f}), "
+              f"launches {({k: launches[k] for k in FILTER_KERNELS})}; "
+              f"against the CPU: max position gap {dp:.3e} m (limit "
+              f"{CPU_GAP_POS_M}), attitude {dq:.3e} rad (limit "
+              f"{CPU_GAP_ROT_RAD})", flush=True)
         if {k: launches[k] for k in FILTER_KERNELS} != want:
             raise AssertionError(f"wide window launches {launches}, "
                                  f"expected {want}")
         if not (dp < CPU_GAP_POS_M and dq < CPU_GAP_ROT_RAD):
             raise AssertionError(f"window {length}: card and CPU disagree")
-        if not card["n_good"][WIDE_FRAMES // 2:].mean() > 4:
+        if not good > need:
             raise AssertionError(f"window {length}: too few good features")
+
+        tag = f"@wide{length}"
+        what = f" (window {length}, the last update's lanes)"
+        k5 = [[x[0].numpy() for x in c] for c in calls["ekf_tail"]]
+        if len(k5) < WIDE_B or not calls["jac_project"]:
+            raise AssertionError(f"window {length}: {len(k5)} frames with "
+                                 f"accepted features")
+        t_eff = calls["jac_project"][0][10]
+        lanes = f"{len(t_eff)} lanes ({int((t_eff >= 2).sum())} measured)"
+        C, b, P, sig2 = k5[-1]
+        checks = [
+            (jac_case(dev, calls["jac_project"][0], what=what),
+             f", {lanes}, L {length}"),
+            (quadform_case(dev, *calls["batched_quadform"][0][:2], what=what),
+             f", {lanes}, m {2 * length}"),
+            (ekf_tail_case(dev, C, b, P, sig2, tol=EKF_TAIL_FRAME_TOL,
+                           what=f"window {length}'s last update"),
+             f", n {nn}, the last update")]
+        for chk, label in checks:
+            _kernel_row(records, chk, f"{tag}{label}", f"{chk.name}{tag}",
+                        launches[chk.name], window=length)
+        if length == WIDE_B_LENGTH:
+            chk = ekf_tail_case(dev, *(np.stack(x) for x in zip(*k5)),
+                                tol=EKF_TAIL_FRAME_TOL,
+                                what=f"window {length}'s last {WIDE_B} updates")
+            _kernel_row(records, chk, f"{tag}B{WIDE_B}, n {nn}",
+                        f"ekf_tail{tag}B{WIDE_B}", launches["ekf_tail"],
+                        window=length, systems=WIDE_B)
+
+
+def wide_lk_phase(dev, sim, kernels, records) -> None:
+    """K8 at an LK window past 16 x 16: images -> poses with CLAHE on at
+    tracker.klt_window WIN_WIDE over WIN_WIDE_FRAMES tracked frames through
+    the graphed image chunk scan (``run_rendered_sequence_scan``, as
+    :func:`image_phase`): every kernel as often as the path implies, ATE
+    below ATE_LIMIT_M, and the same frames through the plain path on the
+    CPU within the image path's card-vs-CPU limits (active slots and
+    positions).  Then an eager run to the same frame
+    (:func:`capture_klt_frame`) records the last frame's K8 calls, and K8
+    on those inputs at every level against its plain version (on the
+    features well posed in f32, ops/checks.py ``lk_well_posed``): the
+    level-0 check a row ``lk_level@win21`` of the kernels line with the
+    graphed run's launches and every level's error in ``frame_levels``."""
+    from rvio_tpu_torch.eval.ate import ate_rmse
+    from rvio_tpu_torch.ops.checks import lk_case
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    base = image_config(True)
+    cfg = base.replace(tracker=dataclasses.replace(base.tracker,
+                                                   klt_window=WIN_WIDE))
+    levels = cfg.tracker.klt_levels + 1
+    label = f"images -> poses at a {WIN_WIDE} x {WIN_WIDE} LK window"
+    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    k_end = k0 + 1 + WIN_WIDE_FRAMES
+    # warm-up: library handles and the allocator's pool
+    run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 9)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    res = run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    n = len(res.timestamps)
+    idx = np.searchsorted(sim.frame_t, res.timestamps)
+    ate = ate_rmse(res.positions, sim.gt_p[idx])
+    t0 = time.perf_counter()
+    cpu = run_rendered_sequence_scan(cfg, sim, device="cpu", max_frames=k_end)
+    cpu_s = time.perf_counter() - t0
+    same = np.array_equal(cpu.timestamps, res.timestamps)
+    agree = float((cpu.active_slots == res.active_slots).mean()) if same \
+        else 0.0
+    dp = float(np.abs(cpu.positions - res.positions).max()) if same \
+        else float("inf")
+    print(f"{label} (CLAHE on): {n} frames graphed in {wall:.2f} s (host "
+          f"rendering included), ATE {ate:.4f} m (limit {ATE_LIMIT_M}), "
+          f"n_good mean {res.n_good.mean():.2f}, launches {launches}; the "
+          f"CPU plain path ({cpu_s:.1f} s): active slots agree on "
+          f"{agree:.4%} of slot-frames (limit {IMG_CPU_ACTIVE_AGREE:.0%}), "
+          f"max position gap {dp:.3e} m (limit {IMG_CPU_GAP_POS_M})",
+          flush=True)
+    want = expected_launches(WIN_WIDE_FRAMES, True, levels)
+    if n != WIN_WIDE_FRAMES or launches != want:
+        raise AssertionError(f"LK window {WIN_WIDE}: {n} frames, launches "
+                             f"{launches}, expected {want}")
+    if not (np.isfinite(res.positions).all() and res.positions.shape == (n, 3)
+            and np.isfinite(res.quaternions).all() and ate < ATE_LIMIT_M):
+        raise AssertionError(f"LK window {WIN_WIDE}: ATE {ate:.4f} m or a "
+                             f"non-finite trajectory")
+    if not (same and agree >= IMG_CPU_ACTIVE_AGREE
+            and dp < IMG_CPU_GAP_POS_M):
+        raise AssertionError(f"LK window {WIN_WIDE}: card and CPU disagree")
+    captured = capture_klt_frame(dev, sim, cfg=cfg, frame=WIN_WIDE_FRAMES)[0]
+    frame_levels = []
+    for lvl, _, _, args, kw in captured:
+        what = f" (win {WIN_WIDE}, frame {WIN_WIDE_FRAMES}, level {lvl})"
+        chk = lk_case(dev, args, kw, what=what, well_posed=True)
+        err = chk.check()
+        torch.cuda.synchronize()
+        frame_levels.append(dict(level=lvl, max_abs_err=err,
+                                 alive=chk.info["alive"],
+                                 alive_agree=chk.info["alive_agree"],
+                                 set_aside=chk.info["set_aside"],
+                                 T=int(chk.trips.max(initial=0))))
+        print(f"kernel lk_level{what}: err {err:.3e} (tolerance: "
+              f"{chk.tolerance}), alive {chk.info['alive']}, set aside "
+              f"{chk.info['set_aside']}, T {int(chk.trips.max(initial=0))}",
+              flush=True)
+        if lvl == 0:
+            level0 = chk
+    _kernel_row(records, level0, f"@win{WIN_WIDE}, level 0",
+                f"lk_level@win{WIN_WIDE}", launches["lk_level"],
+                window=WIN_WIDE, frame_levels=frame_levels)
 
 
 def sweep_phase(dev, kernels) -> None:
@@ -2574,7 +2771,8 @@ def main() -> int:
     library_chain_phase(dev, sim, batches, kernels, res, driver)
     for phase, call in (
             ("QR", lambda: qr_phase(dev, sim, kernels)),
-            ("wide window", lambda: wide_window_phase(dev, kernels)),
+            ("wide window", lambda: wide_window_phase(dev, kernels,
+                                                      records)),
             ("sweep", lambda: sweep_phase(dev, kernels))):
         t0 = time.perf_counter()
         call()
@@ -2597,6 +2795,10 @@ def main() -> int:
                     n_frames=IMG_OFF_FRAMES)
         scan = image_phase(dev, sim_f, kernels, records, equalizer=True)
         klt_cap = klt_frame_phase(dev, sim_f, records)
+        t0 = time.perf_counter()
+        wide_lk_phase(dev, sim_f, kernels, records)
+        print(f"wide LK window phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         drv = online_phase(dev, sim_f, kernels, scan)
         entries_phase(dev, sim_f, kernels, records, drv)
         replay_phase(dev, root, seq, kernels, records, tmp)

@@ -22,8 +22,7 @@ chain (filter/update.window_pose_chain) and of IMU propagation off the
 card (filter/propagation.propagate: a CUDA f32 state always runs kernel
 K1), as in the JAX package; the segment-batched scans keep both
 sequential.  The Cholesky compression and EKF core are kernel K5
-(ops/ekf_tail.py) on a CUDA tensor wherever K5 takes the window (up to 15
-clones), else the unfused chain.
+(ops/ekf_tail.py) on a CUDA tensor at every window.
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@
 //   of its clipped taps only (at most (win + 1)^2 pixels, reflect-padded at
 //   the tile edge as klt._tile_scharr is).  Lane l takes a strip of the
 //   window: column l % win, KT consecutive rows (KT = 8 at win 15, two
-//   strips a column), so where no tap clips the strip's KT + 1 pixel rows
+//   strips a column; from win 17 to 31 one strip a column, win taps a lane,
+//   two warps a block, whose samples spill to local memory: correct, not
+//   fast), so where no tap clips the strip's KT + 1 pixel rows
 //   are read once; it keeps its template and gradient samples in registers,
 //   and the search pixels too, which a trip reads again only when the
 //   window's integer position moved.  Every sum is a __shfl_xor_sync
@@ -63,15 +65,31 @@
 namespace {
 
 constexpr int WPB_MAX = 4;         // warps (features) a block, at most
-constexpr int BOX_FLOATS = 292;    // one gradient box: (win + 1)^2 <= 17^2,
-                                   // rounded up to 16 bytes
+constexpr int WIN_MAX = 31;        // the widest window: a column a lane
 constexpr int SMEM_MAX = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
+// Taps a lane: ceil(win / (32 / win)), one of 1, 2, 3, 4, 6, 7 or 8 up to
+// win 16; from win 17 on a lane takes a whole column of the window, and
+// the instances KT = 24 and 31 serve (the taps past the window at zero
+// weight).
+__host__ __device__ __forceinline__ int taps_a_lane(int win) {
+  const int strips = 32 / win, kt = (win + strips - 1) / strips;
+  return kt <= 8 ? kt : (kt <= 24 ? 24 : 31);
+}
+
+// Floats of one gradient box, rounded up to 16 bytes: its rows are win + 1
+// wide, and a strip's reads span (32 / win) KT + 1 of them (17 x 17 floats
+// cover every window up to 16).
+__host__ __device__ __forceinline__ int box_floats(int win) {
+  return win <= 16 ? 292
+                   : ((win + 1) * (taps_a_lane(win) + 1) + 3) & ~3;
+}
+
 // bytes of one warp's slice: the mbarrier (16, keeping what follows 16-byte
 // aligned), both tiles, both gradient boxes
-__host__ __device__ __forceinline__ int warp_bytes(int tt) {
-  return 16 + 8 * tt + 8 * BOX_FLOATS;
+__host__ __device__ __forceinline__ int warp_bytes(int tt, int win) {
+  return 16 + 8 * tt + 8 * box_floats(win);
 }
 
 __device__ __forceinline__ int reflect(int k, int n) {
@@ -173,7 +191,7 @@ __device__ __forceinline__ unsigned ticket_inc(unsigned* p, unsigned wrap) {
 constexpr int ALIVE = 1, DOK = 2, INB = 4, TRIPS_SHIFT = 3;
 constexpr int FIN = 8;   // the finish's loads in flight a thread
 
-// KT: taps a lane, ceil(win / (32 / win)): 8 at win 15.
+// KT: taps a lane (taps_a_lane): 8 at win 15, 24 at win 21.
 // phase sync: __syncwarp()
 template <int KT>
 __global__ void __launch_bounds__(32 * WPB_MAX)
@@ -210,12 +228,12 @@ lk_level_kernel(const float* __restrict__ t_tiles,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wpb = blockDim.x >> 5;
   const int TT = TH * TW;
-  unsigned char* mine = smem + warp * warp_bytes(TT);
+  unsigned char* mine = smem + warp * warp_bytes(TT, win);
   uint64_t* bar = reinterpret_cast<uint64_t*>(mine);
   float* Tt = reinterpret_cast<float*>(mine + 16);
   float* Ts = Tt + TT;
   float* GX = Ts + TT;
-  float* GY = GX + BOX_FLOATS;
+  float* GY = GX + box_floats(win);
   const int n = blockIdx.x * wpb + warp;
 
   // phase: bulk copies of both tiles, the feature's scalars
@@ -246,7 +264,7 @@ lk_level_kernel(const float* __restrict__ t_tiles,
 
     // phase: Scharr /32 over the support box, reflect-padded
     // lane -> (row parity, column) for a box up to 16 wide, (row, column)
-    // up to 17; a lane past the box's width repeats its last column
+    // up to 32; a lane past the box's width repeats its last column
     {
       const float ca = 3.f / 32.f, cb = 10.f / 32.f;
       const int cbits = bw <= 16 ? 4 : 5;
@@ -395,7 +413,7 @@ lk_level_kernel(const float* __restrict__ t_tiles,
   // T over every feature, keeping their words in the (now free) shared
   // memory, then every status
   int* keep = reinterpret_cast<int*>(smem);
-  const int cap = wpb * (warp_bytes(TT) / 4);
+  const int cap = wpb * (warp_bytes(TT, win) / 4);
   int m = 0;
   for (int i0 = threadIdx.x; i0 < N; i0 += FIN * blockDim.x) {
     int w[FIN];   // FIN words a thread in flight together
@@ -431,7 +449,8 @@ void launch(dim3 grid, int wpb, const float* t_tiles, const float* n_tiles,
             bool* status_out, unsigned* ticket, int N, int TH, int TW,
             int win, int max_iters, float eps, float min_eig, float wander,
             int last, int H, int W, cudaStream_t stream) {
-  lk_level_kernel<KT><<<grid, 32 * wpb, wpb * warp_bytes(TH * TW), stream>>>(
+  lk_level_kernel<KT><<<grid, 32 * wpb, wpb * warp_bytes(TH * TW, win),
+                        stream>>>(
       t_tiles, n_tiles, loc0, g_init, o1, status, g_out, err_out, scratch,
       status_out, ticket, N, TH, TW, win, max_iters, eps, min_eig, wander,
       last, H, W);
@@ -442,8 +461,8 @@ void launch(dim3 grid, int wpb, const float* t_tiles, const float* n_tiles,
 extern "C" {
 
 // The wrapper checks what it can name (shapes, types, 16-byte aligned tiles
-// with TH * TW % 4 == 0, win * win <= 256, B within its ticket pool); this
-// refuses the rest.  `ticket` points at B counters, one a segment.
+// with TH * TW % 4 == 0, win <= 31, B within its ticket pool); this refuses
+// the rest.  `ticket` points at B counters, one a segment.
 int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
                         const float* loc0, const float* g_init, const int* o1,
                         const bool* status, float* g_out, bool* status_out,
@@ -451,12 +470,11 @@ int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
                         int N, int TH, int TW, int win, int max_iters,
                         float eps, float min_eig, float wander, int last,
                         int H, int W, cudaStream_t stream) {
-  const int wb = warp_bytes(TH * TW);
-  if (TH < 2 || TW < 2 || (TH * TW) % 4 || win < 1 || win > 16 ||
-      wb > SMEM_MAX)
+  if (win < 1 || win > WIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int wb = warp_bytes(TH * TW, win);
+  if (TH < 2 || TW < 2 || (TH * TW) % 4 || wb > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  // taps a lane: ceil(win / (32 / win)), one of 1, 2, 3, 4, 6, 7, 8
-  const int strips = 32 / win, kt = (win + strips - 1) / strips;
+  const int kt = taps_a_lane(win);
   if (N == 0 || B == 0) return 0;
   if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = min(WPB_MAX, SMEM_MAX / wb);
@@ -472,7 +490,9 @@ int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
     case 4: launch<4>(RVIO_LK_ARGS); break;
     case 6: launch<6>(RVIO_LK_ARGS); break;
     case 7: launch<7>(RVIO_LK_ARGS); break;
-    default: launch<8>(RVIO_LK_ARGS); break;
+    case 8: launch<8>(RVIO_LK_ARGS); break;
+    case 24: launch<24>(RVIO_LK_ARGS); break;
+    default: launch<31>(RVIO_LK_ARGS); break;
   }
 #undef RVIO_LK_ARGS
   return static_cast<int>(cudaGetLastError());

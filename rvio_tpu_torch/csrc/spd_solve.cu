@@ -33,6 +33,22 @@
 // factorization does.  A pivot of exactly zero gives +inf or NaN (rsqrtf(0)
 // is +inf); the caller's D < threshold gate (filter/update.py) rejects
 // either.
+//
+// Orders past 64 (windows of 33 or more measurements) take the wide
+// instance, quadform_wide_kernel: a block of 512 threads a feature, the
+// lower triangle of S packed row by row (m (m + 1) / 2 floats, 34 KB at
+// m = 130) and r in dynamic shared memory.  It runs the same interleaved
+// Cholesky and forward substitution: step j takes the pivot of row j,
+// y_j and its square, then each warp updates rows i > j (a row a warp in
+// turn, its entries over the lanes): r_i and the row's entries
+// j < k <= i by l_i l_k, l = column j over the pivot; one barrier a step:
+// 43 us a launch at m = 66 and 158 at m = 130 over 100 features, the
+// m steps' barriers and row loops (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py).  Where the triangle does not fit a block's shared memory
+// (m above about 330 on the H100), it lives in a workspace of device
+// memory the wrapper allocates on the caller's stream
+// (rvio_spd_quadform_workspace says how much), which a CUDA graph captures
+// from its pool.  The NaN semantics are the narrow instances'.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +58,77 @@ namespace {
 
 constexpr int WARPS = 4;                  // features a block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int WIDE_NT = 512;              // threads of a wide block
+
+__host__ __device__ __forceinline__ size_t tri_floats(int m) {
+  return static_cast<size_t>(m) * (m + 1) / 2;
+}
+
+// D for feature blockIdx.x at any order m: y (r, then the forward
+// substitution) in shared memory, the packed lower triangle of S in shared
+// memory after it, or at ws + f tri_floats(m) where ws is not null.
+__global__ void __launch_bounds__(WIDE_NT) quadform_wide_kernel(
+    const float* __restrict__ S, const float* __restrict__ r,
+    float* __restrict__ D, float* ws, int m) {
+  extern __shared__ __align__(16) float wsh[];
+  const int f = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  float* y = wsh;
+  float* a = ws ? ws + static_cast<size_t>(f) * tri_floats(m)
+                : wsh + ((m + 3) & ~3);
+  const float* Sf = S + static_cast<size_t>(f) * m * m;
+  for (int i = tid; i < m; i += WIDE_NT)
+    y[i] = __ldg(r + static_cast<size_t>(f) * m + i);
+  for (int i = warp; i < m; i += WIDE_NT / 32) {
+    float* ai = a + tri_floats(i);
+    for (int k = lane; k <= i; k += 32)
+      ai[k] = __ldg(Sf + static_cast<size_t>(i) * m + k);
+  }
+  __syncthreads();
+  float acc = 0.f;                // sum of y_j^2, the same in every thread
+  for (int j = 0; j < m; ++j) {
+    // step j reads row j's pivot, y_j and column j, and writes only the
+    // entries right of column j of the rows below it, and their y: a row a
+    // warp, its entries over the lanes
+    const float rs = rsqrtf(a[tri_floats(j) + j]);
+    const float yj = y[j] * rs;
+    acc = fmaf(yj, yj, acc);
+    for (int i = j + 1 + warp; i < m; i += WIDE_NT / 32) {
+      float* ai = a + tri_floats(i);
+      const float li = ai[j] * rs;
+      if (lane == 0) y[i] = fmaf(-li, yj, y[i]);
+      for (int k = j + 1 + lane; k <= i; k += 32)
+        ai[k] = fmaf(-li, a[tri_floats(k) + j] * rs, ai[k]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) D[f] = acc;
+}
+
+// Raises the wide instance's dynamic shared memory limit to `smem` bytes
+// on the current device where it is lower, once per device and size (the
+// first launch of a window runs eagerly, outside any graph capture).  A
+// refusal is taken off the runtime's last-error state.
+int configure_wide(size_t smem) {
+  constexpr int MAX_DEVICES = 64;
+  static size_t configured[MAX_DEVICES] = {};
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > configured[dev]) {
+    e = cudaFuncSetAttribute(quadform_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(e);
+    }
+    configured[dev] = smem;
+  }
+  return 0;
+}
 
 // D for features blockIdx.x * WARPS + warp; NP >= m, a power of two.
 template <int NP>
@@ -143,10 +230,44 @@ __global__ void __launch_bounds__(32 * WARPS) quadform_kernel(
 
 extern "C" {
 
-int rvio_spd_quadform(const float* S, const float* r, float* D, int F, int m,
-                      cudaStream_t stream) {
+// Floats of device workspace the wide instance needs a feature at order m
+// on the current device: 0 where the triangle fits a block's shared memory
+// (and for m <= 64, which the narrow instances take).
+int rvio_spd_quadform_workspace(long long* out, int m, cudaStream_t) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *out = 0;
+  if (m <= 64) return 0;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = sizeof(float) * (((m + 3) & ~3) + tri_floats(m));
+  if (smem > static_cast<size_t>(optin))
+    *out = static_cast<long long>(tri_floats(m));
+  return 0;
+}
+
+// D for F features of order m; ws: rvio_spd_quadform_workspace(m) floats a
+// feature, or null where that is 0.
+int rvio_spd_quadform_ws(const float* S, const float* r, float* D, float* ws,
+                         int F, int m, cudaStream_t stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (F == 0) return 0;
-  if (m < 1 || m > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 64) {
+    long long need = 0;
+    int e = rvio_spd_quadform_workspace(&need, m, stream);
+    if (e) return e;
+    if (need && !ws) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem =
+        sizeof(float) * (((m + 3) & ~3) + (need ? 0 : tri_floats(m)));
+    e = configure_wide(smem);
+    if (e) return e;
+    quadform_wide_kernel<<<F, WIDE_NT, smem, stream>>>(S, r, D,
+                                                      need ? ws : nullptr, m);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int blocks = (F + WARPS - 1) / WARPS;
   if (m <= 8)
     quadform_kernel<8><<<blocks, 32 * WARPS, 0, stream>>>(S, r, D, F, m);

@@ -20,8 +20,7 @@ the B·F feature rows, K5 on the B systems, every gate per segment):
 6. EKF update with multiplicative quaternion retraction and Joseph-form
    covariance (Updater.cc:538-619).  With Cholesky compression the tail
    after C = Hw^T Hw, b = Hw^T ro is one launch of kernel K5
-   (ops/ekf_tail.py) wherever K5 takes the window, else the unfused chain
-   (``tail``, chosen when the step is built).
+   (ops/ekf_tail.py) at every window.
 
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs its
 plain version on a CPU tensor.  Gates are ``torch.where`` on device
@@ -417,14 +416,13 @@ def merge_partials(parts: Sequence[UpdatePartials]) -> UpdatePartials:
 def update_tail(state: FilterState, parts: UpdatePartials, *,
                 min_clone_states: int, compression: str = "qr",
                 adaptive_noise: bool = False, adaptive_alpha: float = 0.02,
-                adaptive_rampup: int = 0, tail: Optional[Callable] = None):
+                adaptive_rampup: int = 0):
     """The replicated half of :func:`msckf_update` on the (summed)
-    partials: the EKF correction (``tail`` on C, b: by default K5,
-    :func:`ekf_tail`; the unfused chain, ops/ekf_tail.py ``cholesky_tail``,
-    where K5 does not take the window; or, with QR compression, the
-    correction on R after one more block QR of the shards' stacked R's,
-    :func:`tsqr_compress`), the retraction, the gates and the
-    adaptive-noise step.  Returns (new_state, diagnostics)."""
+    partials: the EKF correction (K5, :func:`ekf_tail`, on C and b; or,
+    with QR compression, the correction on R after one more block QR of
+    the shards' stacked R's, :func:`tsqr_compress`), the retraction, the
+    gates and the adaptive-noise step.  Returns (new_state,
+    diagnostics)."""
     dev = state.device
     dtype = state.dtype
     B = state.P.shape[0]
@@ -436,9 +434,8 @@ def update_tail(state: FilterState, parts: UpdatePartials, *,
     if compression == "cholesky":
         # C = L L^T, Hn = L^T, rn = L^-1 b, ridge-regularized on the (zero)
         # invalid-clone diagonal: the tail after C and b is K5
-        # (ops/ekf_tail.py), one launch for the B systems, or the unfused
-        # chain where K5 does not take n
-        dx, P_new, ridge_fallback = (tail or ekf_tail)(
+        # (ops/ekf_tail.py), one launch for the B systems
+        dx, P_new, ridge_fallback = ekf_tail(
             sums["C"], sums["b"], P.contiguous(), sig2_eff.contiguous())
     else:
         Hn_cl, rn = parts.stacks["R"], parts.stacks["rn"]
@@ -522,8 +519,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
                  fej: bool = False, adaptive_noise: bool = False,
                  adaptive_alpha: float = 0.02, adaptive_rampup: int = 0,
                  feat_reduce: Optional[Callable[[UpdatePartials],
-                                                UpdatePartials]] = None,
-                 tail: Optional[Callable] = None):
+                                                UpdatePartials]] = None):
     """Full measurement update; returns (new_state, diagnostics).
 
     Equivalent to Updater::update (reference: Updater.cc:72-628) plus the
@@ -552,9 +548,6 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
     ``all_reduce`` of parallel/segment.py), identical on every shard, so
     every shard applies the same correction.  The per-lane diagnostics
     (passed, mahalanobis, landmarks, rho) are then the shard's lanes.
-
-    ``tail`` (:func:`update_tail`) is chosen when a step is built, from
-    its window (runtime/step.py): K5 only where it takes the window.
     """
     if not state.batched:
         new_state, diag = msckf_update(
@@ -563,7 +556,7 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
             compression=compression, parallel_chains=parallel_chains,
             fej=fej, adaptive_noise=adaptive_noise,
             adaptive_alpha=adaptive_alpha, adaptive_rampup=adaptive_rampup,
-            feat_reduce=feat_reduce, tail=tail)
+            feat_reduce=feat_reduce)
         return (drop_segment_axis(new_state),
                 {k: v.squeeze(0) for k, v in diag.items()})
     parts = update_partials(state, batch, R_bc=R_bc, t_bc=t_bc,
@@ -576,4 +569,4 @@ def msckf_update(state: FilterState, batch: UpdateBatch, *,
                        compression=compression,
                        adaptive_noise=adaptive_noise,
                        adaptive_alpha=adaptive_alpha,
-                       adaptive_rampup=adaptive_rampup, tail=tail)
+                       adaptive_rampup=adaptive_rampup)

@@ -37,7 +37,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("propagate_block", "lm_triangulate", "jac_project", "spd_solve",
            "tile_gather", "lk_level", "subpix_refine", "shi_tomasi_nms",
-           "clahe", "ekf_tail")
+           "clahe", "ekf_tail", "ekf_tail_wide")
 HEADER = "common.cuh"      # included by every source
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1150,18 +1150,58 @@ def scaled_cov_err(Pk: np.ndarray, Pp: np.ndarray) -> float:
     return float((np.abs(Pk - Pp)[live] / den[live]).max())
 
 
+def joseph_p_new(C, b, P, sig2, chain_order: bool) -> torch.Tensor:
+    """P_new of one system (C (n, n), b (n,), P (D, D), sig2 a scalar) in
+    the dtype of C, with the Joseph form taken in the chain's order
+    ((I - K Hn) P (I - K Hn)^T, I - K Hn formed first; S symmetrized: ops/
+    ekf_tail.py ``cholesky_tail``, csrc/ekf_tail_wide.cu and the TPU
+    kernel) or in the narrow kernel's (csrc/ekf_tail.cu step 6: A P = P -
+    G P[24:, :], X = A P - (A P)[:, 24:] G^T, G = K Lc^T; S's lower
+    triangle)."""
+    n, D = C.shape[-1], P.shape[-1]
+    Lc, _ = k5.info_cholesky(C)
+    PHt = P[:, k5.NX:] @ Lc
+    S = Lc.T @ PHt[k5.NX:] + sig2 * torch.eye(n, dtype=C.dtype)
+    S = 0.5 * (S + S.T) if chain_order else (
+        torch.tril(S) + torch.tril(S, -1).T)
+    Ls = k5.nan_cholesky(S)
+    W = torch.linalg.solve_triangular(Ls, PHt.T, upper=False)
+    K = torch.linalg.solve_triangular(Ls.T, W, upper=True).T
+    G = K @ Lc.T
+    if chain_order:
+        E = torch.eye(D, dtype=C.dtype)
+        E[:, k5.NX:] -= G
+        X = E @ P @ E.T + sig2 * (K @ K.T)
+    else:
+        AP = P - G @ P[k5.NX:]
+        X = AP - AP[:, k5.NX:] @ G.T + sig2 * (K @ K.T)
+    return 0.5 * (X + X.T)
+
+
+def ekf_tail_tol(tol: float, n: int) -> float:
+    """A K5 limit on dx and P_new relative to their largest entry, ``tol``,
+    stated for the narrow kernel (n <= NMAX = 92), at size n: the wide
+    route's f32 sums are n long, and a factorization's rounding error
+    grows with its order (n eps in the backward error), so past NMAX the
+    limit grows as n / NMAX (4.2 tol at n = 384).  The limit scaled by
+    P_new's diagonal does not grow."""
+    return tol * max(1.0, n / k5.NMAX)
+
+
 def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
                   scaled_tol: float = EKF_TAIL_SCALED_TOL) -> KernelCheck:
     """K5 on one system (numpy f32 arrays C (n, n), b (n,), P (D, D) and
     the scalar sig2) or on B systems (each with a leading axis B): kernel
     vs plain on the same inputs, system by system the fallback flags
     equal, NaN where the plain version is NaN, dx and P_new within
-    ``tol`` of their largest entry, and P_new within ``scaled_tol`` of its
-    diagonal's scale (:func:`scaled_cov_err`).  The library yardstick of
-    one system is the unfused chain (``cholesky_tail``), which the plain
-    version runs for each system."""
+    ``tol`` of their largest entry (:func:`ekf_tail_tol` of it past
+    n = 92), and P_new within ``scaled_tol`` of its diagonal's scale
+    (:func:`scaled_cov_err`).  The library yardstick of one system is the
+    unfused chain (``cholesky_tail``), which the plain version runs for
+    each system."""
     batched = np.ndim(C) == 3
     n, D = np.shape(C)[-1], np.shape(P)[-1]
+    tol = ekf_tail_tol(tol, n)
 
     def t(x):
         x = np.asarray(x, np.float32)
@@ -1206,10 +1246,11 @@ def ekf_tail_case(dev, C, b, P, sig2, tol: float, what: str,
 
     read, written = ekf_tail_bytes(n, D)
     return KernelCheck(
-        "ekf_tail", "rvio_tpu_torch/csrc/ekf_tail.cu",
+        "ekf_tail", "rvio_tpu_torch/csrc/" + (
+            "ekf_tail.cu" if n <= k5.NMAX else "ekf_tail_wide.cu"),
         "rvio_tpu/ops/ekf_tail.py:256", k5.ekf_tail, k5.ekf_tail_plain, args,
         {}, f"{what}: fallback identical, NaN identical, dx and P_new max abs "
-        f"{tol:.0e} of their largest entry, P_new {scaled_tol:.0e} scaled by "
+        f"{tol:.2g} of their largest entry, P_new {scaled_tol:.0e} scaled by "
         f"its diagonal" + (", system by system" if batched else ""), compare,
         float(sum(ekf_tail_flops(n, D, f) for f in flags)),
         read * len(flags), written * len(flags),

@@ -17,12 +17,10 @@ took the wider ridge (see :func:`info_cholesky`).
 
 The function is the port's unfused Cholesky chain, :func:`cholesky_tail`;
 the plain version runs it once per batch entry.  The filter's Cholesky
-branch calls :func:`ekf_tail` wherever n <= NMAX, so the tensor's device
-picks the kernel or the chain (``tpu.ekf_tail_fused`` selects nothing),
-and the chain itself above NMAX (chosen when the step is built,
-runtime/step.py: a window of 16 or more clones).  The JAX
-package launches its kernel only on a TPU in f32; elsewhere its flag runs
-the same unfused chain, which is therefore the reference.
+branch calls :func:`ekf_tail` at every window, so the tensor's device
+picks the kernel or the chain (``tpu.ekf_tail_fused`` selects nothing).
+The JAX package launches its kernel only on a TPU in f32; elsewhere its
+flag runs the same unfused chain, which is therefore the reference.
 
 Bound on the H100 at the operating point (B = 1, n = 84, D = 108, f32): the
 call moves about 85 KB and needs about 8 MFLOP (ops/checks.ekf_tail_flops),
@@ -32,9 +30,17 @@ call moves about 85 KB and needs about 8 MFLOP (ops/checks.ekf_tail_flops),
 by multicast bulk copies, both factorizations run blocked (8-column
 panels) and redundantly in every CTA, and the columns of the gain, the
 solves and the rows of the Joseph form are split over the CTAs, which
-exchange S, K^T and G^T through distributed shared memory.  It gives the
-plain version's function to rounding: its sums run in other orders, and
-it factors S's lower triangle without symmetrizing S first.
+exchange S, K^T and G^T through distributed shared memory.  That holds
+n <= NMAX = 92 (windows of up to 15 clones) in a CTA's shared memory; a
+larger n takes the wide route (csrc/ekf_tail_wide.cu), still a cluster of
+8 CTAs a system, with its intermediates in a device workspace this
+wrapper allocates a call, the rn solve and the gain's forward solve riding
+on the two factorizations as extra rows, blocked panels of 8 columns and
+products tiled through shared memory.  Both give the plain version's
+function to rounding: their sums run in other orders, and the narrow
+kernel factors S's lower triangle without symmetrizing S first and
+subtracts K Hn P from P after the product (the wide route keeps the
+chain's order: S symmetrized, I - K Hn formed first).
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from rvio_tpu_torch.ops import _lib
 
 _LIB = "ekf_tail"
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+_WIDE_LIB = "ekf_tail_wide"
+_WIDE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+_wide_ws: dict = {}       # n -> floats of workspace a system
 
 # The JAX package's ridge on the information matrix, relative to its trace
 # (rvio_tpu/filter/update.py:738).
@@ -55,7 +64,8 @@ INFO_RIDGE = 1e-8
 # error-state entries before the clone block
 NX = 24
 # the largest n whose intermediates fit in one CTA's shared memory on the
-# H100 (227 KB; csrc/ekf_tail.cu smem_floats and NMAX)
+# H100 (227 KB; csrc/ekf_tail.cu smem_floats and NMAX): the narrow kernel's
+# range; larger n run the wide route
 NMAX = 92
 
 
@@ -142,8 +152,8 @@ def cholesky_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor, sig2
     b (n,), P (D, D), sig2 a scalar) or a batch of them (leading axes on
     every input).  Returns (dx (..., D), P_new (..., D, D), fallback, a
     bool of the leading shape).  Every call in it can be captured into a
-    CUDA graph: the filter runs it in K5's place where K5 does not take n,
-    a window of 16 or more clones (runtime/step.py ``_segment_body``)."""
+    CUDA graph (scripts/capture_probe.py); it is what the plain version
+    and the CPU path run, and the library yardstick of K5 on the card."""
     Lc, fallback = info_cholesky(C)
     rn = torch.linalg.solve_triangular(Lc, b[..., None], upper=False)[..., 0]
     dx, P_new = ekf_correction(P, Lc.transpose(-1, -2), rn, sig2)
@@ -160,15 +170,16 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
              sig2: torch.Tensor):
     """(dx, P_new, fallback) for B systems (see the module docstring).
 
-    A CUDA tensor runs the kernel (f32 only; n up to NMAX, so that a
-    CTA's intermediates fit in shared memory, else it raises); a CPU
-    tensor the plain version."""
+    A CUDA tensor runs the kernel (f32 only, any n >= 1: the narrow kernel
+    up to NMAX, the wide route above it, with its workspace allocated here
+    on the current stream, so a CUDA graph captures it from its pool); a
+    CPU tensor the plain version."""
     if not _lib.uses_kernel(C, "ekf_tail"):
         return ekf_tail_plain(C, b, P, sig2)
     B, n = C.shape[0], C.shape[-1]
-    if not 1 <= n <= NMAX:
+    if n < 1:
         raise ValueError(f"ekf_tail: n = {n} (6 x the window's clones); the "
-                         f"kernel takes 1 <= n <= {NMAX}")
+                         f"kernel takes n >= 1")
     D = NX + n
     dev = C.device
     f32 = torch.float32
@@ -180,10 +191,15 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
     dx = torch.empty(B, D, dtype=f32, device=dev)
     P_new = torch.empty(B, D, D, dtype=f32, device=dev)
     fallback = torch.empty(B, dtype=torch.bool, device=dev)
-    fn = _lib.function(_LIB, "rvio_ekf_tail", _ARGS)
-    _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (C, b, P, sig2, dx, P_new,
-                                                fallback)),
-              B, n, device=dev)
+    outs = (C, b, P, sig2, dx, P_new, fallback)
+    if n <= NMAX:
+        fn = _lib.function(_LIB, "rvio_ekf_tail", _ARGS)
+        _lib.call(_LIB, fn, *map(_lib.ptr, outs), B, n, device=dev)
+    else:
+        ws = torch.empty(B * wide_workspace_floats(n), dtype=f32, device=dev)
+        fn = _lib.function(_WIDE_LIB, "rvio_ekf_tail_wide", _WIDE_ARGS)
+        _lib.call(_WIDE_LIB, fn, *map(_lib.ptr, outs + (ws,)), B, n,
+                  device=dev)
     _lib.launched(ekf_tail)
     return dx, P_new, fallback
 
@@ -191,14 +207,33 @@ def ekf_tail(C: torch.Tensor, b: torch.Tensor, P: torch.Tensor,
 ekf_tail.launches = 0
 
 
+def wide_workspace_floats(n: int) -> int:
+    """Floats of device workspace a system needs in the wide route
+    (n > NMAX), from csrc/ekf_tail_wide.cu's ``Layout`` (C and S padded to
+    a multiple of 8 with b^T below C and P Hn^T below S, then I - K Hn,
+    (I - K Hn) P and X: about 3.8 MB at n = 384).  Launches nothing."""
+    if n not in _wide_ws:
+        fn = _lib.function(_WIDE_LIB, "rvio_ekf_tail_wide_workspace",
+                           [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int])
+        out = ctypes.c_longlong(0)
+        err = fn(ctypes.byref(out), n, None)
+        if err:
+            raise ValueError(f"ekf_tail: no wide route for n = {n}")
+        _wide_ws[n] = out.value
+    return _wide_ws[n]
+
+
 def max_active_clusters(B: int, n: int, device) -> int:
     """How many of K5's clusters (one a system) the CUDA ``device`` holds
-    at once at size ``n`` (``cudaOccupancyMaxActiveClusters``): B systems
-    above it run in more than one wave.  Launches nothing."""
-    fn = _lib.function(_LIB, "rvio_ekf_tail_max_clusters",
+    at once at size ``n`` (``cudaOccupancyMaxActiveClusters``, of the
+    narrow kernel or the wide route): B systems above it run in more than
+    one wave.  Launches nothing."""
+    lib, sym = ((_LIB, "rvio_ekf_tail_max_clusters") if n <= NMAX else
+                (_WIDE_LIB, "rvio_ekf_tail_wide_max_clusters"))
+    fn = _lib.function(lib, sym,
                        [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2)
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _lib.call(_LIB, fn, ctypes.byref(out), B, n,
+        _lib.call(lib, fn, ctypes.byref(out), B, n,
                   device=torch.device(device))
     return out.value

@@ -25,7 +25,10 @@ holds Hf and r with a measurement a lane and forms the reflectors by
 warp sums, while 96 lanes each own an output column of Hx, which they
 build in registers from the left factors, reflect and store at its
 absolute clone column; one barrier a feature.  The row count is a
-compile-time bound (32 rows for L <= 16, 128 for L <= 64).
+compile-time bound (32 rows for L <= 16, 128 for L <= 64); a longer
+window (L > 64) runs the wide instance, which loops over the rows, keeps
+Hf and the reflectors in shared memory and reflects each output column in
+place in Hx.  Any L >= 2 is taken.
 
 Depth guard: the kernel clamps |h_z| at ``KERNEL_EPS`` = 1e-6 (as the TPU
 kernel does: f32 reflector norms square the perspective rows, and 1e-12
@@ -178,8 +181,8 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     _lib.check(name, "c0", c0i, (F,), torch.int64, dev)
     _lib.check(name, "R_bc", R_bc, (3, 3), f32, dev)
     _lib.check(name, "t_bc", t_bc, (3,), f32, dev)
-    if not 2 <= L <= 64:
-        raise ValueError(f"{name}: the kernel takes 2 <= L <= 64, got {L}")
+    if L < 2:
+        raise ValueError(f"{name}: the kernel takes L >= 2, got {L}")
     r = torch.empty(F, 2 * L, dtype=f32, device=dev)
     Hx = torch.empty(F, 2 * L, 6 * M, dtype=f32, device=dev)
     hfn = torch.empty(F, dtype=f32, device=dev)

@@ -48,9 +48,11 @@ at 67 TFLOP/s); K9 reads the patch supports of its iterations, 0.35 MB or
 bounds are far under a launch.  They are latency-bound chains of dependent
 iterations.  K8 answers that with a warp per feature: both tiles arrive by
 one bulk copy each, the template's gradients are formed over its support
-box only, a lane keeps a strip of eight window taps (and the search
-pixels under it) in registers and every sum is a warp shuffle, so a
-Gauss-Newton step never waits on a block barrier or touches device memory;
+box only, a lane keeps a strip of eight window taps (a column of the
+window from 17 x 17 to 31 x 31, the widest a 32-wide tile leaves room
+for) and the search pixels under it in registers and every sum is a
+warp shuffle, so a Gauss-Newton step never waits on a block barrier or
+touches device memory;
 the block that finishes last applies the T rule in the same launch
 (csrc/lk_level.cu).  K9 gives a corner two warps: the
 tile by one bulk copy, each warp a band of the window's rows with its
@@ -81,7 +83,8 @@ _TICKET_SEGMENTS = 256
 _tickets: dict = {}
 _SP_LIB = "subpix_refine"
 _SP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-_MAX_TAPS = 256     # K8: eight taps a lane; K9: win <= 7
+_LK_MAX_WIN = 31    # K8: a column of the window a lane from win 17 on
+_SP_MAX_TAPS = 256  # K9: win <= 7
 
 
 # --- sampling primitives of the oracle (frontend/klt.py:96-147) -------------
@@ -236,7 +239,7 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
 
     A CUDA tensor runs the kernel (f32 tiles and points, int32 origins;
     tiles of a multiple of 4 pixels starting on 16-byte boundaries, a
-    window of at most 256 taps, at most 256 segments; one launch for the
+    window of at most 31 x 31, at most 256 segments; one launch for the
     B segments); a CPU tensor the plain version."""
     kw = dict(win=win, max_iters=max_iters, eps=eps, min_eig=min_eig,
               wander=wander, last=last, hw=hw)
@@ -257,9 +260,9 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     if B > _TICKET_SEGMENTS:
         raise ValueError(f"lk_level: {B} segments exceed the "
                          f"{_TICKET_SEGMENTS} finish tickets of a stream")
-    if win * win > _MAX_TAPS:
-        raise ValueError(f"lk_level: a {win}x{win} window exceeds "
-                         f"{_MAX_TAPS} taps")
+    if not 1 <= win <= _LK_MAX_WIN:
+        raise ValueError(f"lk_level: the kernel takes 1 <= win <= "
+                         f"{_LK_MAX_WIN}, got a {win}x{win} window")
     if TH < 2 or TW < 2 or (TH * TW) % 4:
         raise ValueError(f"lk_level: a {TH}x{TW} tile is not one bulk copy "
                          f"(at least 2 x 2, a multiple of 4 pixels)")
@@ -395,9 +398,9 @@ def subpix_refine(tiles: torch.Tensor, origin: torch.Tensor,
     _lib.check("subpix_refine", "tiles", tiles, (N, TH, TW), torch.float32, dev)
     _lib.check("subpix_refine", "origin", origin, (N, 2), torch.int32, dev)
     _lib.check("subpix_refine", "pts", pts, (N, 2), torch.float32, dev)
-    if (2 * win + 1) ** 2 > _MAX_TAPS:
+    if (2 * win + 1) ** 2 > _SP_MAX_TAPS:
         raise ValueError(f"subpix_refine: a {2 * win + 1}-px window exceeds "
-                         f"{_MAX_TAPS} taps")
+                         f"{_SP_MAX_TAPS} taps")
     out = torch.empty((N, 2), dtype=torch.float32, device=dev)
     if N == 0:
         return out

@@ -11,8 +11,13 @@ latency of the m dependent Cholesky steps.  The design gives each feature
 one warp with S in registers (lane i holds row i of the lower triangle,
 and row i + 32 for m > 32): a step is one rsqrtf, a few shuffles and the
 column's broadcast from a per-warp buffer, with no division and no block
-barrier; four features a block.  It takes 1 <= m <= MAX_M.  The TPU
-kernel's 128-lane packing and transposes are not carried over.
+barrier; four features a block.  That takes m <= 64; a longer window
+(m > 64) runs the wide instance, a block of 512 threads a feature over
+the packed lower triangle in shared memory (or, past what a block's
+shared memory holds, about m = 330 on the H100, in a workspace this
+wrapper allocates on the caller's stream), one barrier a pivot.  Any
+m >= 1 is taken.  The TPU kernel's 128-lane packing and transposes are
+not carried over.
 
 NaN semantics (the gate relies on them): an indefinite S gives a NaN D
 for that feature alone, so ``D < threshold`` rejects it (a pivot of
@@ -29,8 +34,10 @@ import torch
 from rvio_tpu_torch.ops import _lib
 
 _LIB = "spd_solve"
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-MAX_M = 64     # two rows of S a lane
+# rvio_spd_quadform_ws: S, r, D, the workspace (or null), F, m
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+NARROW_M = 64     # the warp-a-feature instances: two rows of S a lane
+_workspace: dict = {}     # (device index, m) -> floats a feature
 
 
 def batched_quadform_plain(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -45,24 +52,45 @@ def batched_quadform_plain(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def batched_quadform(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """D[f] = r[f]^T S[f]^-1 r[f] for S (F, m, m), r (F, m) -> (F,).
 
-    A CUDA tensor runs the kernel (f32, 1 <= m <= MAX_M); a CPU tensor the
-    plain version."""
+    A CUDA tensor runs the kernel (f32, any m >= 1: the warp instances up
+    to NARROW_M, the wide one above); a CPU tensor the plain version."""
     if not _lib.uses_kernel(S, "batched_quadform"):
         return batched_quadform_plain(S, r)
     F, m = S.shape[0], S.shape[-1]
     dev = S.device
     _lib.check("batched_quadform", "S", S, (F, m, m), torch.float32, dev)
     _lib.check("batched_quadform", "r", r, (F, m), torch.float32, dev)
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"batched_quadform: the CUDA kernel takes 1 <= m <= "
-                         f"{MAX_M}, got m = {m}")
+    if m < 1:
+        raise ValueError(f"batched_quadform: the CUDA kernel takes m >= 1, "
+                         f"got m = {m}")
     D = torch.empty(F, dtype=torch.float32, device=dev)
     if F == 0:
         return D
-    fn = _lib.function(_LIB, "rvio_spd_quadform", _ARGS)
-    _lib.call(_LIB, fn, _lib.ptr(S), _lib.ptr(r), _lib.ptr(D), F, m, device=dev)
+    need = workspace_floats(m, dev)
+    ws = (torch.empty(F * need, dtype=torch.float32, device=dev) if need
+          else None)
+    fn = _lib.function(_LIB, "rvio_spd_quadform_ws", _ARGS)
+    _lib.call(_LIB, fn, _lib.ptr(S), _lib.ptr(r), _lib.ptr(D),
+              ctypes.c_void_p(ws.data_ptr() if ws is not None else None),
+              F, m, device=dev)
     _lib.launched(batched_quadform)
     return D
 
 
 batched_quadform.launches = 0
+
+
+def workspace_floats(m: int, device) -> int:
+    """Floats of device workspace the kernel needs a feature at order m on
+    the CUDA ``device``: 0 where the packed triangle fits a block's shared
+    memory (m up to about 330 on the H100).  Launches nothing."""
+    dev = torch.device(device)
+    key = (dev.index, m)
+    if key not in _workspace:
+        fn = _lib.function(_LIB, "rvio_spd_quadform_workspace",
+                           [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int])
+        out = ctypes.c_longlong(0)
+        with torch.cuda.device(dev):
+            _lib.call(_LIB, fn, ctypes.byref(out), m, device=dev)
+        _workspace[key] = out.value
+    return _workspace[key]

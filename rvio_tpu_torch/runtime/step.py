@@ -31,7 +31,6 @@ from rvio_tpu_torch.config import RVIOConfig
 from rvio_tpu_torch.device import resolve_device
 from rvio_tpu_torch.filter.propagation import ImuBlock, propagate
 from rvio_tpu_torch.filter.update import UpdateBatch, msckf_update
-from rvio_tpu_torch.ops.ekf_tail import NMAX, cholesky_tail
 from rvio_tpu_torch.runtime.graph import FrameScan, tree_leaves, tree_map
 from rvio_tpu_torch.state import FilterState, augment_window, compose_state
 from rvio_tpu_torch.state.filter_state import (add_segment_axis,
@@ -88,11 +87,7 @@ def _segment_body(cfg: RVIOConfig, device, dtype, parallel_chains: bool,
                   fej=cfg.tpu.fej,
                   adaptive_noise=cfg.tpu.adaptive_noise,
                   adaptive_rampup=cfg.tpu.adaptive_rampup_frames,
-                  parallel_chains=parallel_chains, feat_reduce=feat_reduce,
-                  # the Cholesky tail, fixed here: K5 (None, the update's
-                  # default) where K5 takes n = 6 x the window's clones,
-                  # else the unfused chain (the JAX package's default tail)
-                  tail=None if 6 * cfg.window_size <= NMAX else cholesky_tail)
+                  parallel_chains=parallel_chains, feat_reduce=feat_reduce)
 
     def body(states: FilterState, bundles: FrameBundle
              ) -> Tuple[FilterState, Dict[str, torch.Tensor]]:

@@ -58,8 +58,11 @@ FIRST_DESIGN = [
     ("    Pne[idx] = 0.5f * (Pm[i * DP + k] + Pm[k * DP + i]);\n  }\n", "store"),
 ]
 # A source with phase comments: the last phase ends with the kernel, whose
-# closing brace is the last before the anonymous namespace's.
-KERNEL_END = "}\n\n}  // namespace"
+# closing brace comes before `configure` (csrc/ekf_tail.cu since the batch
+# axis) or, in earlier designs, is the last before the anonymous
+# namespace's.
+KERNEL_ENDS = ("}\n\n// Sets the kernel's dynamic shared memory limit",
+               "}\n\n}  // namespace")
 
 
 def instrument(src: str):
@@ -74,7 +77,8 @@ def instrument(src: str):
             names.append(m.group(1).strip())
         out.append(src[pos:])
         src = "".join(out)
-        i = src.rindex(KERNEL_END)
+        end = next(e for e in KERNEL_ENDS if e in src)
+        i = src.rindex(end)
         src = src[:i] + STAMP.format(k=len(marks)) + "\n" + src[i:]
     else:
         names = []

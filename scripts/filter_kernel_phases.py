@@ -318,7 +318,13 @@ def _k4_call(chk, text):
     S, r = chk.args
     F, m = S.shape[0], S.shape[-1]
     D = torch.empty(F, device=S.device)
-    return Call("rvio_spd_quadform", k4._ARGS, [S, r], [D], [], [F, m], 1)
+    if "rvio_spd_quadform_ws" not in text:   # 451d70c: no workspace
+        return Call("rvio_spd_quadform",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2, [S, r], [D],
+                    [], [F, m], 1)
+    # no workspace: the split takes the instances up to m = 64
+    return Call("rvio_spd_quadform_ws", k4._ARGS, [S, r], [D], [None],
+                [F, m], 1)
 
 
 def _k8_call(chk, text):

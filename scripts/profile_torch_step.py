@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_step.py [--graph] [--image
         [--no-equalizer]] [--batch B] [--frames 200] [--trace PATH]
+        [--tracking-length L]
 
 Without ``--image``: ``SequenceDriver`` (rvio_tpu_torch, f32,
 ``RVIOConfig()``) on the 60 s synthetic workload of bench.py, the
@@ -27,7 +28,9 @@ frames/s, the device busy time per frame and its share of the unprofiled
 frame loop (for the image path: of the front-end + back-end time; the
 host renders the frames outside it), the CUDA kernel launches per frame, and the device
 time per launch of the port's kernels and of the other kernels by total
-time.  ``--trace`` writes the window's Chrome trace.
+time.  ``--trace`` writes the window's Chrome trace.  ``--tracking-length
+L`` sets ``tracker.max_tracking_length`` (a window of L - 1 clones; the
+feature path at L = 17 and 65 takes the filter kernels' wide forms).
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 # profiler names of the port's kernels on the paths (K6 is
 # gather_narrow_kernel, K13 shi_strip_kernel<6, true>)
 PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
-                "quadform_kernel", "ekf_tail_kernel", "clahe_luts_kernel",
+                "jac_project_wide_kernel", "quadform_kernel",
+                "quadform_wide_kernel", "ekf_tail_kernel",
+                "ekf_tail_wide_kernel", "clahe_luts_kernel",
                 "clahe_apply_kernel", "gather_narrow_kernel",
                 "lk_level_kernel", "subpix_kernel", "shi_strip_kernel")
 
@@ -106,6 +111,9 @@ def main() -> int:
                     "batched image scan)")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--tracking-length", type=int, default=0,
+                    help="tracker.max_tracking_length (default: "
+                    "RVIOConfig()'s 15)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -118,6 +126,8 @@ def main() -> int:
                           + ("off" if a.no_equalizer else "on")
                           if a.image else "feature-level filter")
           + (f", {a.batch} segments a frame" if a.batch else "")
+          + (f", max_tracking_length {a.tracking_length}"
+             if a.tracking_length else "")
           + ("; frames graphed" if a.graph else "; frames eager"),
           flush=True)
     from chip_smoke import eager_frames
@@ -125,6 +135,18 @@ def main() -> int:
         if a.batch and a.image:
             return _profile_batched_image(a)
         return _profile_batched(a) if a.batch else _profile(a)
+
+
+def _config(a):
+    """``RVIOConfig()``, with ``--tracking-length`` where given."""
+    import dataclasses
+
+    from rvio_tpu_torch import RVIOConfig
+    cfg = RVIOConfig()
+    if a.tracking_length:
+        cfg = cfg.replace(tracker=dataclasses.replace(
+            cfg.tracker, max_tracking_length=a.tracking_length))
+    return cfg
 
 
 def _workload(cfg):
@@ -142,14 +164,13 @@ def _profile_batched(a) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from rvio_tpu_torch import RVIOConfig
     from rvio_tpu_torch.bench import batch_copies, feature_bundles
     from rvio_tpu_torch.ops import _lib
     from rvio_tpu_torch.runtime import make_batched_sequence_scan
     from rvio_tpu_torch.state import stack_states
     from rvio_tpu_torch.state.filter_state import map_fields
     _lib.build()
-    cfg = RVIOConfig()
+    cfg = _config(a)
     state0, bundles, _ = feature_bundles(cfg, _workload(cfg), "cuda")
     T = int(bundles.imu.w.shape[0])
     states = stack_states([state0] * a.batch)
@@ -213,7 +234,6 @@ def _profile_batched_image(a) -> int:
     first ``--frames`` batched frames profiled."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rvio_tpu_torch import RVIOConfig
     from rvio_tpu_torch.dataio.synthetic import render_frame
     from rvio_tpu_torch.frontend import make_tracker, stack_tracker_states
     from rvio_tpu_torch.ops import _lib
@@ -224,7 +244,7 @@ def _profile_batched_image(a) -> int:
                                                      uniform_table)
     from rvio_tpu_torch.state import stack_states
     _lib.build()
-    cfg = RVIOConfig()
+    cfg = _config(a)
     sim = _workload(cfg)
     B, dev = a.batch, torch.device("cuda", 0)
     groups = bundle_imu(sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
@@ -276,12 +296,11 @@ def _profile_batched_image(a) -> int:
 def _profile(a) -> int:
     from torch.profiler import ProfilerActivity, profile
 
-    from rvio_tpu_torch import RVIOConfig
     from rvio_tpu_torch.eval.ate import ate_rmse
     from rvio_tpu_torch.ops import _lib
     from rvio_tpu_torch.runtime import SequenceDriver, batches_from_sim
     _lib.build()
-    cfg = RVIOConfig()
+    cfg = _config(a)
     sim = _workload(cfg)
     if a.image:
         run = _image_runner(cfg, sim, not a.no_equalizer)

@@ -46,8 +46,12 @@ K13 at B = 1, 2 and 4 against their plain versions, K8's segments each
 with its own T bitwise against single launches, the batched wrappers
 refusing mismatched parts, and the set replay against the single
 replays; QR compression in graphed frames (single and B = 4, run in a
-child process) against the same frames run eagerly, windows of 16 and 19
-clones (the unfused chain in K5's place) against the CPU, K6, K8 and K9
+child process) against the same frames run eagerly, windows of 16, 19,
+32 and 64 clones (K5's wide route once a frame; K4 and K3 past their
+narrow instances) against the CPU and a batched wide-window scan whose
+rows are bitwise equal, K5's wide route at n = 93 to 384 (B = 1 and 4,
+the wider ridge, NaN where a factorization fails), K4 past m = 64 and
+K3 past L = 64, K8 at windows of 17 to 31, K6, K8 and K9
 at the stress config's shapes (800 lanes, the 30 x 47 fifth level), and
 the bench's feature path with ``BENCH_COMPRESSION=qr``.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -133,8 +137,8 @@ def test_ekf_tail_refuses_f64(cuda):
             ekf_tail(*bad)
     with pytest.raises(ValueError):                  # D != 24 + n
         ekf_tail(args[0], args[1], args[2][:, 1:, 1:].contiguous(), args[3])
-    n = 93                               # a block's shared memory holds n <= 92
-    with pytest.raises(ValueError):
+    n = 0                                # every n >= 1 runs (the wide route
+    with pytest.raises(ValueError):      # past 92): only an empty window raises
         ekf_tail(torch.eye(n, device=cuda)[None], torch.ones(1, n, device=cuda),
                  torch.eye(24 + n, device=cuda)[None], args[3])
     ekf_tail(*args)                      # the refusal leaves no error behind
@@ -519,11 +523,12 @@ def _tail_inputs(rng, n, rows=None, masked_frac=0.3, dead=0):
 def _tail_against_plain(cuda, cases):
     """K5 on the stacked ``cases`` against the plain version (the limits of
     ops/checks.py's seeded stack: fallback and NaN identical, dx and P_new
-    within 2e-5 of their largest entry, P_new within 1e-2 scaled by its
-    diagonal) and each entry bitwise its own single launch."""
+    within 2e-5 of their largest entry, n / 92 times that past n = 92
+    (ops/checks.ekf_tail_tol), P_new within 1e-2 scaled by its diagonal)
+    and each entry bitwise its own single launch."""
     from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
                                            EKF_TAIL_FALLBACK_TOL,
-                                           EKF_TAIL_SCALED_TOL,
+                                           EKF_TAIL_SCALED_TOL, ekf_tail_tol,
                                            scaled_cov_err)
     from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
     args = [torch.as_tensor(np.stack(x), device=cuda) for x in zip(*cases)]
@@ -532,9 +537,10 @@ def _tail_against_plain(cuda, cases):
     assert ekf_tail.launches == before + 1
     ref = ekf_tail_plain(*args)
     assert torch.equal(fb, ref[2])
+    n = args[0].shape[-1]
     for e in range(len(cases)):
         wide = bool(ref[2][e])
-        tol = EKF_TAIL_FALLBACK_TOL if wide else 2e-5
+        tol = ekf_tail_tol(EKF_TAIL_FALLBACK_TOL if wide else 2e-5, n)
         stol = EKF_TAIL_FALLBACK_SCALED_TOL if wide else EKF_TAIL_SCALED_TOL
         for got, want in ((dx[e], ref[0][e]), (P_new[e], ref[1][e])):
             assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -589,6 +595,59 @@ def test_ekf_tail_dead_clones(cuda):
              ekf_tail_stack(rng, 14, 600, masked_frac=1.0, dead_clones=14)]
     fb = _tail_against_plain(cuda, cases)
     assert not bool(fb.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n", [93, 96, 114, 192, 384])
+def test_ekf_tail_wide_route(cuda, n, B):
+    """K5's wide route (n > 92: windows of 16 or more clones, and n = 93,
+    not a multiple of 8) on seeded stacks, dead clones in every other
+    entry, B = 1 and 4 systems in one launch."""
+    rng = np.random.default_rng(7 * n + B)
+    cases = [_tail_inputs(rng, n, dead=6 * (e % 2)) for e in range(B)]
+    fb = _tail_against_plain(cuda, cases)
+    assert not bool(fb.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [96, 192])
+def test_ekf_tail_wide_route_wider_ridge(cuda, n):
+    """The wide route takes the wider ridge where the plain version does,
+    in the one entry that needs it, and with the 1e-8 ridge elsewhere."""
+    from rvio_tpu_torch.ops.checks import ekf_tail_fallback_inputs
+    rng = np.random.default_rng(n)
+    cases = [_tail_inputs(rng, n), ekf_tail_fallback_inputs(rng, n=n),
+             _tail_inputs(rng, n)]
+    fb = _tail_against_plain(cuda, cases)
+    assert fb.tolist() == [False, True, False]
+
+
+@pytest.mark.gpu
+def test_ekf_tail_wide_route_nan(cuda):
+    """Where even the wider ridge fails (C with a large negative
+    eigenvalue), dx and P_new are NaN, as in the plain version; where S's
+    factorization fails (sig2 negative beyond S), too."""
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    rng = np.random.default_rng(11)
+    n = 96
+    C, b, P, s2 = _tail_inputs(rng, n)
+    bad_c = C - 10 * np.float32(np.trace(C)) * np.eye(n, dtype=np.float32)
+    cases = [(bad_c, b, P, s2), (C, b, P, np.float32(-1e6))]
+    args = [torch.as_tensor(np.stack(x), device=cuda) for x in zip(*cases)]
+    got, want = ekf_tail(*args), ekf_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert got[2].tolist() == want[2].tolist() == [True, False]
+    for g, w in zip(got[:2], want[:2]):
+        assert bool(torch.isnan(w).all()) and bool(torch.isnan(g).all())
+
+
+@pytest.mark.gpu
+def test_ekf_tail_wide_route_clusters(cuda):
+    """The wide route's clusters: some fit the card at once, at every n."""
+    from rvio_tpu_torch.ops.ekf_tail import max_active_clusters
+    for n in (96, 384):
+        assert max_active_clusters(16, n, cuda) >= 8
 
 
 @pytest.mark.gpu
@@ -691,10 +750,13 @@ def _spd_stack(rng, F, m, bad=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 30, 32, 33, 40, 64])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 30, 32, 33, 40, 64, 65,
+                               66, 130, 340])
 def test_batched_quadform_orders(cuda, m):
     """K4 at every padded order it takes (8, 16, 32 with a row a lane; 64
-    with two), at F = 1, 3, 100 and 257 features (not all multiples of
+    with two; the wide instance past 64, its triangle in shared memory up
+    to about 330 and in a workspace at 340), at F = 1, 3, 100 and 257
+    features (not all multiples of
     the four warps a block): within the check's rtol 2e-3 of the plain
     version, and with three or more features one indefinite lane, NaN in
     both and only it."""
@@ -721,11 +783,17 @@ def test_batched_quadform_orders(cuda, m):
 
 @pytest.mark.gpu
 def test_batched_quadform_refuses_large_orders(cuda):
-    from rvio_tpu_torch.ops.spd_solve import MAX_M, batched_quadform
-    m = MAX_M + 1
-    S = torch.eye(m, device=cuda)[None].contiguous()
-    with pytest.raises(ValueError):
-        batched_quadform(S, torch.ones(1, m, device=cuda))
+    """Every order m >= 1 runs (the wide instance past 64, its triangle in
+    a workspace past a block's shared memory); only m = 0 raises."""
+    from rvio_tpu_torch.ops.spd_solve import batched_quadform
+    for m, ok in ((0, False), (65, True)):
+        S = torch.eye(m, device=cuda)[None].contiguous()
+        r = torch.ones(1, m, device=cuda)
+        if ok:
+            assert float(batched_quadform(S, r)[0]) == pytest.approx(m)
+        else:
+            with pytest.raises(ValueError):
+                batched_quadform(S, r)
 
 
 @pytest.mark.gpu
@@ -848,6 +916,23 @@ def test_lk_level_sizes(cuda, N, win, max_iters):
     args, hw = lk_inputs(img1, img2, _lk_points(np.random.default_rng(N), N),
                          win)
     _lk_against_plain(cuda, args, _lk_kwargs(win, max_iters, hw=hw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [17, 21, 31])
+@pytest.mark.parametrize("N", [1, 33, 200])
+def test_lk_level_wide_windows(cuda, N, win):
+    """K8 past a 16 x 16 window (a column of the window a lane, win taps
+    a lane; at win 31 the wander bound, (32 - win) / 2 - 1, is negative,
+    so every feature dies on its first trip, as in the plain version), at
+    feature counts below a warp, past it and at the tracker's 200."""
+    from rvio_tpu_torch.ops.checks import lk_inputs
+    img1, img2 = _lk_frame()
+    args, hw = lk_inputs(img1, img2,
+                         _lk_points(np.random.default_rng(N + win), N), win)
+    got, _ = _lk_against_plain(cuda, args, _lk_kwargs(win, hw=hw))
+    if win < 31 and N == 200:
+        assert int(got[1].sum()) > 100
 
 
 @pytest.mark.gpu
@@ -987,12 +1072,12 @@ def test_lk_level_two_streams(cuda):
 
 @pytest.mark.gpu
 def test_lk_level_refuses(cuda):
-    """What K8 does not take raises: a window over 256 taps, a tile of
+    """What K8 does not take raises: a window over 31 x 31, a tile of
     pixels not a multiple of 4, tiles off a 16-byte boundary."""
     from rvio_tpu_torch.ops.klt_iterate import lk_level
     args, kw = _lk_case_on(cuda)
     with pytest.raises(ValueError):
-        lk_level(*args, **dict(kw, win=17))
+        lk_level(*args, **dict(kw, win=32))
     t, n = (x[:, :39, :31].contiguous() for x in args[:2])
     with pytest.raises(ValueError):
         lk_level(t, n, *args[2:], **kw)
@@ -1167,11 +1252,12 @@ def _jac_against_plain(cuda, inputs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [2, 15, 16, 17, 64])
+@pytest.mark.parametrize("L", [2, 15, 16, 17, 64, 65, 100])
 @pytest.mark.parametrize("F", [0, 1, 100, 200])
 def test_jac_project_lengths_and_counts(cuda, L, F):
-    """K3 at both compiled row bounds (L <= 16: 32 rows, L <= 64: 128) and
-    at their edges, for F features with t_eff = 2 and t_eff = L in turn
+    """K3 at both compiled row bounds (L <= 16: 32 rows, L <= 64: 128),
+    at their edges and past them (the wide instance, any L), for F
+    features with t_eff = 2 and t_eff = L in turn
     and c0 at 0 and at M - t_eff + 1 in turn (a window of M = L - 1
     clones, as RVIOConfig() has it)."""
     from rvio_tpu_torch.config import RVIOConfig
@@ -2173,38 +2259,74 @@ def test_qr_scans_graphed_match_eager(cuda, tmp_path):
     assert ate_rmse(got["p1"], got["gt"]) < 0.05
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("length", [17, 20])
-def test_wide_window_graphed_matches_cpu(cuda, length):
-    """A window of 16 or 19 clones (n = 96, 114 > K5's 92): the graphed
-    sequence scan runs the unfused Cholesky chain in K5's place (K5 never
-    launches) and stays within the card-vs-CPU limits (1e-4 m, 1e-5 rad)
-    of the CPU run over 100 frames."""
+def _wide_cfg(length):
     import dataclasses
 
-    from chip_smoke import rotation_gap
     from rvio_tpu_torch import RVIOConfig
+    cfg = RVIOConfig()
+    return cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, max_tracking_length=length))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [17, 20, 33, 65])
+def test_wide_window_graphed_matches_cpu(cuda, length):
+    """A window of 16, 19, 32 or 64 clones (K5 at n = 96, 114, 192, 384,
+    past its narrow kernel's 92; K4 at m = 66 and 130 and K3 at L = 65
+    past their narrow instances): the graphed sequence scan launches K5
+    once a frame and stays within the card-vs-CPU limits (1e-4 m,
+    1e-5 rad) of the CPU run over 100 frames, with more than 4 good
+    features a frame from frame 40 on; at 64 clones, where the workload
+    offers fewer usable features than that (ROADMAP.md section 3), more
+    than 0.9 of those the CPU run found usable."""
+    from chip_smoke import WIDE_FEW_USABLE, _head, rotation_gap
     from rvio_tpu_torch.ops.ekf_tail import ekf_tail
     from rvio_tpu_torch.runtime import make_sequence_scan
-    from rvio_tpu_torch.state.filter_state import map_fields
-    cfg = RVIOConfig()
-    cfg = cfg.replace(tracker=dataclasses.replace(
-        cfg.tracker, max_tracking_length=length))
+    cfg = _wide_cfg(length)
     outs = {}
     for dev in (cuda, "cpu"):
         _, state0, bundles, _ = _feature_workload(cfg, dev, duration=10.0)
-        cut = dataclasses.replace(
-            bundles, imu=map_fields(lambda x: x[:100], bundles.imu),
-            batch=map_fields(lambda x: x[:100], bundles.batch))
+        cut = _head(bundles, 100)
         ekf_tail.launches = 0
         _, out = make_sequence_scan(cfg, dev)(state0, cut)
         outs[str(dev)] = {k: v.cpu().numpy() for k, v in out.items()}
-        assert ekf_tail.launches == 0
+        assert ekf_tail.launches == (100 if dev == cuda else 0)
     gpu, cpu = outs[str(cuda)], outs["cpu"]
-    assert len(gpu["p_Gk"]) == 100 and gpu["n_good"][40:].mean() > 4
+    assert len(gpu["p_Gk"]) == 100
+    if length in WIDE_FEW_USABLE:
+        assert gpu["n_good"][40:].mean() > 0.9 * cpu["n_usable"][40:].mean()
+    else:
+        assert gpu["n_good"][40:].mean() > 4
     dp = float(np.abs(gpu["p_Gk"] - cpu["p_Gk"]).max())
     dq = rotation_gap(gpu["q_kG"], cpu["q_kG"])
     assert dp < 1e-4 and dq < 1e-5, (dp, dq)
+
+
+@pytest.mark.gpu
+def test_wide_window_batched_rows_equal(cuda):
+    """The graphed batched scan of B = 4 copies of the workload at a window
+    of 32 clones (every filter kernel's wide form on the path: K5 at
+    n = 192, K4 at m = 66): one launch of each filter kernel a batched
+    frame, and every row bitwise the first."""
+    from chip_smoke import _head
+    from rvio_tpu_torch.bench import batch_copies
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail
+    from rvio_tpu_torch.ops.spd_solve import batched_quadform
+    from rvio_tpu_torch.runtime import make_batched_sequence_scan
+    from rvio_tpu_torch.state import stack_states
+    cfg = _wide_cfg(33)
+    _, state0, bundles, _ = _feature_workload(cfg, cuda, duration=10.0)
+    cut = _head(bundles, 80)
+    run = make_batched_sequence_scan(cfg, cuda)
+    states, copies = stack_states([state0] * 4), batch_copies(cut, 4)
+    run(states, copies)                              # capture
+    ekf_tail.launches = batched_quadform.launches = 0
+    _, out = run(states, copies)
+    assert ekf_tail.launches == batched_quadform.launches == 80
+    for k, v in out.items():
+        for row in range(1, 4):
+            assert torch.equal(v[row], v[0]), k
+    assert float(out["n_good"][0].double().mean()) > 2
 
 
 @pytest.mark.gpu
