@@ -20,7 +20,8 @@ set to 0 just before it and read just after:
   below 0.05 m, and the first 100 frames agree with the port's plain path
   on the CPU, whose 100th frame gives the inputs of K1's, K3's and K5's
   checks on a real frame (and K5 a seeded case that takes the wider
-  ridge);
+  ridge, and the seeded stack of scripts/joseph_order.py at n = 84,
+  row ``ekf_tail@stack84``, also against the chain's order in f64);
 - the same with the unfused library chain called in K5's place (a
   yardstick the port never runs on the card): the first 100 frames within
   the card-vs-CPU limits of the K5 run, and the back-end time of the two
@@ -29,7 +30,7 @@ set to 0 just before it and read just after:
   IMU and ground truth as CSV); the image paths below run on its
   timestamps;
 - images -> poses, ``run_rendered_sequence_scan`` on rendered 752 x 480
-  frames, with the equalizer off over the first 300 frames and with
+  frames, with the equalizer off over the first 150 frames and with
   ``RVIOConfig()`` unmodified (CLAHE on) over the whole workload: every
   kernel launches as often as the path implies, ATE below 0.05 m, the
   front-end acceptance gates of tests/test_flagship_image_ate.py hold, and
@@ -42,10 +43,13 @@ set to 0 just before it and read just after:
   the CPU plain version; K9 and K13 on the same frame's refill detection (its
   corners and tiles, and its level-0 image), each against its plain
   version, with the device time; then images -> poses at a 21 x 21 LK
-  window over 40 tracked frames through the graphed chunk scan (every
+  window over 20 tracked frames through the graphed chunk scan (every
   kernel as the path implies, ATE below 0.05 m, within the image path's
   card-vs-CPU limits of the CPU plain path) and K8 on its last frame's
-  inputs at every level (row ``lk_level@win21``);
+  inputs at every level (row ``lk_level@win21``); and at a 33 x 33 window,
+  past the tile's room, where every feature is lost on its first trip,
+  over 6 tracked frames against the CPU plain path, with K8's instance
+  without trips on its last frame's inputs (row ``lk_level@win33``);
 - the public entries that no path reaches, the detector's
   ``shi_tomasi_response`` (K12) and ``gather_tiles_aligned`` (K7), on the
   workload's frames and the tracker's live positions, each against its
@@ -54,7 +58,7 @@ set to 0 just before it and read just after:
   first 200 tracked frames: frames/s, push-to-pose latency, no drops, and
   the poses of the CLAHE-on run above (same seed, so the same draws);
 - graph against eager (the one-dispatch frame): the feature path over the
-  workload's first 400 frames through the eager frame loop and through the graphed
+  workload's first 200 frames through the eager frame loop and through the graphed
   sequence scan with 1, 8 and 32 frames a graph (capture seconds, graph
   pool bytes, frames/s), every output of every frame bitwise or within
   1e-6 m; images -> poses with CLAHE on over the first GRAPH_IMG_FRAMES
@@ -118,14 +122,16 @@ set to 0 just before it and read just after:
   the CPU over 100 frames (n_good above 4; at 65, where the workload
   offers fewer usable features, above 0.9 of the CPU run's), and K3-K5
   on each length's last update against their plain versions (rows
-  ``<kernel>@wide<L>``; K5 also on four updates at once at 33); a
+  ``<kernel>@wide<L>``; K5 also on four updates at once at 33, and on
+  scripts/joseph_order.py's seeded stack at n = 96, row
+  ``ekf_tail@stack96``, also against the chain's order in f64); a
   one-seed
   ``run_synthetic_sweep`` (15 s) on the card and on the CPU (the same frames,
   each ATE below 0.05 m) and ``python -m rvio_tpu_torch.run --sweep 1``,
   which prints the table;
 - bench.py's high-rate stress config (BASELINE.json's fourth: 800 slots,
   400 update lanes, five pyramid levels down to 30 x 47): images -> poses
-  over 150 tracked frames (launches, ATE, the acceptance gates), then
+  over 110 tracked frames (launches, ATE, the acceptance gates), then
   K2-K4, K6 and K8 at each level, K9 and K13 on tracked frame 100's
   inputs at those shapes against their plain versions, rows
   ``<kernel>@stress`` of the kernels line.
@@ -179,7 +185,7 @@ IMG_CPU_FRAMES = 50
 IMG_CPU_ACTIVE_AGREE = 0.99
 IMG_CPU_GAP_POS_M = 5e-5
 # the equalizer-off image path runs this many frames after its init frame
-IMG_OFF_FRAMES = 300
+IMG_OFF_FRAMES = 150
 # the live path: tracked frames fed to OnlineDriver, and the largest
 # position gap allowed to the CLAHE-on scan with the same draws.  An H100
 # run read 0 (the same kernels and arithmetic in the same order); the limit
@@ -194,7 +200,7 @@ EKF_TAIL_FRAME_TOL = 2e-5
 # the feature path with K5 and with the library chain in its place, timed
 # in turns: pairs of runs over the first frames
 TIMING_FRAMES = 300
-TIMING_PAIRS = 4
+TIMING_PAIRS = 2
 # the file replay: the workload's timestamps in the ASL folder are
 # T0_NS + t ns (a start at 100 s keeps a float64 second exact to 1.4e-14 s,
 # so a bag's sec/nsec stamps and the CSV's ns give the same dt in f32);
@@ -214,11 +220,11 @@ REPLAY_GAP_M = 1e-6
 KLT_FRAME = 100
 # graph against eager: frames of images -> poses (CLAHE on) compared, and
 # the frames a graph of the sequence scan holds
-GRAPH_IMG_FRAMES = 200
+GRAPH_IMG_FRAMES = 100
 UNROLLS = (1, 8, 32)
-# ... and the feature path's frames there (its first 400: the eager runs
+# ... and the feature path's frames there (its first 200: the eager runs
 # of the whole workload took 49 s of the script's time on an H100)
-GRAPH_FEATURE_FRAMES = 400
+GRAPH_FEATURE_FRAMES = 200
 # graphed against eager: the same kernels in the same order, so 0 is
 # expected; the limit is PERF.md section 2's same-input limit
 GRAPH_GAP_M = 1e-6
@@ -251,13 +257,13 @@ WARM_MAX_DEV_M = 0.6
 WARM_NGOOD_MIN = 3.0
 # the set replay: four synthetic sequences at RVIOConfig() (standing for
 # the four V1/V2 easy+medium sequences of BASELINE.json's set), each its
-# own seed and length (about 200-290 tracked frames at 20 Hz), rendered
+# own seed and length (about 135-170 tracked frames at 20 Hz), rendered
 # once and held in memory; each sequence against its single replay with
 # the same seed within the image path's card-vs-CPU limits (the same
 # function in other library shapes: the batch changes the filter's and
 # the RANSAC's batched products)
 SET_SEEDS = (31, 32, 33, 34)
-SET_DURATIONS_S = (12.0, 13.5, 15.0, 16.5)
+SET_DURATIONS_S = (9.0, 9.5, 10.0, 10.5)
 SET_GAP_POS_M = IMG_CPU_GAP_POS_M
 SET_ACTIVE_AGREE = IMG_CPU_ACTIVE_AGREE
 # the image kernels at the batched tracker's shapes: tracked frame
@@ -291,7 +297,7 @@ MESH_KERNELS = ("lm_triangulate", "jac_project", "batched_quadform",
 # QR_FRAMES frames), each against the same frames run eagerly (the same
 # kernels and calls in the same order: 0 expected; held to the card-vs-CPU
 # limits, the issue's gate)
-QR_FRAMES = 300
+QR_FRAMES = 150
 QR_B = 4
 # the sweep's sequence on the card and the CPU (the CLI's run keeps its
 # default, 30 s)
@@ -324,13 +330,33 @@ WIDE_ACCEPT = 0.9
 # last frame's inputs (recorded by an eager run) at every pyramid level
 # (row lk_level@win21)
 WIN_WIDE = 21
-WIN_WIDE_FRAMES = 40
+WIN_WIDE_FRAMES = 20
+# an LK window past 31 x 31: the tracker's wander bound, (32 - win) / 2 - 1,
+# is negative there, so the reference loses every feature on its first
+# trip and K8 runs its instance without trips: images -> poses with CLAHE
+# on at tracker.klt_window WIN_PAST over WIN_PAST_FRAMES tracked frames
+# through the graphed image chunk scan against the CPU plain path (the same
+# frames, slots and positions within the image path's card-vs-CPU limits,
+# no update on either), then K8 on the last frame's inputs at every level
+# (row lk_level@win33: the guesses bitwise, every status false, each
+# feature's error within LK_POS_TOL of the plain version's)
+WIN_PAST = 33
+WIN_PAST_FRAMES = 6
+# K5 on the seeded stack of scripts/joseph_order.py (ops/checks.py
+# ekf_tail_stack, seed JOSEPH_SEED, JOSEPH_ROWS rows) at n = 84 (the
+# narrow kernel) and n = 96 (the wide route): against its plain version
+# (rows ekf_tail@stack84 and @stack96) and P_new within JOSEPH_F64_TOL of
+# the chain's order in f64, scaled by P_new's diagonal (ROADMAP.md section
+# 3: the narrow kernel's earlier order read 5.9e-4 there)
+JOSEPH_SEED = 97
+JOSEPH_ROWS = 3840
+JOSEPH_F64_TOL = 1e-4
 # bench.py's high-rate stress config (BASELINE.json's fourth: 800 slots,
 # five pyramid levels, ops/checks.py STRESS_ENV): images -> poses over
 # STRESS_FRAMES tracked frames of bench.py's sequence cut to
 # STRESS_DURATION_S, the kernels checked on tracked frame KLT_FRAME's
 # inputs (rows <kernel>@stress)
-STRESS_FRAMES = 150
+STRESS_FRAMES = 110
 STRESS_DURATION_S = 14.0
 
 
@@ -940,8 +966,10 @@ def filter_frame_phase(dev, records, k1_inputs, k3_inputs) -> None:
 
 
 def ekf_tail_phase(dev, records, inputs) -> None:
-    """K5 on a real frame's inputs (its record: error, times, bound) and on
-    seeded inputs that take the wider ridge."""
+    """K5 on a real frame's inputs (its record: error, times, bound), on
+    seeded inputs that take the wider ridge, and on the seeded stack of
+    scripts/joseph_order.py at n = 84 (:func:`joseph_stack_row`, with the
+    main path's launches)."""
     from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
                                            EKF_TAIL_FALLBACK_TOL,
                                            ekf_tail_case,
@@ -952,6 +980,8 @@ def ekf_tail_phase(dev, records, inputs) -> None:
     chk = ekf_tail_case(dev, C, b, P, sig2, tol=EKF_TAIL_FRAME_TOL,
                         what="the feature path's frame 100")
     rec = measure(chk, " (the feature path's frame 100, CPU plain path)")
+    main_launches = next(r["launches"] for _, r in records
+                         if r["name"] == TAIL_KERNEL)
     for _, r in records:
         if r["name"] == TAIL_KERNEL:
             r.update(rec)
@@ -987,6 +1017,7 @@ def ekf_tail_phase(dev, records, inputs) -> None:
           f"by kernel and plain version, err {err:.3e}, P_new scaled by its "
           f"diagonal {fb.info['P_new scaled by its diagonal']} (tolerance: "
           f"{fb.tolerance})", flush=True)
+    joseph_stack_row(dev, records, 14, main_launches)
 
 
 def library_chain_phase(dev, sim, batches, kernels, k5_run, k5_driver
@@ -2324,6 +2355,33 @@ def _kernel_row(records, chk, label: str, name: str, launches: int,
     records.append((chk.kernel, rec))
 
 
+def joseph_stack_row(dev, records, clones: int, launches: int) -> None:
+    """K5 on the seeded stack of scripts/joseph_order.py at ``clones``
+    clones (n = 6 clones): against its plain version (:func:`measure`), a
+    row ``ekf_tail@stack<n>`` with ``launches``, and its P_new within
+    JOSEPH_F64_TOL of the chain's order in f64 (ops/checks.py
+    ``joseph_p_new``), scaled by P_new's diagonal."""
+    from rvio_tpu_torch.ops.checks import (ekf_tail_case, ekf_tail_stack,
+                                           joseph_p_new, scaled_cov_err)
+    n = 6 * clones
+    C, b, P, sig2 = ekf_tail_stack(np.random.default_rng(JOSEPH_SEED),
+                                   clones, JOSEPH_ROWS)
+    chk = ekf_tail_case(dev, C, b, P, sig2, tol=2e-5,
+                        what=f"seeded stack {JOSEPH_SEED}, n {n}")
+    _kernel_row(records, chk, f"@stack{n} (seed {JOSEPH_SEED})",
+                f"ekf_tail@stack{n}", launches, seed=JOSEPH_SEED)
+    ref = joseph_p_new(*(torch.as_tensor(np.float64(x))
+                         for x in (C, b, P, sig2)), True).numpy()
+    got = chk.run_kernel()[1][0].double().cpu().numpy()
+    err = scaled_cov_err(got, ref)
+    records[-1][1]["f64_scaled_err"] = err
+    print(f"kernel {TAIL_KERNEL}@stack{n}: P_new against the chain's order in "
+          f"f64, scaled by its diagonal: {err:.3e} (limit "
+          f"{JOSEPH_F64_TOL:.0e})", flush=True)
+    if not err <= JOSEPH_F64_TOL:
+        raise AssertionError(f"ekf_tail at n {n}: P_new {err:.3e} from f64")
+
+
 def wide_window_phase(dev, kernels, records) -> None:
     """Windows past the narrow filter kernels (WIDE_LENGTHS): the graphed
     sequence scan at each length over WIDE_FRAMES frames on the card
@@ -2442,6 +2500,8 @@ def wide_window_phase(dev, kernels, records) -> None:
         for chk, label in checks:
             _kernel_row(records, chk, f"{tag}{label}", f"{chk.name}{tag}",
                         launches[chk.name], window=length)
+        if nn == 96:
+            joseph_stack_row(dev, records, 16, launches["ekf_tail"])
         if length == WIDE_B_LENGTH:
             chk = ekf_tail_case(dev, *(np.stack(x) for x in zip(*k5)),
                                 tol=EKF_TAIL_FRAME_TOL,
@@ -2532,6 +2592,88 @@ def wide_lk_phase(dev, sim, kernels, records) -> None:
     _kernel_row(records, level0, f"@win{WIN_WIDE}, level 0",
                 f"lk_level@win{WIN_WIDE}", launches["lk_level"],
                 window=WIN_WIDE, frame_levels=frame_levels)
+
+
+def past_lk_phase(dev, sim, kernels, records) -> None:
+    """K8 at an LK window past 31 x 31 (WIN_PAST), where the tracker's
+    wander bound is negative and the reference loses every feature on its
+    first trip: images -> poses with CLAHE on over WIN_PAST_FRAMES tracked
+    frames through the graphed image chunk scan, every kernel as often as
+    the path implies, and the same frames on the CPU plain path: the same
+    frames and slots, positions within the image path's card-vs-CPU limit,
+    no feature good for an update on either.  Then an eager run to the
+    same frame records its K8 calls, and K8 on them at every level against
+    its plain version: the guesses bitwise the level-entry guesses, every
+    status false on both, each feature's error within LK_POS_TOL (the
+    level-0 check a row ``lk_level@win33`` with the graphed run's
+    launches)."""
+    from rvio_tpu_torch.ops.checks import LK_POS_TOL, lk_case
+    from rvio_tpu_torch.runtime import run_rendered_sequence_scan
+    base = image_config(True)
+    cfg = base.replace(tracker=dataclasses.replace(base.tracker,
+                                                   klt_window=WIN_PAST))
+    levels = cfg.tracker.klt_levels + 1
+    k0 = _init_frame(cfg, sim.imu_t, sim.imu_w, sim.imu_a, sim.frame_t)
+    k_end = k0 + 1 + WIN_PAST_FRAMES
+    run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k0 + 3)
+    _zero(kernels)
+    res = run_rendered_sequence_scan(cfg, sim, device=dev, max_frames=k_end)
+    torch.cuda.synchronize()
+    launches = _launches(kernels)
+    cpu = run_rendered_sequence_scan(cfg, sim, device="cpu", max_frames=k_end)
+    n = len(res.timestamps)
+    same = np.array_equal(cpu.timestamps, res.timestamps)
+    agree = float((cpu.active_slots == res.active_slots).mean()) if same \
+        else 0.0
+    dp = float(np.abs(cpu.positions - res.positions).max()) if same \
+        else float("inf")
+    good = int(res.n_good.max(initial=0)), int(cpu.n_good.max(initial=0))
+    print(f"images -> poses at a {WIN_PAST} x {WIN_PAST} LK window (CLAHE "
+          f"on): {n} frames graphed, n_good at most {good[0]} (CPU "
+          f"{good[1]}), launches {launches}; the CPU plain path: active "
+          f"slots agree on {agree:.4%} of slot-frames (limit "
+          f"{IMG_CPU_ACTIVE_AGREE:.0%}), max position gap {dp:.3e} m "
+          f"(limit {IMG_CPU_GAP_POS_M})", flush=True)
+    want = expected_launches(WIN_PAST_FRAMES, True, levels)
+    if n != WIN_PAST_FRAMES or launches != want:
+        raise AssertionError(f"LK window {WIN_PAST}: {n} frames, launches "
+                             f"{launches}, expected {want}")
+    if not (same and agree >= IMG_CPU_ACTIVE_AGREE
+            and dp < IMG_CPU_GAP_POS_M and np.isfinite(res.positions).all()
+            and good == (0, 0)):
+        raise AssertionError(f"LK window {WIN_PAST}: card and CPU disagree "
+                             f"or a feature was tracked")
+    captured = capture_klt_frame(dev, sim, cfg=cfg, frame=WIN_PAST_FRAMES)[0]
+    frame_levels = []
+    tol = (f"guesses bitwise the level-entry guesses, every status false on "
+           f"both, err {LK_POS_TOL:g} of the plain version's on every "
+           f"feature")
+    for lvl, _, _, args, kw in captured:
+        what = f" (win {WIN_PAST}, frame {WIN_PAST_FRAMES}, level {lvl})"
+
+        def compare(ko, po, what=what):
+            (gk, sk, ek), (gp, sp, ep) = ko, po
+            if not torch.equal(gk, gp) or bool(sk.any()) or bool(sp.any()):
+                raise AssertionError(f"lk_level{what}: a guess moved or a "
+                                     f"status is true")
+            err = float((ek - ep).abs().max()) if len(ek) else 0.0
+            if not err <= LK_POS_TOL:
+                raise AssertionError(f"lk_level{what}: err {err:.3e}")
+            return err
+
+        chk = dataclasses.replace(lk_case(dev, args, kw, what=what),
+                                  compare=compare, tolerance=tol)
+        err = chk.check()
+        torch.cuda.synchronize()
+        frame_levels.append(dict(level=lvl, max_abs_err=err,
+                                 features=len(args[0])))
+        print(f"kernel lk_level{what}: err {err:.3e} over {len(args[0])} "
+              f"features ({tol})", flush=True)
+        if lvl == 0:
+            level0 = chk
+    _kernel_row(records, level0, f"@win{WIN_PAST}, level 0",
+                f"lk_level@win{WIN_PAST}", launches["lk_level"],
+                window=WIN_PAST, frame_levels=frame_levels)
 
 
 def sweep_phase(dev, kernels) -> None:
@@ -2798,6 +2940,10 @@ def main() -> int:
         t0 = time.perf_counter()
         wide_lk_phase(dev, sim_f, kernels, records)
         print(f"wide LK window phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        past_lk_phase(dev, sim_f, kernels, records)
+        print(f"LK window past 31 phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         drv = online_phase(dev, sim_f, kernels, scan)
         entries_phase(dev, sim_f, kernels, records, drv)

@@ -3,20 +3,27 @@
 // K = P Hn^T S^-1, dx = K rn and the Joseph-form covariance.
 //
 // Replaces rvio_tpu/ops/ekf_tail.py (ekf_tail_pallas / _ekf_tail_kernel).
-// It computes the port's unfused chain (ops/ekf_tail.py cholesky_tail):
+// It computes the port's unfused chain (ops/ekf_tail.py cholesky_tail), in
+// the chain's order of operations (the TPU kernel's: rvio_tpu/ops/
+// ekf_tail.py:192-226):
 //
 //   1. C + 1e-8 max(tr C, 1) I, lower Cholesky Lc; where a pivot is <= 0 or
 //      not finite, C + n eps_f32 max(tr C, 1) I instead and `fallback` set;
 //      if that fails too, dx and P_new are NaN;
 //   2. rn = Lc^-1 b, Hn = [0 | Lc^T];
 //   3. (P Hn^T)^T = Lc^T P[24:, :] (P symmetric: no transpose of P);
-//   4. S = Lc^T P22 Lc + sig2 I (the lower triangle: the plain version
-//      symmetrizes S first, which changes only rounding); its Cholesky Ls
-//      (NaN results where it fails);
+//   4. S = Lc^T P22 Lc + sig2 I, whole rows, then (S + S^T) / 2 and its
+//      Cholesky Ls (NaN results where it fails);
 //   5. K^T = Ls^-T Ls^-1 (P Hn^T)^T, dx = K rn;
-//   6. with G = K Lc^T (the live columns of K Hn):
-//      A P = P - G P[24:, :],  X = A P - (A P)[:, 24:] G^T + sig2 K K^T,
-//      P_new = (X + X^T) / 2.
+//   6. E = I - K Hn, formed before it multiplies anything: its live
+//      columns are E[:, 24:] = I[:, 24:] - K Lc^T (a clone row's diagonal
+//      coefficient is 1 - g, taken before the product), then
+//      X = (E P) E^T + sig2 K K^T and P_new = (X + X^T) / 2.
+// Where the update observes the state, E's clone block is small: the
+// products sum small terms.  Subtracting K Hn P from P after the product, an
+// earlier design's order, cancels large ones, and in f32 cost P_new's
+// small, well-observed entries about 6e-4 of their scale
+// (scripts/joseph_order.py).
 //
 // Bound on the H100 at the operating point (n = 84, D = 108, one entry): the
 // call moves about 85 KB (C's lower triangle, b, P's upper triangle, dx and
@@ -45,16 +52,17 @@
 //   update is a rank-8 product, a row and 8 columns a thread.  Two barriers
 //   a panel, 22 a factorization at n = 84, in place of 84.
 // - Work that is independent by row or column is split over the CTAs: CTA
-//   r forms the rows r hs .. of S (hs = ceil(n / 8)) and sends them to
-//   every CTA by bulk copies into their shared memory; it owns a block of
-//   16 of the D columns of (P Hn^T)^T, solves its columns of K^T (blocked:
-//   a thread holds 8 rows of a column, solves its diagonal block in
-//   registers, then the product update, one barrier per 8 rows), forms its
-//   columns of G^T = Lc K^T and its rows of A P (the rows of G are the
-//   columns of G^T it owns), sends its columns of K^T and G^T to every CTA
-//   (bulk copies), and forms its rows of X, whose entries it stores
-//   straight into the CTAs that own the matching rows of P_new.
-// - Two cluster barriers (before K^T and G^T are sent, since the targets
+//   r forms the whole rows r hs .. of S (hs = ceil(n / 8)) and sends them
+//   to every CTA by bulk copies into their shared memory, where each CTA
+//   symmetrizes S alike; it owns a block of 16 of the D columns of
+//   (P Hn^T)^T, solves its columns of K^T (blocked: a thread holds 8 rows
+//   of a column, solves its diagonal block in registers, then the product
+//   update, one barrier per 8 rows), forms its columns of E^T's clone rows,
+//   I - Lc K^T (E's rows are the columns of E^T it owns), and its rows of
+//   E P, sends its columns of K^T and E^T to every CTA (bulk copies), and
+//   forms its rows of X, whose entries it stores straight into the CTAs
+//   that own the matching rows of P_new.
+// - Two cluster barriers (before K^T and E^T are sent, since the targets
 //   must be done with what they overwrite; before X^T is read), and
 //   mbarriers that count the bytes of the bulk copies.
 // - All sums are f32 on the FP32 pipes: the port keeps TF32 off, so the
@@ -432,16 +440,16 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
   const int LD = mat_ld(n), cw = block_width(DP), hs = (n + CL - 1) / CL;
   const int c0 = r * cw, wr = max(min(cw, DP - c0), 0);   // own D columns
   const int i0 = r * hs, hr = max(min(hs, n - i0), 0);    // own rows of S
-  // K^T and G^T whole are held by column block: block q (columns q cw ..,
-  // width wr_q) at n q cw, row stride wr_q, as CTA q holds its own
+  // K^T and E^T[24:, :] whole are held by column block: block q (columns
+  // q cw .., width wr_q) at n q cw, row stride wr_q, as CTA q holds its own
   float* Lc = sh;                    // m x LD: C + ridge, then Lc
   float* Sf = Lc + m * LD;           // m x LD: S, then Ls
   float* Qc = Sf + m * LD;           // m x wr: own columns of Q, then K^T
-  float* Gc = Qc + m * cw;           // n x wr: own columns of G^T
+  float* Gc = Qc + m * cw;           // n x wr: own columns of E^T[24:, :]
   float* B1 = Gc + n * cw;           // n x DP: P[24:, :], then K^T whole
   float* B2 = B1 + n * DP;           // n x DP: own rows of Lc^T P22 and of
-                                     // S, then G^T whole
-  float* APr = B2 + b2_floats(n);    // cw x DP: own rows of P, then A P
+                                     // S, then E^T[24:, :] whole
+  float* APr = B2 + b2_floats(n);    // cw x DP: own rows of P, then E P
   float* Xr = APr + cw * DP;         // cw x DP: own rows of X
   float* XT = Xr + cw * DP;          // DP x cw: X^T's entries of own rows
   float* rn = XT + cw * DP;          // m: Lc^-1 b
@@ -463,7 +471,7 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
                                      reinterpret_cast<size_t>(P)) & 15) == 0;
   uint64_t* bar = reinterpret_cast<uint64_t*>(red + NW + 2);   // the load
   uint64_t* barS = bar + 1;                                     // S
-  uint64_t* barK = bar + 2;                                     // K^T, G^T
+  uint64_t* barK = bar + 2;                                     // K^T, E^T
 
   // phase: load.  P[24:, :], C and b by the tensor memory accelerator: CTA
   // r asks for rows r, r + 8, ... of each, copied into every CTA of the
@@ -477,7 +485,7 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
   if (tid == 0) {
     mbar_init(barS);                 // S: n rows of every CTA's
     mbar_expect(barS, 4u * n * LD);
-    mbar_init(barK);                 // K^T and G^T: n x DP each
+    mbar_init(barK);                 // K^T and E^T: n x DP each
     mbar_expect(barK, 8u * n * DP);
     if (bulk) {
       mbar_init(bar);
@@ -553,10 +561,9 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
 
   // phase: rn, S and Q columns.  Warp 0: rn = Lc^-1 b, blocked as the
   // solves for K^T are (lane g holds rows 8 g .. 8 g + 7).  The other
-  // warps: U = Lc[:, own]^T P22 and the lower triangle of the own rows of
-  // S = U Lc (the factorization reads nothing else of S, so S is not
-  // symmetrized, as the plain version does: a change of rounding), which
-  // go to every CTA's Sf by bulk copies; and Q = Lc^T P[24:, own].
+  // warps: U = Lc[:, own]^T P22 and the own rows of S = U Lc, whole (S is
+  // symmetrized where it arrives, which reads the upper triangle), which go
+  // to every CTA's Sf by bulk copies; and Q = Lc^T P[24:, own].
   float* U = B2;                     // hr x DP
   float* Ss = B2 + hs * DP;          // hr x LD
   if (tid < 32) {
@@ -611,7 +618,6 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < hr * tn4) {
         const int a = t / tn4, k = 4 * (t - a * tn4);
-        if (k > i0 + a) continue;              // upper triangle: not needed
         for (int j = k; j < n; ++j)
           fma4(acc, U[a * DP + j], ld4(&Lc[j * LD + k]));
         st4(&Ss[a * LD + k], acc);
@@ -629,9 +635,16 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
         bulk_push(&Sf[i0 * LD], Ss, hr * LD, rk, barS);
   }
 
-  // phase: S arrives.  Every CTA's rows of S, counted by barS.
+  // phase: S arrives.  Every CTA's rows of S, counted by barS; then
+  // (S + S^T) / 2 on the lower triangle (the factorization reads nothing
+  // else; the writes touch no entry the reads do) and + sig2 I, as the
+  // chain does, in every CTA alike.
   mbar_wait(barS);
-  for (int i = tid; i < n; i += NT) Sf[i * LD + i] += s2;      // + sig2 I
+  for (int idx = tid; idx < n * n; idx += NT) {
+    const int i = idx / n, k = idx - i * n;
+    if (k < i) Sf[i * LD + k] = 0.5f * (Sf[i * LD + k] + Sf[k * LD + i]);
+  }
+  for (int i = tid; i < n; i += NT) Sf[i * LD + i] += s2;
   __syncthreads();
 
   // phase: factor S
@@ -651,7 +664,10 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
   __syncthreads();
   solve_blocked(Sf, m, LD, Qc, wr, wr, rd);
 
-  // phase: dx and G^T.  dx = K rn on the own columns; G^T = Lc K^T.
+  // phase: dx and E^T.  dx = K rn on the own columns; the own columns of
+  // E^T's clone rows, I - Lc K^T (E = I - K Hn, whose live columns are
+  // I - K Lc^T): E's diagonal coefficient 1 - g of a clone row is taken
+  // here, before any product.
   {
     const int tc4 = wr / 4;
     for (int t = tid; t < wr + n * tc4; t += NT) {
@@ -666,22 +682,34 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
       const int u = t - wr, i = u / tc4, k = 4 * (u - i * tc4);
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int l = 0; l <= i; ++l) fma4(acc, Lc[i * LD + l], ld4(&Qc[l * wr + k]));
-      st4(&Gc[i * wr + k], acc);
+      float4 e = make_float4(-acc.x, -acc.y, -acc.z, -acc.w);
+      const int dg = NX + i - c0 - k;          // the component on E's diagonal
+      if (dg == 0) e.x += 1.f;
+      else if (dg == 1) e.y += 1.f;
+      else if (dg == 2) e.z += 1.f;
+      else if (dg == 3) e.w += 1.f;
+      st4(&Gc[i * wr + k], e);
     }
   }
   __syncthreads();
 
-  // phase: A P.  Own rows: A P = P - G P[24:, :], two rows by four columns
-  // a thread (row a of G is column a of G^T).
+  // phase: E P.  Own rows: (E P)[c, :] = [c < 24] P[c, :] +
+  // E[c, 24:] P[24:, :], two rows by four columns a thread (row a of E is
+  // column a of E^T); a clone row's sum starts at 0, its diagonal
+  // coefficient 1 - g inside it.  c0 and a are even and NX is, so both
+  // rows of a pair lie on one side of 24.
   {
     const int TD = DP / 4;
     for (int t = tid; t < (wr / 2) * TD; t += NT) {
       const int a = 2 * (t / TD), k = 4 * (t % TD);
-      float4 x0 = ld4(&APr[a * DP + k]), x1 = ld4(&APr[(a + 1) * DP + k]);
+      const bool cl = c0 + a >= NX;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 x0 = cl ? z : ld4(&APr[a * DP + k]);
+      float4 x1 = cl ? z : ld4(&APr[(a + 1) * DP + k]);
       for (int l = 0; l < n; ++l) {
         const float4 p = ld4(&B1[l * DP + k]);
-        fma4(x0, -Gc[l * wr + a], p);
-        fma4(x1, -Gc[l * wr + a + 1], p);
+        fma4(x0, Gc[l * wr + a], p);
+        fma4(x1, Gc[l * wr + a + 1], p);
       }
       st4(&APr[a * DP + k], x0);
       st4(&APr[(a + 1) * DP + k], x1);
@@ -691,7 +719,7 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
   // phase: cluster barrier 1
   cluster.sync();
 
-  // phase: K^T and G^T arrive.  Each CTA sends its columns of both to
+  // phase: K^T and E^T arrive.  Each CTA sends its columns of both to
   // every CTA (bulk copies; their P[24:, :] and the rest of B2 are done).
   if (tid == 0 && wr)
     for (int rk = 0; rk < CL; ++rk) {
@@ -700,7 +728,9 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
     }
   mbar_wait(barK);
 
-  // phase: X.  Own rows: X = A P - (A P)[:, 24:] G^T + sig2 K K^T, two rows
+  // phase: X.  Own rows: X = (E P) E^T + sig2 K K^T, that is
+  // X[c, k] = [k < 24] (E P)[c, k] + (E P)[c, 24:] E^T[24:, k] +
+  // sig2 K[c, :] K[k, :] (E's first 24 columns are the identity's), two rows
   // by four columns a thread (row a of K is column a of K^T); each finished
   // tile also goes to the CTA that owns its columns' rows of P_new, as
   // entries of X^T.
@@ -710,14 +740,16 @@ ekf_tail_kernel(const float* __restrict__ C, const float* __restrict__ b,
       const int a = 2 * (t / TD), k = 4 * (t % TD);
       const int q = k / cw, wq = min(cw, DP - q * cw);
       const float* kt = B1 + n * q * cw + k - q * cw;   // K^T[0][k], stride wq
-      const float* gt = B2 + n * q * cw + k - q * cw;   // G^T[0][k]
-      float4 x0 = ld4(&APr[a * DP + k]), x1 = ld4(&APr[(a + 1) * DP + k]);
-      float4 k0 = make_float4(0.f, 0.f, 0.f, 0.f), k1 = k0;
+      const float* et = B2 + n * q * cw + k - q * cw;   // E^T[24][k]
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 x0 = k < NX ? ld4(&APr[a * DP + k]) : z;
+      float4 x1 = k < NX ? ld4(&APr[(a + 1) * DP + k]) : z;
+      float4 k0 = z, k1 = z;
       for (int l = 0; l < n; ++l) {
-        const float4 g = ld4(gt + l * wq);
+        const float4 g = ld4(et + l * wq);
         const float4 q4 = ld4(kt + l * wq);
-        fma4(x0, -APr[a * DP + NX + l], g);
-        fma4(x1, -APr[(a + 1) * DP + NX + l], g);
+        fma4(x0, APr[a * DP + NX + l], g);
+        fma4(x1, APr[(a + 1) * DP + NX + l], g);
         fma4(k0, Qc[l * wr + a], q4);
         fma4(k1, Qc[l * wr + a + 1], q4);
       }

@@ -14,66 +14,69 @@
 //   3. P Hn^T = P[:, 24:] Lc;
 //   4. S = Lc^T (P Hn^T)[24:, :] + sig2 I, (S + S^T) / 2 and its Cholesky
 //      Ls, NaN results where it fails;
-//   5. K = P Hn^T Ls^-T Ls^-1, dx = K rn;
-//   6. E = I - K Hn (its live columns I - K Lc^T), X = (E P) E^T +
-//      sig2 K K^T, P_new = (X + X^T) / 2.
-//
-// csrc/ekf_tail.cu takes step 6 as A P = P - G P[24:, :] and
-// X = A P - (A P)[:, 24:] G^T (G = K Lc^T) and skips the symmetrization
-// of S: the same function, but where the update observes the state it
-// subtracts nearly equal products, which in f32 costs the small,
-// well-observed entries of P_new digits that grow with n; the chain's
-// order forms the small E first (tests/test_torch_wide_windows.py
-// measures both orders against f64).
+//   5. W = P Hn^T Ls^-T, K = W Ls^-1, dx = K rn;
+//   6. E = I - K Hn (its live columns I - K Lc^T, formed before any
+//      product), X = (E P) E^T + sig2 K K^T, P_new = (X + X^T) / 2.
 //
 // Bound on the H100: at n = 96 (D = 120) about 11 MFLOP and 0.17 us at
 // 67 TFLOP/s, at n = 384 (D = 408) 573 MFLOP and 8.6 us
 // (ops/checks.ekf_tail_flops); the bytes are smaller still.  What holds a
-// system back is the chain of dependent steps of two factorizations and two
-// triangular solves, and, at large n, the products on the 8 SMs of one
-// cluster.
+// system back is the chain of dependent steps of the two factorizations
+// and the two triangular solves; the products are ordinary FP32 work.
 //
-// Design, written from the math (the narrow kernel's layout in one CTA's
-// shared memory does not scale: C and P alone are 1.26 MB at n = 384).
-// 199 us a launch at n = 96, 575 at 192, 2527 at 384, against the unfused
-// chain's 264, 367 and 783 us on the device (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py): the products run on one cluster's 8 SMs, and each of
-// its 250-odd phases at n = 384 waits on a cluster barrier and a round
-// trip to L2.
-// - One cluster of CL = 8 CTAs of 256 threads a system (B systems, one
-//   launch), as the narrow kernel; the CTAs meet at cluster barriers
-//   (barrier.cluster, release and acquire at cluster scope) between
-//   phases, and every intermediate lives in a device workspace the wrapper
-//   allocates a call (`Layout`: about 3.8 MB a system at n = 384), read
-//   and written through L2 (ld.global.cg / st.global.cg), which every SM
-//   of the cluster sees alike.
-// - The rn solve and the first triangular solve of the gain ride on the
-//   factorizations: b^T is one more row below C, and P Hn^T's D rows are
-//   more rows below S, so the factor's rows below the square are
-//   b^T Lc^-T = rn^T and P Hn^T Ls^-T.  A factorization runs in panels of
-//   8 columns: every thread of the cluster factors the 8 x 8 diagonal block
-//   from L2 in its registers (the same instructions on the same data, so
-//   every thread knows alike whether a pivot failed), each row below solves
-//   against it (a row a thread), a cluster barrier, then the trailing
-//   rank-8 update (a row and 8 columns a thread, the panel's rows staged
-//   through each CTA's shared memory), a cluster barrier: two a panel.
-// - K = W Ls^-1 (W = P Hn^T Ls^-T) by the backward solve in blocks of 8
-//   columns, one cluster barrier a block: the thread of row d and column
-//   block g subtracts block q + 1's contribution (Ls's block row staged in
-//   shared memory) and, for g = q, solves block q in its registers.
-// - The products (P Hn^T, S, E, E P, X) are tiles of 64 x 64 outputs, one
-//   CTA a tile, 16-deep slices of both operands staged in shared memory,
-//   4 x 4 outputs a thread.  All sums are f32 on the FP32 pipes (the port
-//   keeps TF32 off).
-// Every phase is a loop over the cluster's 2048 threads or the CTAs, so any
-// n runs; shared memory stays under 48 KB.  A simple design that is right:
-// spreading the intermediates over distributed shared memory is later work.
+// Design: the work goes where what bounds it is served, in eight launches
+// in stream order (one `ekf_tail` call; no host sync, every intermediate
+// in the workspace the wrapper allocates, `Layout`).
+// - The two factorizations are chains: each runs in one cluster of CL = 8
+//   CTAs a system (`factor_kernel`), with the working matrix spread over
+//   the CTAs' shared memory (row i in CTA i mod 8: about 76 KB a CTA at
+//   n = 384) in place of L2.  Panels of PW = 32 columns, one cluster
+//   barrier a panel (12 panels at n = 384): warp 0 of every CTA reads the
+//   32 x 32 diagonal block from its owners (distributed shared memory) and
+//   factors it alike in registers, a row a lane (the same instructions on
+//   the same data: the same bits and the same verdict on the pivots
+//   everywhere); each CTA solves its own rows of the panel against it, a
+//   row a thread, and sends them to the other CTAs' copies of the panel by
+//   bulk copies counted on their mbarriers; then the trailing update of
+//   its own rows from its local panel, a row and eight columns a task, the
+//   row in registers.  C's factorization carries b^T as one more row below
+//   C, which ends as rn^T = b^T Lc^-T; S's rows are symmetrized across the
+//   cluster after they load.  Past n = 512 the rows do not fit shared
+//   memory: the same kernel keeps them and the panel in the workspace
+//   (read through L2) with a second cluster barrier a panel, slower but
+//   alike.
+// - The two solves are row-independent: W and K for a block of 8 of the
+//   D rows a CTA (`solve_kernel`, a grid over the card), its rows held
+//   transposed in shared memory; the solves go by blocks of 32 columns,
+//   each the product update of the block from the finished columns (Ls
+//   streamed through shared memory by cp.async) and then the block's
+//   substitution, 8 lanes a row and a shuffle a step; dx = K rn at the
+//   end.
+// - The products (P Hn^T, S, E, E P) are tiles of 32 x 32 outputs, a CTA a
+//   tile and a system (`product_kernel`), both operands staged 16 deep
+//   through shared memory by cp.async (eight slices in a ring), 4 x 2
+//   outputs a thread; a triangular operand starts or ends the depth at the
+//   tile.
+//   X = (E P) E^T + sig2 K K^T and P_new = (X + X^T) / 2 are one launch
+//   (`joseph_kernel`): a CTA takes a pair of tiles (I, J), I <= J, and
+//   forms X's tile (I, J) and the transpose of its tile (J, I) from the
+//   same staged slices, so it stores P_new's two tiles, bitwise symmetric.
+// All sums are f32 on the FP32 pipes (the port keeps TF32 off).  The long
+// ones are two-level: a product's or a solve update's terms 16 at a time
+// into a partial, added to the total (the factorizations': a panel's 32),
+// so the rounding grows with about n / 16 + 16 terms, not n.  At n = 384
+// an f32 product summed term by term carries dx about 6e-5 of its largest
+// entry from f64, about 1.5e-5 in 16-term blocks (an emulation on the
+// CPU; the unfused chain's own gap is about 6e-5).
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -81,449 +84,941 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;              // CTAs of a cluster, one cluster a system
-constexpr int NT = 256;            // threads per CTA
-constexpr int GT = CL * NT;        // threads of a cluster
-constexpr int NB = 8;              // panel / block width
-constexpr int PCH = 1024;          // panel rows staged in shared memory at once
-constexpr int TM = 64, TK = 16;    // product tile: TM x TM outputs, TK deep
+constexpr int CL = 8;              // CTAs of a factorization's cluster
+constexpr int FT = 256;            // threads of a factorization CTA
+constexpr int PW = 32;             // panel width (a warp's lanes)
+constexpr int PLD = PW + 4;        // row stride of a panel copy
+constexpr int GW = 8;              // columns of a trailing-update task
+constexpr int SR = 8;              // rows of a solve CTA
+constexpr int ST = 128;            // threads of a solve CTA
+constexpr int SCH = 256;           // depth of one staged chunk of Ls
+constexpr int SLD = PW + 4;        // row stride of a staged chunk
+constexpr int TM = 32;             // product tile: TM x TM outputs
+constexpr int TK = 16;             // depth of a staged slice
 constexpr int TLD = TM + 4;        // row stride of a staged slice
+constexpr int PT = 128;            // threads of a product CTA
+constexpr int PNS = 8;             // slices in a ring: a product's stages
+constexpr int JNS = 5;             // ... and the Joseph form's (dynamic)
 constexpr float INFO_RIDGE = 1e-8f;
 constexpr int NX = 24;             // error-state rows before the clone block
-constexpr int NMAX = 92;           // the narrow kernel's largest n
+constexpr int SMEM_MAX = 232448;   // shared memory a CTA may opt into
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
+__host__ __device__ __forceinline__ int round32(int x) {
+  return (x + 31) & ~31;
+}
 
-// The workspace of one system, in floats; every matrix row-major.
+__host__ __device__ __forceinline__ size_t up4(size_t x) {
+  return (x + 3) & ~static_cast<size_t>(3);
+}
+
+// The workspace of one system, in floats; every matrix row-major, every
+// region 16-byte aligned.  m = round32(n): both factors are padded to m
+// with an identity block.
 struct Layout {
-  int D, m;         // m = round8(n), the padded order of both factors
-  size_t ca;        // (m + 1) x m: C + ridge (identity padding), then b^T
-  size_t sa;        // (m + D) x m: S + sig2 I (identity padding), then P Hn^T
-  size_t e;         // D x D: I - K Hn
-  size_t y;         // D x D: (I - K Hn) P
-  size_t x;         // D x D: X
+  int n, D, m;
+  size_t lc;        // (m + 1) x m: Lc, then rn^T as row m
+  size_t s;         // m x m: S (its n x n block)
+  size_t ls;        // m x m: Ls
+  size_t pht;       // D x m: P Hn^T (n columns)
+  size_t k;         // D x m: K (zero past column n)
+  size_t ec;        // D x m: E[:, 24:] (n columns)
+  size_t y;         // D x D: E P
+  size_t pan;       // (m + 1) x PLD: the panel, where the rows spill
+  size_t wt;        // ceil(D / SR) SR x m: the solves' rows, where they
+                    // spill (past n of about 2600)
+  size_t flags;     // C factored, S factored (ints)
   size_t total;
-  __host__ __device__ explicit Layout(int n)
-      : D(NX + n), m(round8(n)) {
-    const size_t DD = static_cast<size_t>(D) * D;
-    ca = 0;
-    sa = ca + static_cast<size_t>(m + 1) * m;
-    e = sa + static_cast<size_t>(m + D) * m;
-    y = e + DD;
-    x = y + DD;
-    total = (x + DD + 7) & ~static_cast<size_t>(7);
+  __host__ __device__ explicit Layout(int n_)
+      : n(n_), D(NX + n_), m(round32(n_)) {
+    const size_t mm = static_cast<size_t>(m) * m;
+    const size_t Dm = static_cast<size_t>(D) * m;
+    lc = 0;
+    s = up4(lc + mm + m);
+    ls = up4(s + mm);
+    pht = up4(ls + mm);
+    k = up4(pht + Dm);
+    ec = up4(k + Dm);
+    y = up4(ec + Dm);
+    pan = up4(y + static_cast<size_t>(D) * D);
+    wt = up4(pan + static_cast<size_t>(m + 1) * PLD);
+    flags = up4(wt + static_cast<size_t>((D + SR - 1) / SR) * SR * m);
+    total = up4(flags + 4);
   }
 };
 
-// The workspace is read and written at L2 (the point where the cluster's
-// SMs meet), never through an SM's L1.
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float4 ldcg4(const float* p) {
-  return __ldcg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ void stcg(float* p, float v) { __stcg(p, v); }
-__device__ __forceinline__ void stcg4(float* p, float4 v) {
-  __stcg(reinterpret_cast<float4*>(p), v);
+// --- the factorizations: one cluster a system ---------------------------------
+
+// Floats of shared memory a factorization CTA takes where its rows stay in
+// shared memory (rows: m + 1 for C's, with b^T; m for S's): its rows
+// (every CL-th, row stride m + 4), its copy of the panel (CL regions of
+// ceil(rows / CL) rows of PW, one a CTA), the panel's mbarrier, the
+// diagonal block, its reciprocal pivots, the reduction slots and the flag.
+__host__ __device__ __forceinline__ int factor_floats(int m, int rows,
+                                                      bool spill) {
+  const int fixed = 4 + PW * (PW + 1) + PW + FT / 32 + 4;
+  if (spill) return fixed;
+  const int cap = (rows + CL - 1) / CL;
+  return cap * (m + 4) + CL * cap * PW + fixed;
 }
 
-__device__ __forceinline__ int cluster_thread() {
-  return static_cast<int>(cg::this_cluster().block_rank()) * NT +
-         threadIdx.x;
+// The panel rows that CTA q solves at panel start s: its rows i >= s.
+__device__ __forceinline__ int panel_rows(int q, int s, int rows) {
+  return rows > s + q ? (rows - s - q + CL - 1) / CL : 0;
 }
 
-// The lower 8 x 8 block of A at (p, p) (row stride ld) factored in
-// registers: a[r][c] for c <= r, rs[j] = 1 / L[j][j] by rsqrtf; false where
-// a pivot is <= 0 or not finite.
-__device__ __forceinline__ bool factor_block(const float* A, int lda, int p,
-                                             float (&a)[NB][NB],
-                                             float (&rs)[NB]) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r)
-#pragma unroll
-    for (int c = 0; c <= r; ++c) a[r][c] = ldcg(&A[(size_t)(p + r) * lda + p + c]);
+// A bulk copy (the tensor memory accelerator) of `bytes` from this CTA's
+// shared memory into CTA `rank`'s at the same offset, reporting them to
+// that CTA's mbarrier `bar`.
+__device__ __forceinline__ void bulk_push(const float* src, int bytes,
+                                          int rank, uint64_t* bar) {
+  const uint32_t s = rvio::smem_addr(src);
+  uint32_t a, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(s), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(b) : "r"(rvio::smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(a), "r"(s), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
+               ::"r"(rvio::smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_parity(uint64_t* bar,
+                                                 uint32_t parity) {
+  asm volatile("{\n\t.reg .pred p;\n\tWAIT:\n\t"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+               "@!p bra WAIT;\n\t}" ::"r"(rvio::smem_addr(bar)), "r"(parity)
+               : "memory");
+}
+
+__host__ __device__ __forceinline__ bool factor_spills(int m) {
+  return 4 * factor_floats(m, m + 1, false) > SMEM_MAX;
+}
+
+template <bool G>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (G) return __ldcg(reinterpret_cast<const float4*>(p));
+  else return *reinterpret_cast<const float4*>(p);
+}
+
+template <bool G>
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  if constexpr (G) __stcg(reinterpret_cast<float4*>(p), v);
+  else *reinterpret_cast<float4*>(p) = v;
+}
+
+// The 32 x 32 diagonal block, row `lane` in a[0 .. 31] of each lane (the
+// entries c <= lane are read), factored across the warp in registers:
+// afterwards a[c] = L[lane][c] for c <= lane, and rs[j] = 1 / L[j][j] (by
+// rsqrtf, the TPU kernel's pivots) for the row solves.  Returns whether
+// every pivot was > 0 and finite, alike in every lane.
+__device__ __forceinline__ bool factor_diag(float (&a)[PW], float* rs) {
+  const int lane = threadIdx.x & 31;
   bool good = true;
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const float d = a[j][j];
+  for (int j = 0; j < PW; ++j) {
+    const float d = __shfl_sync(FULL, a[j], j);
     good = good && d > 0.f && d < INFINITY;
-    rs[j] = rsqrtf(d);
-    a[j][j] = d * rs[j];
+    const float r = rsqrtf(d);
+    if (lane == j) rs[j] = r;
+    a[j] = lane == j ? d * r : a[j] * r;
 #pragma unroll
-    for (int r = j + 1; r < NB; ++r) a[r][j] *= rs[j];
-#pragma unroll
-    for (int r = j + 1; r < NB; ++r)
-#pragma unroll
-      for (int c = j + 1; c <= r; ++c) a[r][c] -= a[r][j] * a[c][j];
+    for (int c = j + 1; c < PW; ++c) {
+      const float lcj = __shfl_sync(FULL, a[j], c);
+      if (lane >= c) a[c] -= a[j] * lcj;
+    }
   }
   return good;
 }
 
-// In place: the lower Cholesky factor of A's leading mc x mc block (row
-// stride mc, a multiple of NB; the callers pad with an identity block) and
-// the forward solve of its rows mc .. rows - 1, which become A[i, :mc]
-// L^-T.  The upper triangle of the square ends zero.  Returns false, in
-// every thread alike, where a pivot is <= 0 or not finite, after a cluster
-// barrier (so the caller may overwrite A).  `pan`: PCH x NB floats of
-// shared memory.
-__device__ bool factor_rows(float* A, int mc, int rows, float* pan) {
+// Where the working rows are: in shared memory (row i in CTA i mod CL at
+// local index i / CL, row stride m + 4) or, spilled, in the output matrix
+// itself (row i at out + i m, read through L2).
+template <bool SPILL>
+struct Rows {
+  float* base;
+  int ld;
+  __device__ __forceinline__ float* row(int i) const {
+    return SPILL ? base + static_cast<size_t>(i) * ld
+                 : base + static_cast<size_t>(i / CL) * ld;
+  }
+};
+
+// The lower Cholesky factor of the working matrix (m x m, the rows past m
+// solved along: row m of C's is b^T, which ends as rn^T), in panels of PW
+// columns.  Returns false, alike in every CTA, where a pivot is <= 0 or
+// not finite, after a cluster barrier (so the caller may reload).  In
+// shared memory each CTA writes its solved panel rows into its region of
+// its panel copy and sends the region to the other CTAs by bulk copies,
+// which count their bytes on the receivers' mbarrier `bar` (phase parity
+// `ph`); spilled, the rows go to one panel in the workspace and a cluster
+// barrier follows.
+template <bool SPILL>
+__device__ bool factor_panels(const Rows<SPILL>& R, float* pan, int m,
+                              int rows, float* Ld, float* rs, int* flag,
+                              uint64_t* bar, uint32_t& ph) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int gt = cluster_thread(), tid = threadIdx.x;
-  for (int p = 0; p < mc; p += NB) {
-    float a[NB][NB], rs[NB];
-    if (!factor_block(A, mc, p, a, rs)) {
+  const int r = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cap = (rows + CL - 1) / CL;        // rows of a panel region
+  for (int p = 0; p < m; p += PW) {
+    // (a) the previous trailing update (or the load) is done everywhere
+    cluster.sync();
+    // phase: factor barrier a
+    // (b) the diagonal block, from its rows' owners, factored alike by
+    // warp 0 of every CTA
+    if (warp == 0) {
+      const int i = p + lane;
+      const float* src;
+      if constexpr (SPILL) src = R.row(i) + p;
+      else src = cluster.map_shared_rank(R.base, i % CL) +
+                 static_cast<size_t>(i / CL) * R.ld + p;
+      float a[PW];
+#pragma unroll
+      for (int c = 0; c < PW; c += 4) {
+        const float4 v = ld4<SPILL>(src + c);
+        a[c] = v.x; a[c + 1] = v.y; a[c + 2] = v.z; a[c + 3] = v.w;
+      }
+      const bool good = factor_diag(a, rs);
+#pragma unroll
+      for (int c = 0; c < PW; ++c) Ld[lane * (PW + 1) + c] = c <= lane ? a[c] : 0.f;
+      if (lane == 0) *flag = good;
+    }
+    __syncthreads();
+    // phase: factor diagonal block
+    if (!*flag) {
       cluster.sync();
       return false;
     }
-    // the panel's rows below the block, a row a thread
-    for (int i = p + NB + gt; i < rows; i += GT) {
-      float* row = A + (size_t)i * mc + p;
-      const float4 x0 = ldcg4(row), x1 = ldcg4(row + 4);
-      float x[NB] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    // (c) the own rows below the block, a row a thread: x L^T = a, then
+    // into this CTA's region of the panel (or the one spilled panel)
+    const int s = p + PW;
+    if (!SPILL && tid == 0) {        // the bytes the other CTAs will send
+      uint32_t bytes = 0;
+      for (int q = 0; q < CL; ++q)
+        if (q != r) bytes += 4u * PW * panel_rows(q, s, rows);
+      mbar_arrive_expect(bar, bytes);
+    }
+    for (int i = s + r + CL * tid; i < rows; i += CL * FT) {
+      float* row = R.row(i) + p;
+      float x[PW];
 #pragma unroll
-      for (int c = 0; c < NB; ++c) {
+      for (int c = 0; c < PW; c += 4) {
+        const float4 v = ld4<SPILL>(row + c);
+        x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
+      }
 #pragma unroll
-        for (int q = 0; q < c; ++q) x[c] -= x[q] * a[c][q];
+      for (int c = 0; c < PW; ++c) {
         x[c] *= rs[c];
+#pragma unroll
+        for (int q = c + 1; q < PW; ++q) x[q] -= x[c] * Ld[q * (PW + 1) + c];
       }
-      stcg4(row, make_float4(x[0], x[1], x[2], x[3]));
-      stcg4(row + 4, make_float4(x[4], x[5], x[6], x[7]));
-    }
-    // the block's rows right of it: the upper triangle, no longer read
-    const int right = mc - p - NB;
-    for (int idx = gt; idx < NB * right; idx += GT)
-      stcg(&A[(size_t)(p + idx / right) * mc + p + NB + idx % right], 0.f);
-    cluster.sync();
-    // the factored block, from the registers of the first NB threads
-    if (gt < NB) {
 #pragma unroll
-      for (int r = 0; r < NB; ++r)
-        if (r == gt)
+      for (int c = 0; c < PW; c += 4)
+        st4<SPILL>(row + c, make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]));
+      float* dst = SPILL ? pan + static_cast<size_t>(i) * PLD
+                         : pan + static_cast<size_t>(r * cap + (i - s) / CL) * PW;
 #pragma unroll
-          for (int c = 0; c < NB; ++c)
-            stcg(&A[(size_t)(p + r) * mc + p + c], c <= r ? a[r][c] : 0.f);
+      for (int c = 0; c < PW; c += 4)
+        st4<SPILL>(dst + c, make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]));
     }
-    // trailing update: rows i >= s, columns s .. min(i + 1, mc), by groups
-    // of NB columns; the panel's rows of each chunk of column groups are
-    // staged in shared memory
-    const int s = p + NB;
-    for (int k0 = s; k0 < mc; k0 += PCH) {
-      const int k1 = min(k0 + PCH, mc);
-      __syncthreads();                           // pan is free
-      for (int idx = tid; idx < (k1 - k0) * 2; idx += NT)
-        *reinterpret_cast<float4*>(&pan[idx * 4]) =
-            ldcg4(&A[(size_t)(k0 + idx / 2) * mc + p + 4 * (idx % 2)]);
+    // phase: factor panel rows
+    // (d) the panel whole in every CTA: the own region to the others by
+    // bulk copies (their writers' stores fenced for the async proxy), the
+    // others' regions awaited (or, spilled, a cluster barrier); then the
+    // block's owners store its factored rows (read by nobody until the end)
+    if constexpr (SPILL) {
+      cluster.sync();
+    } else {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
-      const int groups = (k1 - k0) / NB, r0 = k0, nr = rows - r0;
-      for (int idx = gt; idx < groups * nr; idx += GT) {
-        const int gq = idx / nr, i = r0 + idx % nr, kg = k0 + NB * gq;
-        if (i < mc && kg > i) continue;          // the upper triangle
-        float* row = A + (size_t)i * mc;
-        const float4 l0 = ldcg4(row + p), l1 = ldcg4(row + p + 4);
-        float4 v0 = ldcg4(row + kg), v1 = ldcg4(row + kg + 4);
-        float u[NB];
+      const int cnt = panel_rows(r, s, rows);
+      if (tid == 0 && cnt)
+        for (int q = 0; q < CL; ++q)
+          if (q != r)
+            bulk_push(pan + static_cast<size_t>(r) * cap * PW, 4 * PW * cnt, q,
+                      bar);
+      mbar_wait_parity(bar, ph);
+      ph ^= 1;
+    }
+    // phase: factor barrier d
+    if (warp == 0 && (p + lane) % CL == r) {
+      float* row = R.row(p + lane) + p;
 #pragma unroll
-        for (int c = 0; c < NB; ++c) {
-          const float* q = pan + (kg - k0 + c) * NB;
-          const float4 q0 = *reinterpret_cast<const float4*>(q);
-          const float4 q1 = *reinterpret_cast<const float4*>(q + 4);
-          u[c] = l0.x * q0.x + l0.y * q0.y + l0.z * q0.z + l0.w * q0.w +
-                 l1.x * q1.x + l1.y * q1.y + l1.z * q1.z + l1.w * q1.w;
+      for (int c = 0; c < PW; c += 4)
+        st4<SPILL>(row + c, make_float4(Ld[lane * (PW + 1) + c],
+                                        Ld[lane * (PW + 1) + c + 1],
+                                        Ld[lane * (PW + 1) + c + 2],
+                                        Ld[lane * (PW + 1) + c + 3]));
+    }
+    // (e) the trailing update of the own rows i >= s, columns s .. i (all
+    // of them in the row past m), GW columns a task: the own row's panel
+    // entries (in registers) and the columns' panel rows (one broadcast
+    // read for the lanes, which hold consecutive own rows), a dot product
+    // each.  In shared memory a thread keeps one row and takes every
+    // (FT / rows)-th of its column groups; spilled, tasks are flat.
+    const int i0 = s + r;           // s is a multiple of CL
+    const int nr = rows > i0 ? (rows - i0 + CL - 1) / CL : 0;
+    auto update = [&](float* row, const float (&li)[PW], int k0) {
+      float u[GW];
+#pragma unroll
+      for (int q = 0; q < GW; ++q) {
+        // row k0 + q (k0 - s a multiple of CL: region q)
+        const float* pk =
+            SPILL ? pan + static_cast<size_t>(k0 + q) * PLD
+                  : pan + static_cast<size_t>(q * cap + (k0 - s) / CL) * PW;
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < PW; c += 4) {
+          const float4 v = ld4<SPILL>(pk + c);
+          acc += li[c] * v.x + li[c + 1] * v.y + li[c + 2] * v.z +
+                 li[c + 3] * v.w;
         }
-        v0.x -= u[0]; v0.y -= u[1]; v0.z -= u[2]; v0.w -= u[3];
-        v1.x -= u[4]; v1.y -= u[5]; v1.z -= u[6]; v1.w -= u[7];
-        stcg4(row + kg, v0);
-        stcg4(row + kg + 4, v1);
+        u[q] = acc;
+      }
+      float4 v0 = ld4<SPILL>(row + k0), v1 = ld4<SPILL>(row + k0 + 4);
+      v0.x -= u[0]; v0.y -= u[1]; v0.z -= u[2]; v0.w -= u[3];
+      v1.x -= u[4]; v1.y -= u[5]; v1.z -= u[6]; v1.w -= u[7];
+      st4<SPILL>(row + k0, v0);
+      st4<SPILL>(row + k0 + 4, v1);
+    };
+    auto own_row = [&](float* row, float (&li)[PW]) {
+#pragma unroll
+      for (int c = 0; c < PW; c += 4) {
+        const float4 v = ld4<SPILL>(row + p + c);
+        li[c] = v.x; li[c + 1] = v.y; li[c + 2] = v.z; li[c + 3] = v.w;
+      }
+    };
+    if constexpr (!SPILL) {          // here nr <= ceil(513 / CL) < FT
+      const int tpr = nr ? FT / nr : 0;
+      if (tid < nr * tpr) {
+        const int j = tid % nr, i = i0 + CL * j;
+        float* row = R.row(i);
+        float li[PW];
+        own_row(row, li);
+        const int ng = i < m ? (i - s) / GW + 1 : (m - s) / GW;
+        for (int g = tid / nr; g < ng; g += tpr) update(row, li, s + GW * g);
+      }
+    } else {
+      const int ng = (m - s) / GW;
+      for (int t = tid; t < nr * ng; t += FT) {
+        const int g = t / nr, i = i0 + CL * (t - g * nr), k0 = s + GW * g;
+        if (i < m && k0 > i) continue;             // the upper triangle
+        float* row = R.row(i);
+        float li[PW];
+        own_row(row, li);
+        update(row, li, k0);
       }
     }
-    cluster.sync();
+    // phase: factor trailing update
   }
+  __syncthreads();
   return true;
 }
 
-// K = W Ls^-1 in place, for W the D x mc rows below Ls (row stride mc) and
-// Ls the mc x mc factor above them: K Ls = W, solved by blocks of NB
-// columns from the last.  Step q: the thread of row d and column block
-// g <= q subtracts block q + 1's part, K[d, blk q+1] Ls[blk q+1, blk g]
-// (Ls's block row q + 1 staged in shared memory), and for g = q then
-// solves block q against Ls's diagonal block; one cluster barrier a step.
-__device__ void back_solve(const float* Ls, float* W, int mc, int D,
-                           float* pan) {
+// One cluster a system: C's factor (is_s = 0: C + ridge with b^T below it,
+// the wider ridge where the first fails; Lc and rn^T into the workspace,
+// `fallback` and flags[0]) or S's (is_s = 1: (S + S^T) / 2 from the
+// workspace; Ls and flags[1]; nothing where C's failed).
+template <bool SPILL>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(FT, 1)
+factor_kernel(const float* __restrict__ C, const float* __restrict__ b,
+              float* __restrict__ ws, bool* __restrict__ fallback, int n,
+              int is_s) {
+  extern __shared__ __align__(16) float sh[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int gt = cluster_thread(), tid = threadIdx.x;
-  const int nb = mc / NB;
-  for (int q = nb - 1; q >= 0; --q) {
-    const bool upd = q + 1 < nb;
-    const int g_lo = upd ? 0 : q;
-    const float* Lq1 = Ls + (size_t)NB * (q + 1) * mc;   // block row q + 1
-    for (int g0 = g_lo; g0 <= q; g0 += PCH / NB) {
-      const int g1 = min(g0 + PCH / NB, q + 1);
-      const int w = NB * (g1 - g0);                     // columns staged
-      if (upd) {
-        __syncthreads();                                 // pan is free
-        for (int idx = tid; idx < NB * w / 4; idx += NT) {
-          const int c = idx / (w / 4), k = 4 * (idx % (w / 4));
-          *reinterpret_cast<float4*>(&pan[c * w + k]) =
-              ldcg4(&Lq1[(size_t)c * mc + NB * g0 + k]);
-        }
-        __syncthreads();
+  const int r = static_cast<int>(cluster.block_rank());
+  const int e = blockIdx.x / CL, tid = threadIdx.x;
+  const Layout lay(n);
+  const int m = lay.m, rows = is_s ? m : m + 1;
+  float* W = ws + static_cast<size_t>(e) * lay.total;
+  int* flags = reinterpret_cast<int*>(W + lay.flags);
+  float* out = W + (is_s ? lay.ls : lay.lc);
+  if (is_s && !flags[0]) {             // alike in every CTA: no peer access
+    if (r == 0 && tid == 0) flags[1] = 0;
+    return;
+  }
+  const int nown = (rows + CL - 1) / CL;
+  Rows<SPILL> R;
+  float* pan;
+  float* small;
+  if constexpr (SPILL) {
+    R = {out, m};
+    pan = W + lay.pan;
+    small = sh;
+  } else {
+    R = {sh, m + 4};
+    pan = sh + static_cast<size_t>(nown) * (m + 4);
+    small = pan + static_cast<size_t>(CL) * nown * PW;
+  }
+  uint64_t* bar = reinterpret_cast<uint64_t*>(small);   // the panel's
+  float* Ld = small + 4;               // PW x (PW + 1)
+  float* rs = Ld + PW * (PW + 1);      // PW
+  float* red = rs + PW;                // FT / 32
+  int* flag = reinterpret_cast<int*>(red + FT / 32);
+  if (!SPILL && tid == 0) {            // before the first cluster barrier
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 ::"r"(rvio::smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const float* Ce = C + static_cast<size_t>(e) * n * n;
+  const float* be = b + static_cast<size_t>(e) * n;
+  const float* Se = W + lay.s;
+
+  float scale = 0.f;
+  if (!is_s) {                         // every CTA takes the trace alike
+    float tr[1] = {0.f};
+    for (int i = tid; i < n; i += FT) tr[0] += Ce[static_cast<size_t>(i) * n + i];
+    rvio::block_sums<1, FT>(tr, red);
+    scale = fmaxf(tr[0], 1.f);
+  }
+  // the own rows: C + ridge (b^T as row m) or S, padded to m with an
+  // identity block (C's upper triangle zero: it is never read; S's whole
+  // rows, for the symmetrization below).  LU entries a thread in flight.
+  constexpr int LU = 8;
+  const int own = rows > r ? (rows - r + CL - 1) / CL : 0;
+  auto value = [&](int i, int k, float ridge) {
+    if (i >= n) return i < m ? (i == k ? 1.f : 0.f) : (k < n ? be[k] : 0.f);
+    if (k >= n) return 0.f;
+    if (is_s) {
+      if (SPILL && k < i)              // the spilled rows: symmetrized here
+        return 0.5f * (Se[static_cast<size_t>(i) * m + k] +
+                       Se[static_cast<size_t>(k) * m + i]);
+      return Se[static_cast<size_t>(i) * m + k];
+    }
+    return k > i ? 0.f
+                 : Ce[static_cast<size_t>(i) * n + k] + (i == k ? ridge : 0.f);
+  };
+  auto load = [&](float ridge) {
+    for (int base = tid; base < own * m; base += FT * LU) {
+      float v[LU];
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        const int idx = base + u * FT, j = idx / m;
+        v[u] = idx < own * m ? value(r + CL * j, idx - j * m, ridge) : 0.f;
       }
-      for (int idx = gt; idx < D * (g1 - g0); idx += GT) {
-        const int g = g0 + idx / D, d = idx % D;
-        float* row = W + (size_t)(mc + d) * mc;
-        const float4 v0 = ldcg4(row + NB * g), v1 = ldcg4(row + NB * g + 4);
-        float v[NB] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-        if (upd) {
-          const float4 k0 = ldcg4(row + NB * (q + 1));
-          const float4 k1 = ldcg4(row + NB * (q + 1) + 4);
-          const float kq[NB] = {k0.x, k0.y, k0.z, k0.w,
-                                k1.x, k1.y, k1.z, k1.w};
 #pragma unroll
-          for (int c = 0; c < NB; ++c) {
-            const float* lr = pan + c * w + NB * (g - g0);
-#pragma unroll
-            for (int a = 0; a < NB; ++a) v[a] -= kq[c] * lr[a];
-          }
+      for (int u = 0; u < LU; ++u) {
+        const int idx = base + u * FT, j = idx / m;
+        if (idx < own * m) {
+          float* p = R.row(r + CL * j) + idx - j * m;
+          if constexpr (SPILL) __stcg(p, v[u]);
+          else *p = v[u];
         }
-        if (g == q) {
-          // K[d, j] = (v_j - sum_{i > j} K[d, i] Ls[i][j]) / Ls[j][j]
-          const float* Lb = Ls + (size_t)NB * q * mc + NB * q;
-          float lb[NB][NB];
-#pragma unroll
-          for (int r = 0; r < NB; ++r)
-#pragma unroll
-            for (int c = 0; c <= r; ++c) lb[r][c] = ldcg(&Lb[(size_t)r * mc + c]);
-#pragma unroll
-          for (int j = NB - 1; j >= 0; --j) {
-#pragma unroll
-            for (int i = j + 1; i < NB; ++i) v[j] -= v[i] * lb[i][j];
-            v[j] /= lb[j][j];
-          }
-        }
-        stcg4(row + NB * g, make_float4(v[0], v[1], v[2], v[3]));
-        stcg4(row + NB * g + 4, make_float4(v[4], v[5], v[6], v[7]));
       }
     }
+  };
+
+  load(is_s ? 0.f : INFO_RIDGE * scale);
+  if (!SPILL && is_s) {
+    // (S + S^T) / 2 on the own rows' lower triangle: S[k][i] (k < i) from
+    // row k's owner, whose upper triangle nobody writes
     cluster.sync();
+    const int cnt = own * n;
+    constexpr int RU = 2 * LU;
+    for (int base = tid; base < cnt; base += FT * RU) {
+      float v[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int idx = base + u * FT, j = idx / n, k = idx - j * n;
+        const int i = r + CL * j;
+        v[u] = idx < cnt && i < n && k < i
+                   ? cluster.map_shared_rank(R.base, k % CL)[
+                         static_cast<size_t>(k / CL) * R.ld + i]
+                   : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int idx = base + u * FT, j = idx / n, k = idx - j * n;
+        const int i = r + CL * j;
+        if (idx < cnt && i < n && k < i) {
+          float* p = R.row(i) + k;
+          *p = 0.5f * (*p + v[u]);
+        }
+      }
+    }
+  }
+  // phase: factor load
+  uint32_t ph = 0;
+  bool ok = factor_panels<SPILL>(R, pan, m, rows, Ld, rs, flag, bar, ph);
+  if (!is_s) {
+    const bool fb = !ok;
+    if (!ok) {
+      load(static_cast<float>(n) * FLT_EPSILON * scale);
+      ok = factor_panels<SPILL>(R, pan, m, rows, Ld, rs, flag, bar, ph);
+    }
+    if (r == 0 && tid == 0) {
+      fallback[e] = fb;
+      flags[0] = ok;
+    }
+  } else if (r == 0 && tid == 0) {
+    flags[1] = ok;
+  }
+  if (!ok) return;
+  // the factor out, dense with zeros above the diagonal (row m: rn^T)
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = r + CL * warp; i < rows; i += CL * (FT / 32)) {
+    const float* row = R.row(i);
+    float* dst = out + static_cast<size_t>(i) * m;
+    for (int k = lane; k < m; k += 32) {
+      if constexpr (SPILL) {
+        if (k > i) __stcg(dst + k, 0.f);
+      } else {
+        dst[k] = k <= i ? row[k] : 0.f;
+      }
+    }
+  }
+  // phase: factor store
+}
+
+// --- the solves: W = P Hn^T Ls^-T, K = W Ls^-1, dx = K rn ---------------------
+
+// One staged piece of Ls (a unit): of the forward solve's block q, rows
+// j0 .. j0 + 31 and columns [c0, c1), stored transposed (Lb[l - c0][j] =
+// Ls[j0 + j][l]); of the backward solve's block q, rows [c0, c1) and
+// columns j0 .. j0 + 31 (Lb[l - c0][j] = Ls[l][j0 + j]).  A block's pieces
+// are SCH deep, aligned to SCH from column 0 (forward) or from j0
+// (backward), and ordered so that the one holding the diagonal block
+// comes last: its update part first, then the block's substitution.
+struct Unit {
+  bool fwd, last;
+  int q, c0, c1;
+};
+
+__device__ Unit unit_at(int u, int m) {
+  const int nb = m / PW;
+  for (int q = 0; q < nb; ++q) {
+    const int j0 = q * PW, k = (j0 + PW + SCH - 1) / SCH;
+    if (u < k) return {true, u == k - 1, q, u * SCH, min((u + 1) * SCH, j0 + PW)};
+    u -= k;
+  }
+  for (int q = nb - 1; q >= 0; --q) {
+    const int j0 = q * PW, k = (m - j0 + SCH - 1) / SCH;
+    if (u < k) {
+      const int c = k - 1 - u;                  // from the deepest piece
+      return {false, c == 0, q, j0 + c * SCH, min(j0 + (c + 1) * SCH, m)};
+    }
+    u -= k;
+  }
+  return {false, false, -1, 0, 0};
+}
+
+__host__ __device__ __forceinline__ int solve_units(int m) {
+  int u = 0;
+  for (int j0 = 0; j0 < m; j0 += PW)
+    u += (j0 + PW + SCH - 1) / SCH + (m - j0 + SCH - 1) / SCH;
+  return u;
+}
+
+// A CTA takes SR of the D rows of one system; its rows live transposed in
+// shared memory (Wt[l * SR + r] is row r's column l).  Both solves go by
+// blocks of PW columns: each block's update from the finished columns, a
+// row and 2 columns a thread, then its substitution against the
+// diagonal block, 8 lanes a row.  Ls streams through shared
+// memory in units (`Unit`) by cp.async, the next unit in flight while the
+// current one is used.
+__global__ void __launch_bounds__(ST)
+solve_kernel(float* __restrict__ ws, float* __restrict__ dx, int n,
+             int wt_global) {
+  extern __shared__ __align__(16) float sh[];
+  const Layout lay(n);
+  const int m = lay.m, D = lay.D;
+  const int e = blockIdx.y, d0 = blockIdx.x * SR, tid = threadIdx.x;
+  float* W = ws + static_cast<size_t>(e) * lay.total;
+  const int* flags = reinterpret_cast<const int*>(W + lay.flags);
+  const float* Ls = W + lay.ls;
+  const float* PHt = W + lay.pht;
+  float* K = W + lay.k;
+  float* dxe = dx + static_cast<size_t>(e) * D;
+  if (!flags[0] || !flags[1]) {
+    if (tid < SR && d0 + tid < D) dxe[d0 + tid] = __int_as_float(0x7fc00000);
+    return;
+  }
+  // m x SR: in shared memory, or past its room in this CTA's own slice
+  // of the workspace (no other CTA touches it)
+  float* Wt = wt_global ? W + lay.wt + static_cast<size_t>(d0) * m : sh;
+  float* Lb[2] = {wt_global ? sh : sh + static_cast<size_t>(m) * SR, nullptr};
+  Lb[1] = Lb[0] + SCH * SLD;
+  const int lane = tid & 31, warp = tid >> 5;
+  auto fetch = [&](int u, float* T) {
+    const Unit t = unit_at(u, m);
+    const int w = t.c1 - t.c0, j0 = t.q * PW;
+    if (t.fwd) {
+      for (int j = warp; j < PW; j += ST / 32)
+        for (int l = lane; l < w; l += 32)
+          __pipeline_memcpy_async(&T[l * SLD + j],
+                                  &Ls[static_cast<size_t>(j0 + j) * m + t.c0 + l],
+                                  sizeof(float));
+    } else {                         // whole rows of 32: 16 bytes a copy
+      for (int idx = tid; idx < 8 * w; idx += ST) {
+        const int l = idx >> 3, q = 4 * (idx & 7);
+        __pipeline_memcpy_async(&T[l * SLD + q],
+                                &Ls[static_cast<size_t>(t.c0 + l) * m + j0 + q],
+                                4 * sizeof(float));
+      }
+    }
+    __pipeline_commit();
+  };
+  const int U = solve_units(m);
+  fetch(0, Lb[0]);
+  for (int idx = tid; idx < SR * m; idx += ST) {
+    const int r = idx / m, l = idx - r * m, d = d0 + r;
+    Wt[l * SR + r] = d < D && l < n ? PHt[static_cast<size_t>(d) * m + l] : 0.f;
+  }
+  const int ty = tid / 16, tx = tid % 16;          // row ty, cols 2 tx ..
+  float acc[2] = {};
+  for (int u = 0; u < U; ++u) {
+    if (u + 1 < U) {
+      fetch(u + 1, Lb[(u + 1) & 1]);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    // phase: solve wait
+    const Unit t = unit_at(u, m);
+    const float* T = Lb[u & 1];
+    const int j0 = t.q * PW;
+    // the update part: l in [c0, j0) forward, [j0 + PW, c1) backward
+    const int l0 = t.fwd ? t.c0 : max(t.c0, j0 + PW);
+    const int l1 = t.fwd ? min(t.c1, j0) : t.c1;
+    for (int lb = l0; lb < l1; lb += TK) {        // l0, l1: multiples of 32
+      float part[2] = {};
+#pragma unroll
+      for (int l = lb; l < lb + TK; ++l) {
+        const float a = Wt[l * SR + ty];
+        const float2 b = *reinterpret_cast<const float2*>(&T[(l - t.c0) * SLD + 2 * tx]);
+        part[0] = fmaf(a, b.x, part[0]);
+        part[1] = fmaf(a, b.y, part[1]);
+      }
+      acc[0] += part[0];
+      acc[1] += part[1];
+    }
+    // phase: solve update
+    if (t.last) {
+      // the block's right-hand sides, then its substitution against the
+      // diagonal block L (L[a][c] = Ls[j0 + a][j0 + c]: Tg[c SLD + a]
+      // forward, where the unit is stored transposed, Tg[a SLD + c]
+      // backward): 8 lanes a row, each holding 4 of its entries; at step j
+      // the entry's lane scales it by 1 / L[j][j] and the row's lanes take
+      // it by a shuffle
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        Wt[(j0 + 2 * tx + y) * SR + ty] -= acc[y];
+        acc[y] = 0.f;
+      }
+      __syncthreads();
+      const float* Tg = t.fwd ? T + (j0 - t.c0) * SLD : T;
+      const int ra = t.fwd ? 1 : SLD, ca = t.fwd ? SLD : 1;   // L[a][c] strides
+      const int rr = (tid >> 3) % SR, h = tid & 7, base = lane & ~7;
+      float v[4], rinv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * h + k;
+        v[k] = Wt[(j0 + i) * SR + rr];
+        rinv[k] = 1.f / Tg[i * ra + i * ca];
+      }
+      if (t.fwd) {
+#pragma unroll
+        for (int j = 0; j < PW; ++j) {
+          if (h == j / 4) v[j % 4] *= rinv[j % 4];
+          const float vj = __shfl_sync(FULL, v[j % 4], base | (j / 4));
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (4 * h + k > j) v[k] -= Tg[(4 * h + k) * ra + j * ca] * vj;
+        }
+      } else {
+#pragma unroll
+        for (int j = PW - 1; j >= 0; --j) {
+          if (h == j / 4) v[j % 4] *= rinv[j % 4];
+          const float vj = __shfl_sync(FULL, v[j % 4], base | (j / 4));
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (4 * h + k < j) v[k] -= Tg[j * ra + (4 * h + k) * ca] * vj;
+        }
+      }
+      if (tid < 8 * SR)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) Wt[(j0 + 4 * h + k) * SR + rr] = v[k];
+    }
+    __syncthreads();                               // T is free, Wt written
+    // phase: solve substitution
+  }
+  // K out (every m column: zero past n), dx = K rn a row a warp
+  for (int idx = tid; idx < SR * m; idx += ST) {
+    const int r = idx / m, l = idx - r * m, d = d0 + r;
+    if (d < D) K[static_cast<size_t>(d) * m + l] = Wt[l * SR + r];
+  }
+  const float* rn = W + lay.lc + static_cast<size_t>(m) * m;
+  for (int r = warp; r < SR; r += ST / 32) {
+    float s = 0.f;
+    for (int l = lane; l < n; l += 32) s = fmaf(Wt[l * SR + r], rn[l], s);
+    s = rvio::warp_sum(s);
+    if (lane == 0 && d0 + r < D) dxe[d0 + r] = s;
+  }
+  // phase: solve store
+}
+
+// --- the products ------------------------------------------------------------
+
+// An operand of a product: element (o, l), o the output row (A) or column
+// (B) and l the depth, at p[o ld + l] or, transposed, at p[l ld + o]; bs
+// floats between systems.
+struct Opnd {
+  const float* p;
+  long long bs;
+  int ld, t;
+};
+
+// out[i][j] = init[i][j] (i < irows) + scale sum_l A(i, l) B(j, l)
+// (+ dval, or sig2 of the system, where i == j + doff), over rows x cols;
+// the depth runs [0, depth), from the tile's first column (lo = 1: B a
+// lower factor read as B(j, l) = L[l][j]) or its first row (lo = 2), to
+// the tile's last column (hi = 1: B(j, l) = L[j][l]).
+struct Prod {
+  Opnd A, B;
+  float* out;
+  long long obs;
+  int ldo, rows, cols, depth, lo, hi;
+  float scale;
+  int doff;
+  float dval;
+  const float* dsig;
+  const float* init;
+  long long ibs;
+  int ild, irows;
+};
+
+// Stage a TM x TK slice of an operand (outputs o0 .., depth l0 .. l1) into
+// T[kk][oo] by cp.async of 4 bytes, consecutive threads on consecutive
+// addresses; zero past the edges.
+template <int NTH>
+__device__ __forceinline__ void stage(float* T, const float* p, int ld, int t,
+                                      int o0, int on, int l0, int l1) {
+  for (int q = threadIdx.x; q < TM * TK; q += NTH) {
+    const int oo = t ? q % TM : q / TK, kk = t ? q / TM : q % TK;
+    const int o = o0 + oo, l = l0 + kk;
+    float* dst = T + kk * TLD + oo;
+    if (o < on && l < l1)
+      __pipeline_memcpy_async(dst, p + (t ? static_cast<size_t>(l) * ld + o
+                                          : static_cast<size_t>(o) * ld + l),
+                              sizeof(float));
+    else
+      *dst = 0.f;
   }
 }
 
-// An operand of a product: element (i, l) at p[i stride + l], or at
-// p[l stride + i] where `t` (transposed); A(i, l) and B(l, j) alike.
-struct Opnd {
-  const float* p;
-  int stride;
-  bool t;
-  __device__ __forceinline__ float at(int i, int l) const {
-    return ldcg(t ? &p[(size_t)l * stride + i] : &p[(size_t)i * stride + l]);
-  }
-};
-
-// One term sc A B of a product, of depth k.
-struct Term {
-  Opnd A, B;
-  float sc;
-  int k;
-};
-
-// One CTA's tile (i0, j0) of out = diag [i == j + doff] + sum of the terms,
-// over rows x cols outputs (out row-major with stride ldo).  `sm`: 2 TK
-// TLD floats.
-__device__ void product_tile(int i0, int j0, int rows, int cols,
-                             const Term* terms, int nterms, float diag,
-                             int doff, float* out, int ldo, float* sm) {
-  float* Ta = sm;              // Ta[kk][ii] = sc A(i0 + ii, l0 + kk)
-  float* Tb = sm + TK * TLD;   // Tb[kk][jj] = B(l0 + kk, j0 + jj)
+// A tile of TM x TM outputs a CTA (blockIdx.z the system); a thread 4
+// rows (4 ty ..) by 2 columns (2 tx ..).  PNS slices in a ring, PNS - 1 of
+// them in flight while one is used.
+__global__ void __launch_bounds__(PT) product_kernel(const Prod q) {
+  __shared__ __align__(16) float As[PNS][TK * TLD];
+  __shared__ __align__(16) float Bs[PNS][TK * TLD];
+  const int e = blockIdx.z, i0 = blockIdx.y * TM, j0 = blockIdx.x * TM;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int t = 0; t < nterms; ++t) {
-    const Term& T = terms[t];
-    for (int l0 = 0; l0 < T.k; l0 += TK) {
-      __syncthreads();                            // the slices are free
-      for (int q = tid; q < TK * TM; q += NT) {
-        // consecutive threads on consecutive addresses of each operand
-        const int ia = T.A.t ? q % TM : q / TK, ka = T.A.t ? q / TM : q % TK;
-        const int i = i0 + ia, l = l0 + ka;
-        Ta[ka * TLD + ia] = i < rows && l < T.k ? T.sc * T.A.at(i, l) : 0.f;
-        const int jb = T.B.t ? q / TK : q % TM, kb = T.B.t ? q % TK : q / TM;
-        const int j = j0 + jb, lb = l0 + kb;
-        Tb[kb * TLD + jb] = j < cols && lb < T.k ? T.B.at(lb, j) : 0.f;
-      }
-      __syncthreads();
+  const float* A = q.A.p + e * q.A.bs;
+  const float* B = q.B.p + e * q.B.bs;
+  const int l_lo = q.lo == 1 ? j0 : (q.lo == 2 ? i0 : 0);
+  const int l_hi = q.hi == 1 ? min(q.depth, j0 + TM) : q.depth;
+  const int nst = l_hi > l_lo ? (l_hi - l_lo + TK - 1) / TK : 0;
+  auto load = [&](int st) {
+    if (st < nst) {
+      const int l0 = l_lo + st * TK;
+      stage<PT>(As[st % PNS], A, q.A.ld, q.A.t, i0, q.rows, l0, l_hi);
+      stage<PT>(Bs[st % PNS], B, q.B.ld, q.B.t, j0, q.cols, l0, l_hi);
+    }
+    __pipeline_commit();
+  };
+  float acc[4][2] = {};
+  for (int st = 0; st < PNS - 1; ++st) load(st);
+  for (int t = 0; t < nst; ++t) {
+    __pipeline_wait_prior(PNS - 2);
+    __syncthreads();                 // slice t landed; slice t - 1 is free
+    load(t + PNS - 1);
+    const int buf = t % PNS;
+    float part[4][2] = {};
 #pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&Ta[kk * TLD + 4 * ty]);
-        const float4 b = *reinterpret_cast<const float4*>(&Tb[kk * TLD + 4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < TK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[buf][kk * TLD + 4 * ty]);
+      const float2 bb = *reinterpret_cast<const float2*>(&Bs[buf][kk * TLD + 2 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-#pragma unroll
-          for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
+      for (int x = 0; x < 4; ++x) {
+        part[x][0] = fmaf(av[x], bb.x, part[x][0]);
+        part[x][1] = fmaf(av[x], bb.y, part[x][1]);
       }
     }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      acc[x][0] += part[x][0];
+      acc[x][1] += part[x][1];
+    }
   }
+  const float dv = q.dsig ? q.dsig[e] : q.dval;
+  float* out = q.out + e * q.obs;
+  const float* init = q.init ? q.init + e * q.ibs : nullptr;
 #pragma unroll
   for (int x = 0; x < 4; ++x)
 #pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int i = i0 + 4 * ty + x, j = j0 + 4 * tx + y;
-      if (i < rows && j < cols)
-        stcg(&out[(size_t)i * ldo + j], (i == j + doff ? diag : 0.f) + acc[x][y]);
+    for (int y = 0; y < 2; ++y) {
+      const int i = i0 + 4 * ty + x, j = j0 + 2 * tx + y;
+      if (i < q.rows && j < q.cols) {
+        float v = (init && i < q.irows ? init[static_cast<size_t>(i) * q.ild + j]
+                                       : 0.f) + q.scale * acc[x][y];
+        if (i == j + q.doff) v += dv;
+        out[static_cast<size_t>(i) * q.ldo + j] = v;
+      }
     }
 }
 
-// Every tile of a product over the cluster's CTAs, a tile a CTA in turn.
-__device__ void product(int rows, int cols, const Term* terms, int nterms,
-                        float diag, int doff, float* out, int ldo,
-                        float* sm) {
-  const int r = static_cast<int>(cg::this_cluster().block_rank());
-  const int tr = (rows + TM - 1) / TM, tc = (cols + TM - 1) / TM;
-  for (int tile = r; tile < tr * tc; tile += CL)
-    product_tile(TM * (tile / tc), TM * (tile % tc), rows, cols, terms,
-                 nterms, diag, doff, out, ldo, sm);
-}
-
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
-ekf_tail_wide_kernel(const float* __restrict__ C, const float* __restrict__ b,
-                     const float* __restrict__ P,
-                     const float* __restrict__ sig2, float* __restrict__ dx,
-                     float* __restrict__ Pn, bool* __restrict__ fallback,
-                     float* ws, int n) {
-  __shared__ __align__(16) float sh[PCH * NB];      // 32 KB
-  __shared__ float red[NT / 32];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int e = blockIdx.x / CL, tid = threadIdx.x, gt = cluster_thread();
+// X = (E P) E^T + sig2 K K^T and P_new = (X + X^T) / 2 (blockIdx.y the
+// system).  The CTA of the tile pair (I, J), I <= J, forms for i in I and
+// k in J: X[i][k] = [k < 24] Y[i][k] + Y[i][24:] . Ec[k] + sig2 K[i] . K[k]
+// and X[k][i] = [i < 24] Y[k][i] + Ec[i] . Y[k][24:] + sig2 K[i] . K[k]
+// (the same products in the same order as tile (J, I) would take them),
+// and stores P_new[i][k] = P_new[k][i].  NaN where a factorization failed.
+__global__ void __launch_bounds__(PT)
+joseph_kernel(const float* __restrict__ ws, const float* __restrict__ sig2,
+              float* __restrict__ Pn, int n, int T) {
+  extern __shared__ __align__(16) float jsm[];
+  auto Sm = reinterpret_cast<float (*)[6][TK * TLD]>(jsm);
   const Layout lay(n);
-  const int D = lay.D, m = lay.m;
-  const float* Ce = C + (size_t)e * n * n;
-  const float* be = b + (size_t)e * n;
-  const float* Pe = P + (size_t)e * D * D;
-  float* dxe = dx + (size_t)e * D;
-  float* Pne = Pn + (size_t)e * D * D;
-  float* W = ws + (size_t)e * lay.total;
-  float* Ca = W + lay.ca;            // -> Lc, rn^T in row m
-  float* Sa = W + lay.sa;            // -> Ls, then K in rows m ..
-  float* E = W + lay.e;
-  float* Y = W + lay.y;
-  float* X = W + lay.x;
+  const int D = lay.D, m = lay.m, e = blockIdx.y;
+  int I = 0, J = blockIdx.x;
+  while (J >= T - I) {
+    J -= T - I;
+    ++I;
+  }
+  J += I;
+  const int i0 = I * TM, k0 = J * TM;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const float* W = ws + static_cast<size_t>(e) * lay.total;
+  const int* flags = reinterpret_cast<const int*>(W + lay.flags);
+  float* Pe = Pn + static_cast<size_t>(e) * D * D;
+  if (!flags[0] || !flags[1]) {
+    const float nan = __int_as_float(0x7fc00000);
+    for (int idx = tid; idx < TM * TM; idx += PT) {
+      const int i = i0 + idx / TM, k = k0 + idx % TM;
+      if (i < D && k < D) {
+        Pe[static_cast<size_t>(i) * D + k] = nan;
+        Pe[static_cast<size_t>(k) * D + i] = nan;
+      }
+    }
+    return;
+  }
+  const float* Y = W + lay.y;
+  const float* Ec = W + lay.ec;
+  const float* K = W + lay.k;
+  // slices: Y[I, 24:], Ec[I], K[I], Ec[J], Y[J, 24:], K[J]
+  const float* src[6] = {Y + NX, Ec, K, Ec, Y + NX, K};
+  const int lds[6] = {D, m, m, m, D, m};
+  const int o0[3] = {i0, i0, i0};
+  const int nst = (n + TK - 1) / TK;
+  auto load = [&](int st) {
+    if (st < nst)
+#pragma unroll
+      for (int s = 0; s < 6; ++s)
+        stage<PT>(Sm[st % JNS][s], src[s], lds[s], 0, s < 3 ? o0[s] : k0, D,
+                  st * TK, n);
+    __pipeline_commit();
+  };
+  float a1[4][2] = {}, a2[4][2] = {}, a3[4][2] = {};
+  for (int st = 0; st < JNS - 1; ++st) load(st);
+  for (int t = 0; t < nst; ++t) {
+    __pipeline_wait_prior(JNS - 2);
+    __syncthreads();                 // slice t landed; slice t - 1 is free
+    load(t + JNS - 1);
+    const int buf = t % JNS;
+    float p1[4][2] = {}, p2[4][2] = {}, p3[4][2] = {};
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      const float4 ya = *reinterpret_cast<const float4*>(&Sm[buf][0][kk * TLD + 4 * ty]);
+      const float4 ea = *reinterpret_cast<const float4*>(&Sm[buf][1][kk * TLD + 4 * ty]);
+      const float4 ka = *reinterpret_cast<const float4*>(&Sm[buf][2][kk * TLD + 4 * ty]);
+      const float2 eb = *reinterpret_cast<const float2*>(&Sm[buf][3][kk * TLD + 2 * tx]);
+      const float2 yb = *reinterpret_cast<const float2*>(&Sm[buf][4][kk * TLD + 2 * tx]);
+      const float2 kb = *reinterpret_cast<const float2*>(&Sm[buf][5][kk * TLD + 2 * tx]);
+      const float yv[4] = {ya.x, ya.y, ya.z, ya.w};
+      const float ev[4] = {ea.x, ea.y, ea.z, ea.w};
+      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        p1[x][0] = fmaf(yv[x], eb.x, p1[x][0]);
+        p1[x][1] = fmaf(yv[x], eb.y, p1[x][1]);
+        p2[x][0] = fmaf(ev[x], yb.x, p2[x][0]);
+        p2[x][1] = fmaf(ev[x], yb.y, p2[x][1]);
+        p3[x][0] = fmaf(kv[x], kb.x, p3[x][0]);
+        p3[x][1] = fmaf(kv[x], kb.y, p3[x][1]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        a1[x][y] += p1[x][y];
+        a2[x][y] += p2[x][y];
+        a3[x][y] += p3[x][y];
+      }
+  }
   const float s2 = sig2[e];
-  const float nan = __int_as_float(0x7fc00000);
-
-  // every CTA takes the trace alike
-  float tr[1] = {0.f};
-  for (int i = tid; i < n; i += NT) tr[0] += Ce[(size_t)i * n + i];
-  rvio::block_sums<1, NT>(tr, red);
-  const float scale = fmaxf(tr[0], 1.f);
-
-  // C + ridge, padded to m with an identity block, and b^T as row m
-  auto load_c = [&](float ridge) {
-    for (int idx = gt; idx < (m + 1) * m; idx += GT) {
-      const int i = idx / m, k = idx % m;
-      float v;
-      if (i < n)
-        v = k < n ? Ce[(size_t)i * n + k] + (i == k ? ridge : 0.f) : 0.f;
-      else if (i < m)
-        v = i == k ? 1.f : 0.f;
-      else
-        v = k < n ? be[k] : 0.f;
-      stcg(&Ca[idx], v);
+  const float* Ye = Y;
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const int i = i0 + 4 * ty + x, k = k0 + 2 * tx + y;
+      if (i < D && k < D) {
+        const float kk = s2 * a3[x][y];
+        const float xik = ((k < NX ? Ye[static_cast<size_t>(i) * D + k] : 0.f) +
+                           a1[x][y]) + kk;
+        const float xki = ((i < NX ? Ye[static_cast<size_t>(k) * D + i] : 0.f) +
+                           a2[x][y]) + kk;
+        const float v = 0.5f * (xik + xki);
+        Pe[static_cast<size_t>(i) * D + k] = v;
+        if (I != J) Pe[static_cast<size_t>(k) * D + i] = v;
+      }
     }
-  };
-  auto nan_out = [&]() {
-    for (int idx = gt; idx < D * D; idx += GT) Pne[idx] = nan;
-    for (int idx = gt; idx < D; idx += GT) dxe[idx] = nan;
-  };
+}
 
-  load_c(INFO_RIDGE * scale);
-  cluster.sync();
-  bool ok = factor_rows(Ca, m, m + 1, sh);
-  const bool fb = !ok;
-  if (!ok) {
-    load_c(static_cast<float>(n) * FLT_EPSILON * scale);
-    cluster.sync();
-    ok = factor_rows(Ca, m, m + 1, sh);
-  }
-  if (gt == 0) fallback[e] = fb;
-  if (!ok) {
-    nan_out();
-    return;
-  }
-  const float* rn = Ca + (size_t)m * m;   // rn^T, the factor's row m
-
-  // P Hn^T = P[:, 24:] Lc into the D rows below S (columns n .. m zero),
-  // and S's identity padding
-  float* PHt = Sa + (size_t)m * m;
-  {
-    const Term t[1] = {{{Pe + NX, D, false}, {Ca, m, false}, 1.f, n}};
-    product(D, n, t, 1, 0.f, 0, PHt, m, sh);
-    for (int idx = gt; idx < D * (m - n); idx += GT)
-      stcg(&PHt[(size_t)(idx / (m - n)) * m + n + idx % (m - n)], 0.f);
-    for (int idx = gt; idx < (m - n) * m; idx += GT) {
-      const int i = n + idx / m, k = idx % m;
-      stcg(&Sa[(size_t)i * m + k], i == k ? 1.f : 0.f);
+// The dynamic shared memory limits, once per device: the factorization's
+// largest (it may fill a CTA) and the solve's (m SR floats of rows), set
+// to the most a CTA may opt into, so no later call (nor a graph capture)
+// sets them again.  Where setting fails the error is taken off the
+// runtime's last-error state.
+cudaError_t configure() {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  for (const void* f : {reinterpret_cast<const void*>(factor_kernel<false>),
+                        reinterpret_cast<const void*>(factor_kernel<true>),
+                        reinterpret_cast<const void*>(solve_kernel),
+                        reinterpret_cast<const void*>(joseph_kernel)}) {
+    e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
     }
   }
-  cluster.sync();
-  // S = Lc^T (P Hn^T)[24:, :] + sig2 I, then (S + S^T) / 2 on the lower
-  // triangle (the factorization reads nothing else), as the plain version
-  {
-    const Term t[1] = {{{Ca, m, true}, {PHt + (size_t)NX * m, m, false}, 1.f,
-                        n}};
-    product(n, n, t, 1, s2, 0, Sa, m, sh);
-  }
-  cluster.sync();
-  for (int idx = gt; idx < n * n; idx += GT) {
-    const int i = idx / n, k = idx % n;
-    if (k < i)
-      stcg(&Sa[(size_t)i * m + k],
-           0.5f * (ldcg(&Sa[(size_t)i * m + k]) + ldcg(&Sa[(size_t)k * m + i])));
-  }
-  cluster.sync();
-  // Ls, and P Hn^T Ls^-T below it
-  if (!factor_rows(Sa, m, m + D, sh)) {
-    nan_out();
-    return;
-  }
-  float* K = PHt;                    // D x m, row stride m
-  back_solve(Sa, Sa, m, D, sh);
+  done[dev] = true;
+  return cudaSuccess;
+}
 
-  // dx = K rn; E = I - K Hn = I - [0 | K Lc^T], formed before it multiplies
-  // P, as the plain version forms it: its clone columns are small where
-  // the update observes the state, and (I - K Hn) P (I - K Hn)^T then sums
-  // small terms (subtracting K Hn P from P after the product would cancel
-  // large ones)
-  for (int d = gt; d < D; d += GT) {
-    float s = 0.f;
-    for (int l = 0; l < n; ++l)
-      s = fmaf(ldcg(&K[(size_t)d * m + l]), ldcg(&rn[l]), s);
-    dxe[d] = s;
-  }
-  {
-    const Term t[1] = {{{K, m, false}, {Ca, m, true}, -1.f, n}};
-    product(D, n, t, 1, 1.f, NX, E + NX, D, sh);
-    for (int idx = gt; idx < D * NX; idx += GT) {
-      const int i = idx / NX, k = idx % NX;
-      stcg(&E[(size_t)i * D + k], i == k ? 1.f : 0.f);
-    }
-  }
-  cluster.sync();
-  // Y = E P
-  {
-    const Term t[1] = {{{E, D, false}, {Pe, D, false}, 1.f, D}};
-    product(D, D, t, 1, 0.f, 0, Y, D, sh);
-  }
-  cluster.sync();
-  // X = Y E^T + sig2 K K^T
-  {
-    const Term t[2] = {{{Y, D, false}, {E, D, true}, 1.f, D},
-                       {{K, m, false}, {K, m, true}, s2, n}};
-    product(D, D, t, 2, 0.f, 0, X, D, sh);
-  }
-  cluster.sync();
-  // P_new = (X + X^T) / 2
-  for (int idx = gt; idx < D * D; idx += GT) {
-    const int i = idx / D, k = idx % D;
-    Pne[idx] = 0.5f * (ldcg(&X[(size_t)i * D + k]) + ldcg(&X[(size_t)k * D + i]));
-  }
+size_t solve_smem(int m, bool wt_global) {
+  return sizeof(float) *
+         ((wt_global ? 0 : static_cast<size_t>(m) * SR) + 2 * SCH * SLD);
 }
 
 }  // namespace
@@ -531,9 +1026,10 @@ ekf_tail_wide_kernel(const float* __restrict__ C, const float* __restrict__ b,
 extern "C" {
 
 // Floats of workspace a system needs at size n (the wrapper allocates B of
-// them a call).
+// them a call).  The route takes any n >= 1; `ekf_tail` sends it n > NMAX
+// (scripts/ekf_tail_phases.py times it below that too).
 int rvio_ekf_tail_wide_workspace(long long* out, int n, cudaStream_t) {
-  if (n <= NMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   *out = static_cast<long long>(Layout(n).total);
   return 0;
 }
@@ -542,23 +1038,111 @@ int rvio_ekf_tail_wide(const float* C, const float* b, const float* P,
                        const float* sig2, float* dx, float* Pn,
                        bool* fallback, float* ws, int B, int n,
                        cudaStream_t stream) {
-  if (n <= NMAX || !ws) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || !ws) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  ekf_tail_wide_kernel<<<B * CL, NT, 0, stream>>>(C, b, P, sig2, dx, Pn,
-                                                  fallback, ws, n);
-  return static_cast<int>(cudaGetLastError());
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout lay(n);
+  const int m = lay.m, D = lay.D;
+  const long long tot = static_cast<long long>(lay.total);
+  const long long DD = static_cast<long long>(D) * D;
+  const bool spill = factor_spills(m);
+  const size_t fsm = 4 * static_cast<size_t>(factor_floats(m, m + 1, spill));
+  const bool wt_global = solve_smem(m, false) > SMEM_MAX;
+#define RVIO_CHECK()                                     \
+  do {                                                   \
+    err = cudaGetLastError();                            \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+  auto factor = [&](int is_s) {
+    if (spill)
+      factor_kernel<true><<<B * CL, FT, fsm, stream>>>(C, b, ws, fallback, n,
+                                                       is_s);
+    else
+      factor_kernel<false><<<B * CL, FT, fsm, stream>>>(C, b, ws, fallback, n,
+                                                        is_s);
+  };
+  auto product = [&](const Prod& q) {
+    const dim3 grid((q.cols + TM - 1) / TM, (q.rows + TM - 1) / TM, B);
+    product_kernel<<<grid, PT, 0, stream>>>(q);
+  };
+  float* Lc = ws + lay.lc;
+  float* PHt = ws + lay.pht;
+  Prod base = {};
+  base.scale = 1.f;
+  base.doff = 1 << 30;
+
+  // 1. Lc and rn (C's cluster)
+  factor(0);
+  RVIO_CHECK();
+  // 2. P Hn^T[d][j] = sum_{l >= j} P[d][24 + l] Lc[l][j]
+  Prod q = base;
+  q.A = {P + NX, DD, D, 0};
+  q.B = {Lc, tot, m, 1};
+  q.out = PHt; q.obs = tot; q.ldo = m;
+  q.rows = D; q.cols = n; q.depth = n; q.lo = 1;
+  product(q);
+  RVIO_CHECK();
+  // 3. S[i][k] = sum_{l >= i} Lc[l][i] P Hn^T[24 + l][k] + sig2 [i == k]
+  q = base;
+  q.A = {Lc, tot, m, 1};
+  q.B = {PHt + static_cast<size_t>(NX) * m, tot, m, 1};
+  q.out = ws + lay.s; q.obs = tot; q.ldo = m;
+  q.rows = n; q.cols = n; q.depth = n; q.lo = 2;
+  q.doff = 0; q.dsig = sig2;
+  product(q);
+  RVIO_CHECK();
+  // 4. Ls (S's cluster)
+  factor(1);
+  RVIO_CHECK();
+  // 5. K and dx
+  solve_kernel<<<dim3((D + SR - 1) / SR, B), ST, solve_smem(m, wt_global),
+                 stream>>>(ws, dx, n, wt_global);
+  RVIO_CHECK();
+  // 6. Ec[d][j] = [d == 24 + j] - sum_{l <= j} K[d][l] Lc[j][l]
+  q = base;
+  q.A = {ws + lay.k, tot, m, 0};
+  q.B = {Lc, tot, m, 0};
+  q.out = ws + lay.ec; q.obs = tot; q.ldo = m;
+  q.rows = D; q.cols = n; q.depth = n; q.hi = 1;
+  q.scale = -1.f; q.doff = NX; q.dval = 1.f;
+  product(q);
+  RVIO_CHECK();
+  // 7. Y[i][k] = [i < 24] P[i][k] + sum_l Ec[i][l] P[24 + l][k]
+  q = base;
+  q.A = {ws + lay.ec, tot, m, 0};
+  q.B = {P + static_cast<size_t>(NX) * D, DD, D, 1};
+  q.out = ws + lay.y; q.obs = tot; q.ldo = D;
+  q.rows = D; q.cols = D; q.depth = n;
+  q.init = P; q.ibs = DD; q.ild = D; q.irows = NX;
+  product(q);
+  RVIO_CHECK();
+  // 8. X and P_new
+  const int T = (D + TM - 1) / TM;
+  joseph_kernel<<<dim3(T * (T + 1) / 2, B), PT,
+                  sizeof(float) * JNS * 6 * TK * TLD, stream>>>(ws, sig2, Pn,
+                                                                 n, T);
+  RVIO_CHECK();
+#undef RVIO_CHECK
+  return 0;
 }
 
-// How many of the wide kernel's clusters can be resident on the current
-// device at once (cudaOccupancyMaxActiveClusters).  Launches nothing.
+// How many of the factorization's clusters can be resident on the current
+// device at once (cudaOccupancyMaxActiveClusters, at its shared memory for
+// n).  Launches nothing.
 int rvio_ekf_tail_wide_max_clusters(int* out, int B, int n, cudaStream_t) {
-  if (n <= NMAX || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int m = round32(n);
+  const bool spill = factor_spills(m);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * CL);
-  config.blockDim = dim3(NT);
-  config.dynamicSmemBytes = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveClusters(out, ekf_tail_wide_kernel, &config);
+  config.blockDim = dim3(FT);
+  config.dynamicSmemBytes = 4 * static_cast<size_t>(factor_floats(m, m + 1, spill));
+  e = spill ? cudaOccupancyMaxActiveClusters(out, factor_kernel<true>, &config)
+            : cudaOccupancyMaxActiveClusters(out, factor_kernel<false>, &config);
   if (e != cudaSuccess) cudaGetLastError();
   return static_cast<int>(e);
 }

@@ -23,7 +23,8 @@
 //   window: column l % win, KT consecutive rows (KT = 8 at win 15, two
 //   strips a column; from win 17 to 31 one strip a column, win taps a lane,
 //   two warps a block, whose samples spill to local memory: correct, not
-//   fast), so where no tap clips the strip's KT + 1 pixel rows
+//   fast; past 31 the instance KT = 0 below), so where no tap clips the
+//   strip's KT + 1 pixel rows
 //   are read once; it keeps its template and gradient samples in registers,
 //   and the search pixels too, which a trip reads again only when the
 //   window's integer position moved.  Every sum is a __shfl_xor_sync
@@ -65,15 +66,16 @@
 namespace {
 
 constexpr int WPB_MAX = 4;         // warps (features) a block, at most
-constexpr int WIN_MAX = 31;        // the widest window: a column a lane
+constexpr int WIN_MAX = 31;        // the widest strip window (a column a lane)
 constexpr int SMEM_MAX = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Taps a lane: ceil(win / (32 / win)), one of 1, 2, 3, 4, 6, 7 or 8 up to
 // win 16; from win 17 on a lane takes a whole column of the window, and
 // the instances KT = 24 and 31 serve (the taps past the window at zero
-// weight).
+// weight); past WIN_MAX, 0: the instance without trips.
 __host__ __device__ __forceinline__ int taps_a_lane(int win) {
+  if (win > WIN_MAX) return 0;
   const int strips = 32 / win, kt = (win + strips - 1) / strips;
   return kt <= 8 ? kt : (kt <= 24 ? 24 : 31);
 }
@@ -83,7 +85,8 @@ __host__ __device__ __forceinline__ int taps_a_lane(int win) {
 // cover every window up to 16).
 __host__ __device__ __forceinline__ int box_floats(int win) {
   return win <= 16 ? 292
-                   : ((win + 1) * (taps_a_lane(win) + 1) + 3) & ~3;
+         : win > WIN_MAX ? 0
+                         : ((win + 1) * (taps_a_lane(win) + 1) + 3) & ~3;
 }
 
 // bytes of one warp's slice: the mbarrier (16, keeping what follows 16-byte
@@ -94,6 +97,32 @@ __host__ __device__ __forceinline__ int warp_bytes(int tt, int win) {
 
 __device__ __forceinline__ int reflect(int k, int n) {
   return k < 0 ? -k : (k >= n ? 2 * n - 2 - k : k);
+}
+
+// Scharr / 32 of the tile T (TH x TW, reflect-padded) at pixel (i, j), in
+// the order of the strip instances' box and of klt._tile_scharr.
+__device__ __forceinline__ void scharr_at(const float* T, int TH, int TW,
+                                          int i, int j, float& gx,
+                                          float& gy) {
+  const float ca = 3.f / 32.f, cb = 10.f / 32.f;
+  const int jl = reflect(j - 1, TW), jr = reflect(j + 1, TW);
+  const float* U = T + reflect(i - 1, TH) * TW;
+  const float* M = T + i * TW;
+  const float* D = T + reflect(i + 1, TH) * TW;
+  const float s0 = ca * U[jl] + cb * M[jl] + ca * D[jl];
+  const float s2 = ca * U[jr] + cb * M[jr] + ca * D[jr];
+  gx = s2 - s0;
+  gy = ca * (D[jl] - U[jl]) + cb * (D[j] - U[j]) + ca * (D[jr] - U[jr]);
+}
+
+// The bilinear sample at fractions (wy, wx) of the 2 x 2 pixels from (y, x)
+// of T (row stride ld), as Strip::blend and _sample_patches take it.
+__device__ __forceinline__ float blend_at(const float* T, int ld, int y,
+                                          int x, float wy, float wx) {
+  const float* p = T + y * ld + x;
+  const float r0 = p[0] * (1.f - wy) + p[ld] * wy;
+  const float r1 = p[1] * (1.f - wy) + p[ld + 1] * wy;
+  return r0 * (1.f - wx) + r1 * wx;
 }
 
 // This lane's strip of KT window taps (window column b, rows a0 ..
@@ -456,13 +485,128 @@ void launch(dim3 grid, int wpb, const float* t_tiles, const float* n_tiles,
       last, H, W);
 }
 
+// Windows past WIN_MAX (the instance KT = 0).  The tile is TILE = 32 wide,
+// so the wander bound the tracker passes, (TILE - win) / 2 - 1, is
+// negative there (the entry refuses such a window with a bound >= 0), and
+// the plain version's first trip kills every live feature before its step:
+// the guess stays g_init, every status is false once a trip runs (with
+// max_iters < 1, the level's test and at the last level the in-bounds
+// test), and at the last level err is the mean |sample - template| over
+// the window at g_init.  This instance writes exactly those outputs: a warp
+// a feature, both tiles by plain loads into its slice of shared memory,
+// the window's win^2 taps strided over the lanes (the template, its Scharr
+// gradients at each tap's four pixels for the level's test, the search
+// samples), each sum a warp butterfly.  No trip runs, so no T: the finish
+// and its ticket are not needed and the counter stays at 0.
+template <>
+__global__ void __launch_bounds__(32 * WPB_MAX)
+lk_level_kernel<0>(const float* __restrict__ t_tiles,
+                   const float* __restrict__ n_tiles,
+                   const float* __restrict__ loc0,
+                   const float* __restrict__ g_init,
+                   const int* __restrict__ o1,
+                   const bool* __restrict__ status,
+                   float* __restrict__ g_out, float* __restrict__ err_out,
+                   int* __restrict__, bool* __restrict__ status_out,
+                   unsigned* __restrict__, int N, int TH, int TW, int win,
+                   int max_iters, float, float min_eig, float, int last,
+                   int H, int W) {
+  {
+    const size_t sg = blockIdx.y;
+    const size_t tt = (size_t)TH * TW;
+    t_tiles += sg * N * tt;
+    n_tiles += sg * N * tt;
+    loc0 += 2 * sg * N;
+    g_init += 2 * sg * N;
+    o1 += 2 * sg * N;
+    status += sg * N;
+    g_out += 2 * sg * N;
+    err_out += sg * N;
+    status_out += sg * N;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int TT = TH * TW;
+  float* Tt = reinterpret_cast<float*>(smem + warp * warp_bytes(TT, win) + 16);
+  float* Ts = Tt + TT;
+  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (n >= N) return;
+  for (int i = lane; i < TT; i += 32) {
+    Tt[i] = t_tiles[(size_t)n * TT + i];
+    Ts[i] = n_tiles[(size_t)n * TT + i];
+  }
+  __syncwarp();
+  const float l0x = loc0[2 * n], l0y = loc0[2 * n + 1];
+  const float gix = g_init[2 * n], giy = g_init[2 * n + 1];
+  const float ox = (float)o1[2 * n], oy = (float)o1[2 * n + 1];
+  const int r = win / 2, area = win * win;
+  const float fy = floorf(l0y), fx = floorf(l0x);
+  const float wy0 = l0y - fy, wx0 = l0x - fx;
+  const int iy0 = (int)fy - r, jx0 = (int)fx - r;
+  // the search window at g_init, clamped to the tile as the plain version
+  // clamps it
+  const float ly = fminf(fmaxf(giy - oy, 0.f), (float)(TH - 1));
+  const float lx = fminf(fmaxf(gix - ox, 0.f), (float)(TW - 1));
+  const float sy = floorf(ly), sx = floorf(lx);
+  const float wy1 = ly - sy, wx1 = lx - sx;
+  const int iy1 = (int)sy - r, jx1 = (int)sx - r;
+  float gxx = 0.f, gxy = 0.f, gyy = 0.f, e = 0.f;
+  for (int t = lane; t < area; t += 32) {
+    const int a = t / win, c = t - a * win;
+    const int y = min(max(iy0 + a, 0), TH - 2);
+    const int x = min(max(jx0 + c, 0), TW - 2);
+    float gx[4], gy[4];
+    scharr_at(Tt, TH, TW, y, x, gx[0], gy[0]);
+    scharr_at(Tt, TH, TW, y, x + 1, gx[1], gy[1]);
+    scharr_at(Tt, TH, TW, y + 1, x, gx[2], gy[2]);
+    scharr_at(Tt, TH, TW, y + 1, x + 1, gx[3], gy[3]);
+    const float r0x = gx[0] * (1.f - wy0) + gx[2] * wy0;
+    const float r1x = gx[1] * (1.f - wy0) + gx[3] * wy0;
+    const float r0y = gy[0] * (1.f - wy0) + gy[2] * wy0;
+    const float r1y = gy[1] * (1.f - wy0) + gy[3] * wy0;
+    const float sgx = r0x * (1.f - wx0) + r1x * wx0;
+    const float sgy = r0y * (1.f - wx0) + r1y * wx0;
+    gxx += sgx * sgx;
+    gxy += sgx * sgy;
+    gyy += sgy * sgy;
+    if (last) {
+      const float tm = blend_at(Tt, TW, y, x, wy0, wx0);
+      const int ys = min(max(iy1 + a, 0), TH - 2);
+      const int xs = min(max(jx1 + c, 0), TW - 2);
+      e += fabsf(blend_at(Ts, TW, ys, xs, wy1, wx1) - tm);
+    }
+  }
+  gxx = rvio::warp_sum(gxx);
+  gxy = rvio::warp_sum(gxy);
+  gyy = rvio::warp_sum(gyy);
+  e = rvio::warp_sum(e);
+  const float det = gxx * gyy - gxy * gxy;
+  const float tr = gxx + gyy;
+  const float meig =
+      (tr - sqrtf(fmaxf(tr * tr - 4.f * det, 0.f))) / (2.f * area);
+  const bool ok_level = (meig > min_eig) && (det > 1e-12f);
+  bool alive = status[n] && ok_level && max_iters < 1;
+  if (last) {
+    const float lo = (float)(r + 1);
+    alive = alive && gix > lo && gix < (float)(W - r - 2) && giy > lo &&
+            giy < (float)(H - r - 2);
+  }
+  if (lane == 0) {
+    g_out[2 * n] = gix;
+    g_out[2 * n + 1] = giy;
+    err_out[n] = last ? e / (float)area : 0.f;
+    status_out[n] = alive;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // The wrapper checks what it can name (shapes, types, 16-byte aligned tiles
-// with TH * TW % 4 == 0, win <= 31, B within its ticket pool); this refuses
-// the rest.  `ticket` points at B counters, one a segment.
+// with TH * TW % 4 == 0, a wander bound < 0 past win 31, B within its
+// ticket pool); this refuses the rest.  `ticket` points at B counters, one
+// a segment.
 int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
                         const float* loc0, const float* g_init, const int* o1,
                         const bool* status, float* g_out, bool* status_out,
@@ -470,7 +614,8 @@ int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
                         int N, int TH, int TW, int win, int max_iters,
                         float eps, float min_eig, float wander, int last,
                         int H, int W, cudaStream_t stream) {
-  if (win < 1 || win > WIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (win < 1 || (win > WIN_MAX && !(wander < 0.f)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int wb = warp_bytes(TH * TW, win);
   if (TH < 2 || TW < 2 || (TH * TW) % 4 || wb > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -484,6 +629,7 @@ int rvio_lk_level_batch(const float* t_tiles, const float* n_tiles,
       scratch, status_out, ticket, N, TH, TW, win, max_iters, eps, min_eig, \
       wander, last, H, W, stream
   switch (kt) {
+    case 0: launch<0>(RVIO_LK_ARGS); break;
     case 1: launch<1>(RVIO_LK_ARGS); break;
     case 2: launch<2>(RVIO_LK_ARGS); break;
     case 3: launch<3>(RVIO_LK_ARGS); break;

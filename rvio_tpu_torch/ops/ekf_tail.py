@@ -30,17 +30,21 @@ call moves about 85 KB and needs about 8 MFLOP (ops/checks.ekf_tail_flops),
 by multicast bulk copies, both factorizations run blocked (8-column
 panels) and redundantly in every CTA, and the columns of the gain, the
 solves and the rows of the Joseph form are split over the CTAs, which
-exchange S, K^T and G^T through distributed shared memory.  That holds
+exchange S, K^T and E^T through distributed shared memory.  That holds
 n <= NMAX = 92 (windows of up to 15 clones) in a CTA's shared memory; a
-larger n takes the wide route (csrc/ekf_tail_wide.cu), still a cluster of
-8 CTAs a system, with its intermediates in a device workspace this
-wrapper allocates a call, the rn solve and the gain's forward solve riding
-on the two factorizations as extra rows, blocked panels of 8 columns and
-products tiled through shared memory.  Both give the plain version's
-function to rounding: their sums run in other orders, and the narrow
-kernel factors S's lower triangle without symmetrizing S first and
-subtracts K Hn P from P after the product (the wide route keeps the
-chain's order: S symmetrized, I - K Hn formed first).
+larger n takes the wide route (csrc/ekf_tail_wide.cu): eight launches in
+stream order with their intermediates in a device workspace this wrapper
+allocates a call.  The two factorizations (C's with b^T riding below it
+as one more row, which gives rn) run in a cluster of 8 CTAs a system with
+the working matrix in distributed shared memory and panels of 32
+columns; the two triangular solves of the gain are grids of row blocks
+over the card, dx = K rn with them; the products (P Hn^T, S, I - K Hn,
+(I - K Hn) P, and the Joseph form with its symmetrized store) are grids
+of 32 x 32 tiles over the card.  Both routes take the chain's order of
+operations (S symmetrized before its factorization, I - K Hn formed
+before it multiplies P, X = ((I - K Hn) P) (I - K Hn)^T + sig2 K K^T) and
+give the plain version's function to rounding: their sums run in other
+orders.
 """
 
 from __future__ import annotations
@@ -208,10 +212,14 @@ ekf_tail.launches = 0
 
 
 def wide_workspace_floats(n: int) -> int:
-    """Floats of device workspace a system needs in the wide route
-    (n > NMAX), from csrc/ekf_tail_wide.cu's ``Layout`` (C and S padded to
-    a multiple of 8 with b^T below C and P Hn^T below S, then I - K Hn,
-    (I - K Hn) P and X: about 3.8 MB at n = 384).  Launches nothing."""
+    """Floats of device workspace a system needs in the wide route (which
+    ``ekf_tail`` takes past NMAX; the route takes any n >= 1), from
+    csrc/ekf_tail_wide.cu's ``Layout`` (Lc with rn^T
+    below it, S and Ls, each padded to a multiple of 32; P Hn^T, K and
+    I - K Hn's live columns; (I - K Hn) P; the panel where the
+    factorization spills, past n = 512, the solves' rows where they spill,
+    past about n = 2600, and two flags: about 5 MB at n = 384).  Launches
+    nothing."""
     if n not in _wide_ws:
         fn = _lib.function(_WIDE_LIB, "rvio_ekf_tail_wide_workspace",
                            [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int])

@@ -52,7 +52,10 @@ box only, a lane keeps a strip of eight window taps (a column of the
 window from 17 x 17 to 31 x 31, the widest a 32-wide tile leaves room
 for) and the search pixels under it in registers and every sum is a
 warp shuffle, so a Gauss-Newton step never waits on a block barrier or
-touches device memory;
+touches device memory; past 31 x 31, where the tracker's wander bound is
+negative and the first trip kills every feature, an instance without
+trips writes the plain version's outputs (the guesses unmoved, every
+status false, the last level's error at the guess);
 the block that finishes last applies the T rule in the same launch
 (csrc/lk_level.cu).  K9 gives a corner two warps: the
 tile by one bulk copy, each warp a band of the window's rows with its
@@ -83,7 +86,9 @@ _TICKET_SEGMENTS = 256
 _tickets: dict = {}
 _SP_LIB = "subpix_refine"
 _SP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-_LK_MAX_WIN = 31    # K8: a column of the window a lane from win 17 on
+# K8: a column of the window a lane from win 17 to 31; past it the
+# instance without trips (the wander bound is negative there)
+_LK_MAX_WIN = 31
 _SP_MAX_TAPS = 256  # K9: win <= 7
 
 
@@ -238,9 +243,10 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     on its own features (its own T).
 
     A CUDA tensor runs the kernel (f32 tiles and points, int32 origins;
-    tiles of a multiple of 4 pixels starting on 16-byte boundaries, a
-    window of at most 31 x 31, at most 256 segments; one launch for the
-    B segments); a CPU tensor the plain version."""
+    tiles of a multiple of 4 pixels starting on 16-byte boundaries, any
+    window, past 31 x 31 with a negative ``wander`` as the tracker's is
+    there, at most 256 segments; one launch for the B segments); a CPU
+    tensor the plain version."""
     kw = dict(win=win, max_iters=max_iters, eps=eps, min_eig=min_eig,
               wander=wander, last=last, hw=hw)
     if not _lib.uses_kernel(t_tiles, "lk_level"):
@@ -260,9 +266,11 @@ def lk_level(t_tiles: torch.Tensor, n_tiles: torch.Tensor,
     if B > _TICKET_SEGMENTS:
         raise ValueError(f"lk_level: {B} segments exceed the "
                          f"{_TICKET_SEGMENTS} finish tickets of a stream")
-    if not 1 <= win <= _LK_MAX_WIN:
-        raise ValueError(f"lk_level: the kernel takes 1 <= win <= "
-                         f"{_LK_MAX_WIN}, got a {win}x{win} window")
+    if win < 1 or (win > _LK_MAX_WIN and not wander < 0):
+        raise ValueError(f"lk_level: the kernel takes a window past "
+                         f"{_LK_MAX_WIN} x {_LK_MAX_WIN} only with a negative "
+                         f"wander bound (the tracker's there), got a "
+                         f"{win}x{win} window and wander {wander}")
     if TH < 2 or TW < 2 or (TH * TW) % 4:
         raise ValueError(f"lk_level: a {TH}x{TW} tile is not one bulk copy "
                          f"(at least 2 x 2, a multiple of 4 pixels)")

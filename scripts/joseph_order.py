@@ -12,10 +12,11 @@ P_new against the chain's order in f64 (ops/checks.py ``joseph_p_new``),
 scaled entry by entry by sqrt(P_ii P_jj) (``scaled_cov_err``):
 
 - ``chain_f32``: the chain's order emulated in f32 on the CPU (I - K Hn
-  formed first, S symmetrized; what ``cholesky_tail`` and the wide route
-  take, and the TPU kernel);
-- ``narrow_f32``: the narrow kernel's order emulated in f32 on the CPU
-  (A P = P - G P[24:, :], then (A P) - (A P)[:, 24:] G^T);
+  formed first, S symmetrized; what ``cholesky_tail``, both routes of K5
+  and the TPU kernel take);
+- ``narrow_f32``: the narrow kernel's earlier order emulated in f32 on
+  the CPU (A P = P - G P[24:, :], then (A P) - (A P)[:, 24:] G^T; S's
+  lower triangle unsymmetrized);
 - ``kernel``: ``ekf_tail`` on ``--device`` (default: the card where there
   is one), which takes the narrow kernel at n <= 92 and the wide route
   above.

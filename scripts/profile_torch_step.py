@@ -48,13 +48,15 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # profiler names of the port's kernels on the paths (K6 is
-# gather_narrow_kernel, K13 shi_strip_kernel<6, true>)
+# gather_narrow_kernel, K13 shi_strip_kernel<6, true>; K5's wide route is
+# its factor_kernel, solve_kernel, product_kernel and joseph_kernel)
 PORT_KERNELS = ("propagate_block_kernel", "lm_kernel", "jac_project_kernel",
                 "jac_project_wide_kernel", "quadform_kernel",
-                "quadform_wide_kernel", "ekf_tail_kernel",
-                "ekf_tail_wide_kernel", "clahe_luts_kernel",
-                "clahe_apply_kernel", "gather_narrow_kernel",
-                "lk_level_kernel", "subpix_kernel", "shi_strip_kernel")
+                "quadform_wide_kernel", "ekf_tail_kernel", "factor_kernel",
+                "solve_kernel", "product_kernel", "joseph_kernel",
+                "clahe_luts_kernel", "clahe_apply_kernel",
+                "gather_narrow_kernel", "lk_level_kernel", "subpix_kernel",
+                "shi_strip_kernel")
 
 
 def _image_runner(cfg, sim, equalizer: bool):

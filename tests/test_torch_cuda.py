@@ -49,9 +49,11 @@ replays; QR compression in graphed frames (single and B = 4, run in a
 child process) against the same frames run eagerly, windows of 16, 19,
 32 and 64 clones (K5's wide route once a frame; K4 and K3 past their
 narrow instances) against the CPU and a batched wide-window scan whose
-rows are bitwise equal, K5's wide route at n = 93 to 384 (B = 1 and 4,
-the wider ridge, NaN where a factorization fails), K4 past m = 64 and
-K3 past L = 64, K8 at windows of 17 to 31, K6, K8 and K9
+rows are bitwise equal, K5's wide route at n = 93 to 384 (B = 1, 4 and
+16, the wider ridge, NaN where a factorization fails) and where its
+rows spill (n = 516, 600, 2700), both K5 routes near the f64 chain on
+scripts/joseph_order.py's stacks, K4 past m = 64 and K3 past L = 64, K8
+at windows of 17 to 31 and past 31 (every feature lost), K6, K8 and K9
 at the stress config's shapes (800 lanes, the 30 x 47 fifth level), and
 the bench's feature path with ``BENCH_COMPRESSION=qr``.  Whether a
 card is present is decided in the fixture, so every process collects the
@@ -524,7 +526,8 @@ def _tail_against_plain(cuda, cases):
     """K5 on the stacked ``cases`` against the plain version (the limits of
     ops/checks.py's seeded stack: fallback and NaN identical, dx and P_new
     within 2e-5 of their largest entry, n / 92 times that past n = 92
-    (ops/checks.ekf_tail_tol), P_new within 1e-2 scaled by its diagonal)
+    (ops/checks.ekf_tail_tol), P_new within ops/checks.py's
+    EKF_TAIL_SCALED_TOL scaled by its diagonal, n / 92 times it past 92)
     and each entry bitwise its own single launch."""
     from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
                                            EKF_TAIL_FALLBACK_TOL,
@@ -541,7 +544,8 @@ def _tail_against_plain(cuda, cases):
     for e in range(len(cases)):
         wide = bool(ref[2][e])
         tol = ekf_tail_tol(EKF_TAIL_FALLBACK_TOL if wide else 2e-5, n)
-        stol = EKF_TAIL_FALLBACK_SCALED_TOL if wide else EKF_TAIL_SCALED_TOL
+        stol = (EKF_TAIL_FALLBACK_SCALED_TOL if wide
+                else ekf_tail_tol(EKF_TAIL_SCALED_TOL, n))
         for got, want in ((dx[e], ref[0][e]), (P_new[e], ref[1][e])):
             assert torch.equal(torch.isnan(got), torch.isnan(want))
             scale = want.abs().max().clamp_min(torch.finfo(want.dtype).tiny)
@@ -608,6 +612,85 @@ def test_ekf_tail_wide_route(cuda, n, B):
     cases = [_tail_inputs(rng, n, dead=6 * (e % 2)) for e in range(B)]
     fb = _tail_against_plain(cuda, cases)
     assert not bool(fb.any())
+
+
+@pytest.mark.gpu
+def test_ekf_tail_wide_route_sixteen_systems(cuda):
+    """B = 16 systems at n = 192 in one call (the factorizations' clusters
+    of 8 CTAs over the card, the row blocks and tiles of the other
+    launches for every system), dead clones in every other entry."""
+    rng = np.random.default_rng(192 * 16)
+    cases = [_tail_inputs(rng, 192, dead=6 * (e % 2)) for e in range(16)]
+    fb = _tail_against_plain(cuda, cases)
+    assert not bool(fb.any())
+
+
+def _tail_near_f64(cuda, cases, factor=2.0):
+    """K5 on the stacked ``cases`` against its plain version in f64 on the
+    CPU: dx and P_new relative to their largest entry, and P_new scaled by
+    its diagonal, each within ``factor`` times the distance of the plain
+    version in f32 on the card (the unfused chain's own f32 rounding) or
+    within 1e-4 scaled; no wider ridge; one launch."""
+    from rvio_tpu_torch.ops.checks import scaled_cov_err
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    args = [torch.as_tensor(np.stack(x), device=cuda) for x in zip(*cases)]
+    before = ekf_tail.launches
+    got = ekf_tail(*args)
+    torch.cuda.synchronize()
+    assert ekf_tail.launches == before + 1
+    f32 = ekf_tail_plain(*args)
+    ref = ekf_tail_plain(*(a.double().cpu() for a in args))
+    assert not bool(got[2].any()) and not bool(ref[2].any())
+    for e in range(len(cases)):
+        for k in (0, 1):
+            want = ref[k][e]
+            scale = float(want.abs().max())
+
+            def err(x):
+                return float((x[k][e].double().cpu() - want).abs().max()) / scale
+            assert err(got) <= factor * err(f32), (e, k, err(got), err(f32))
+        w = ref[1][e].numpy()
+        sk = scaled_cov_err(got[1][e].double().cpu().numpy(), w)
+        sp = scaled_cov_err(f32[1][e].double().cpu().numpy(), w)
+        assert sk <= max(1e-4, factor * sp), (e, sk, sp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [516, 600, 2700])
+def test_ekf_tail_wide_route_spills(cuda, n):
+    """Past n = 512 the factorizations' rows do not fit the cluster's
+    shared memory and stay in the workspace (csrc/ekf_tail_wide.cu
+    ``factor_spills``), past about n = 2600 the solves' rows too
+    (``wt_global``): as near the f64 function as the unfused chain in f32
+    is (``_tail_near_f64``), two systems (one at 2700)."""
+    rng = np.random.default_rng(n)
+    _tail_near_f64(cuda, [_tail_inputs(rng, n, dead=6 * e)
+                          for e in range(2 if n < 1000 else 1)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [97, 98, 99])
+@pytest.mark.parametrize("n", [84, 96, 192, 384])
+def test_ekf_tail_near_the_f64_chain(cuda, n, seed):
+    """K5 on the seeded stacks of scripts/joseph_order.py (ops/checks.py
+    ``ekf_tail_stack``, 3840 rows) at n = 84 (the narrow kernel) and 96,
+    192, 384 (the wide route): P_new within 1e-4 of the chain's order in
+    f64 (``joseph_p_new``), scaled by P_new's diagonal, where f32 allows
+    it; at 192 and 384 the unfused chain in f32 itself parts from f64 by
+    more than 1e-4 (scripts/joseph_order.py), and the kernel is held to
+    twice the plain version's distance on the card there."""
+    from rvio_tpu_torch.ops.checks import (ekf_tail_stack, joseph_p_new,
+                                           scaled_cov_err)
+    from rvio_tpu_torch.ops.ekf_tail import ekf_tail, ekf_tail_plain
+    C, b, P, sig2 = (torch.as_tensor(np.asarray(x)) for x in ekf_tail_stack(
+        np.random.default_rng(seed), n // 6, 3840))
+    ref = joseph_p_new(*(x.double() for x in (C, b, P, sig2)), True).numpy()
+    args = [x[None].to(cuda) for x in (C, b, P, sig2)]
+    got = scaled_cov_err(ekf_tail(*args)[1][0].double().cpu().numpy(), ref)
+    plain = scaled_cov_err(ekf_tail_plain(*args)[1][0].double().cpu().numpy(),
+                           ref)
+    limit = 1e-4 if n <= 96 else max(1e-4, 2 * plain)
+    assert got <= limit, (got, plain)
 
 
 @pytest.mark.gpu
@@ -936,6 +1019,50 @@ def test_lk_level_wide_windows(cuda, N, win):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("win", [32, 41])
+@pytest.mark.parametrize("N", [1, 33, 200])
+def test_lk_level_past_31(cuda, N, win):
+    """K8 past a 31 x 31 window (its instance without trips): the
+    tracker's wander bound, (32 - win) / 2 - 1, is negative, so the plain
+    version loses every feature on its first trip.  One launch gives the
+    level-entry guesses bitwise, every status false and, at the last
+    level, each feature's error within 1e-3 of the plain version's (off
+    the last level, zero); with no trip (max_iters 0) the statuses of the
+    level's test and the in-bounds test agree as ops/checks.py asks; a
+    bound >= 0 past 31 raises; and a 15 x 15 call after them finds its
+    ticket at 0."""
+    from rvio_tpu_torch.ops.checks import LK_POS_TOL, compare_lk, lk_inputs
+    from rvio_tpu_torch.ops.klt_iterate import lk_level, lk_level_plain
+    img1, img2 = _lk_frame()
+    pts = _lk_points(np.random.default_rng(N + win), N)
+    args, hw = lk_inputs(img1, img2, pts, win)
+    dev_args = tuple(x.to(cuda) for x in args)
+    for last in (True, False):
+        kw = _lk_kwargs(win, last=last, hw=hw)
+        assert kw["wander"] < 0
+        before = lk_level.launches
+        got = lk_level(*dev_args, **kw)
+        torch.cuda.synchronize()
+        assert lk_level.launches == before + 1
+        want = lk_level_plain(*dev_args, **kw)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[0].cpu(), args[3])
+        assert not bool(got[1].any()) and not bool(want[1].any())
+        err = float((got[2] - want[2]).abs().max())
+        assert err <= LK_POS_TOL, err
+        if last:
+            assert float(want[2].abs().max()) > 0
+        else:
+            assert not bool(got[2].any())
+    kw = _lk_kwargs(win, max_iters=0, hw=hw)
+    compare_lk(lk_level(*dev_args, **kw), lk_level_plain(*dev_args, **kw))
+    with pytest.raises(ValueError):
+        lk_level(*dev_args, **dict(kw, wander=0.5))
+    args, hw = lk_inputs(img1, img2, pts, 15)
+    _lk_against_plain(cuda, args, _lk_kwargs(15, hw=hw))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("last", [False, True])
 def test_lk_level_last(cuda, last):
     """The last level's in-bounds test and error on (``hw`` set, points
@@ -1072,12 +1199,10 @@ def test_lk_level_two_streams(cuda):
 
 @pytest.mark.gpu
 def test_lk_level_refuses(cuda):
-    """What K8 does not take raises: a window over 31 x 31, a tile of
-    pixels not a multiple of 4, tiles off a 16-byte boundary."""
+    """What K8 does not take raises: a tile of pixels not a multiple of 4,
+    tiles off a 16-byte boundary."""
     from rvio_tpu_torch.ops.klt_iterate import lk_level
     args, kw = _lk_case_on(cuda)
-    with pytest.raises(ValueError):
-        lk_level(*args, **dict(kw, win=32))
     t, n = (x[:, :39, :31].contiguous() for x in args[:2])
     with pytest.raises(ValueError):
         lk_level(t, n, *args[2:], **kw)

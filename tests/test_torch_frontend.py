@@ -261,6 +261,28 @@ def test_klt_track(shift):
     close(eg, er)
 
 
+def test_klt_track_past_31():
+    """A 33 x 33 window, past what the 32-wide tile leaves room for: the
+    wander bound (32 - 33) / 2 - 1 is negative, so the JAX function loses
+    every feature on its first trip at the coarsest level and returns the
+    level's guesses; the port's plain path (K8's plain version) loses
+    every one as it does, with its positions and errors."""
+    img1, img2 = shifted_pair(13, (3.7, -2.4))
+    rng = np.random.default_rng(15)
+    pts = rng.uniform(1, [319, 239], (60, 2))
+    act = rng.uniform(size=60) < 0.9
+    kw = dict(win=33, max_iters=30, eps=1e-2, min_eig=1e-3)
+    jp = lambda x: jimg.build_pyramid(jnp.asarray(x), 3)    # noqa: E731
+    tp = lambda x: timg.build_pyramid(T(x), 3)              # noqa: E731
+    pr, sr, er = jklt.klt_track(jp(img1), jp(img2), jnp.asarray(pts),
+                                jnp.asarray(act), **kw)
+    pg, sg, eg = tklt.klt_track(tp(img1), tp(img2), T(pts), T(act), **kw)
+    assert not np.asarray(sr).any() and not sg.numpy().any()
+    close(pg, pr)
+    close(eg, er)
+    assert np.abs(np.asarray(er)).max() > 0       # the error is formed
+
+
 def _ransac_scene(rng, n=120, outlier_frac=0.2):
     from scipy.spatial.transform import Rotation
     pts3 = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),

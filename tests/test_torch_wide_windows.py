@@ -23,9 +23,11 @@ CPU runs and what the card's kernels are held against:
   tests/test_ops.py at n = 192 and 384 (1e-10); in f32 on a case that
   takes the wider ridge, against that tail in f64 with the wider ridge,
   within ops/checks.py's wider-ridge limits;
-- the order of the Joseph form the wide route takes (the chain's: I - K Hn
-  formed first) against the narrow kernel's (K Hn P subtracted after the
-  product), each emulated in f32 against f64;
+- the order of the Joseph form both K5 routes take (the chain's: I - K Hn
+  formed first) against the narrow kernel's earlier one (K Hn P
+  subtracted after the product), each emulated in f32 against f64, and
+  ops/checks.py's limit on P_new scaled by its diagonal, which admits the
+  first and rejects the second;
 - the f64 feature-level sequence scan at L = 33 against the JAX step;
 - the filter body (runtime/step.py ``_segment_body``, through
   ``make_filter_step``) at L = 17, 33 and 65 sends its tail through
@@ -49,9 +51,10 @@ from rvio_tpu.ops.spd_solve import batched_quadform_pallas
 from rvio_tpu_torch import config as tconfig
 from rvio_tpu_torch.ops.checks import (EKF_TAIL_FALLBACK_SCALED_TOL,
                                        EKF_TAIL_FALLBACK_TOL,
+                                       EKF_TAIL_SCALED_TOL,
                                        ekf_tail_fallback_inputs,
-                                       ekf_tail_stack, joseph_p_new,
-                                       scaled_cov_err)
+                                       ekf_tail_stack, ekf_tail_tol,
+                                       joseph_p_new, scaled_cov_err)
 from rvio_tpu_torch.ops.ekf_tail import (NX, ekf_tail, ekf_tail_plain,
                                          info_cholesky)
 from rvio_tpu_torch.ops.jac_project import jac_project_plain
@@ -195,9 +198,9 @@ def test_ekf_tail_plain_wider_ridge_n192():
 def test_joseph_order_keeps_the_small_entries(M):
     """At n = 84 (the narrow kernel's, RVIOConfig()'s) and n = 96 (the
     wide route's) the chain's order keeps P_new within 1e-4 of its f64
-    value scaled by P_new's diagonal; the narrow kernel's order, which
-    subtracts nearly equal products, parts by more than ten times that in
-    f32 (an open fault of csrc/ekf_tail.cu: ROADMAP.md section 3)."""
+    value scaled by P_new's diagonal; the narrow kernel's earlier order,
+    which subtracts nearly equal products, parts by more than ten times
+    that in f32 (csrc/ekf_tail.cu now takes the chain's order)."""
     C, b, P, sig2 = (torch.as_tensor(np.asarray(x)) for x in ekf_tail_stack(
         np.random.default_rng(97), M, 3840))
     ref = joseph_p_new(*(x.double() for x in (C, b, P, sig2)), True).numpy()
@@ -206,6 +209,29 @@ def test_joseph_order_keeps_the_small_entries(M):
     narrow = scaled_cov_err(
         joseph_p_new(C, b, P, sig2, False).double().numpy(), ref)
     assert chain < 1e-4 < 10 * chain < narrow, (chain, narrow)
+
+
+@pytest.mark.parametrize("seed", [97, 98, 99])
+@pytest.mark.parametrize("M", [14, 16])
+def test_scaled_limit_admits_the_chain_order_only(M, seed):
+    """ops/checks.py's EKF_TAIL_SCALED_TOL, the limit on K5's P_new against
+    its plain version scaled by P_new's diagonal, is at most 1e-4 and
+    admits the chain's order of the Joseph form but not the narrow
+    kernel's earlier order (emulated in f32 by ``joseph_p_new(...,
+    False)``), at n = 84 and 96 on the seeded stacks of
+    scripts/joseph_order.py: against the plain version in f32 (what the
+    kernel checks compare) and against the chain's order in f64."""
+    C, b, P, sig2 = (torch.as_tensor(np.asarray(x)) for x in ekf_tail_stack(
+        np.random.default_rng(seed), M, 3840))
+    plain = ekf_tail_plain(*(x[None] for x in (C, b, P, sig2)))[1][0]
+    ref = joseph_p_new(*(x.double() for x in (C, b, P, sig2)), True)
+    chain = joseph_p_new(C, b, P, sig2, True).double().numpy()
+    narrow = joseph_p_new(C, b, P, sig2, False).double().numpy()
+    limit = ekf_tail_tol(EKF_TAIL_SCALED_TOL, 6 * M)
+    assert EKF_TAIL_SCALED_TOL <= 1e-4 and limit < 1.1e-4
+    for want in (plain.double().numpy(), ref.numpy()):
+        ok, bad = scaled_cov_err(chain, want), scaled_cov_err(narrow, want)
+        assert ok <= limit < bad, (ok, bad)
 
 
 # ---- the filter at wide windows -----------------------------------------------
