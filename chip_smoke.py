@@ -116,14 +116,19 @@ set to 0 just before it and read just after:
   never launched, a QR frame's time against a Cholesky frame's in turns)
   and the graphed batched scan of 4 copies, each against the same frames
   run eagerly; windows of 16, 19, 32 and 64 clones (max_tracking_length
-  17, 20, 33, 65: K5 past its narrow kernel's n = 92, K4 past m = 64 at
-  33 and 65, K3 past L = 64 at 65) through the graphed sequence scan,
-  every filter kernel (K5's wide route included) once a frame, against
-  the CPU over 100 frames (n_good above 4; at 65, where the workload
-  offers fewer usable features, above 0.9 of the CPU run's), and K3-K5
-  on each length's last update against their plain versions (rows
-  ``<kernel>@wide<L>``; K5 also on four updates at once at 33, and on
-  scripts/joseph_order.py's seeded stack at n = 96, row
+  17, 20, 33, 65: K5 past its narrow kernel's n = 92, K4's wide
+  instance at 33 and 65, K3's wide kernel at every length) through the
+  graphed sequence scan, every filter kernel (K5's wide route included)
+  once a frame, against the CPU over 100 frames (n_good above 4; at 65,
+  where the workload offers fewer usable features, above 0.9 of the CPU
+  run's), and K3-K5 on each length's last update against their plain
+  versions (rows ``<kernel>@wide<L>``; before a K3 or K4 row whose other
+  kernel takes the length, a line with that kernel's time on the same
+  inputs; at 33 the K4 seam: seeded systems at m = 64 through both
+  instances beside the m = 66 row's, and the wide instance on dense
+  seeded systems with an indefinite lane at m = 130, 240 (S packed) and
+  340 (S in the workspace); K5 also on four updates at once at
+  33, and on scripts/joseph_order.py's seeded stack at n = 96, row
   ``ekf_tail@stack96``, also against the chain's order in f64); a
   one-seed
   ``run_synthetic_sweep`` (15 s) on the card and on the CPU (the same frames,
@@ -303,7 +308,7 @@ QR_B = 4
 # default, 30 s)
 SWEEP_DURATION_S = 15.0
 # windows past the narrow filter kernels (K5's narrow kernel takes n = 6 x
-# clones <= 92, K4's warps m = 2L <= 64, K3's instances L <= 64): the
+# clones <= 92, K4's warps m = 2L < 64, K3's narrow kernel L <= 16): the
 # graphed sequence scan at these tracker.max_tracking_length over
 # WIDE_FRAMES frames on the card and on the CPU, within the card-vs-CPU
 # limits (the window of 64 clones fills at frame 64), and K3-K5 on each
@@ -314,6 +319,11 @@ WIDE_FRAMES = 100
 WIDE_DURATION_S = 10.0
 WIDE_B = 4
 WIDE_B_LENGTH = 33
+# K4's wide instance on dense seeded systems beside WIDE_B_LENGTH's seam
+# lines: the main path's m = 130 (window 65), 240 (S packed in shared
+# memory on the H100) and 340 (S in the workspace), at F = 100
+QUADFORM_DENSE_ORDERS = (130, 240, 340)
+QUADFORM_DENSE_F = 100
 # the second half's mean n_good must pass WIDE_NGOOD_MIN at every length
 # but those of WIDE_FEW_USABLE, where the workload offers fewer usable
 # features a frame than that (valid, triangulated and within the window: a
@@ -2382,6 +2392,79 @@ def joseph_stack_row(dev, records, clones: int, launches: int) -> None:
         raise AssertionError(f"ekf_tail at n {n}: P_new {err:.3e} from f64")
 
 
+def _k3_routes(L: int):
+    """K3's route at length L (the wrapper's dispatch) and the other one,
+    where it takes L (None past the compiled row bounds)."""
+    from rvio_tpu_torch.ops import jac_project as k3
+    route = k3.kernel_route(L)
+    other = "wide" if route == "narrow" else (
+        "narrow" if L <= k3.ROW_BOUND_MAX_L else None)
+    return route, other
+
+
+def _k4_routes(m: int):
+    """K4's instance at order m (the wrapper's dispatch) and the other one,
+    where it takes m (None past the warp instances)."""
+    from rvio_tpu_torch.ops import spd_solve as k4
+    route = k4.instance(m)
+    other = "wide" if route == "narrow" else (
+        "narrow" if m <= k4.NARROW_M else None)
+    return route, other
+
+
+def other_route(chk, route: str, other: str, label: str) -> dict:
+    """The kernel of a check by the route the dispatch does not take, on
+    the same inputs: checked against the plain version and timed as a
+    CUDA graph of 200 launches; printed on its own line (before the
+    dispatched route's row) and returned as the row's extra keys."""
+    def run():
+        return chk.kernel(*chk.args, **chk.kwargs, route=other)
+
+    err = chk.compare(run(), chk.run_plain())
+    torch.cuda.synchronize()
+    ms = device_ms(run, reps=200)
+    print(f"kernel {chk.name}{label}: the {other} route (not dispatched; "
+          f"the row below is the {route} route) {ms * 1e3:.2f} us/launch on "
+          f"the device, err {err:.3e} (tolerance: {chk.tolerance})",
+          flush=True)
+    return {"route_taken": route, "other_route": other,
+            "other_route_ms": ms, "other_route_err": err}
+
+
+def quadform_seam(dev, inputs) -> None:
+    """K4 at the seam of its dispatch: seeded systems at m = 64 (the last
+    order of the warp instances; as many as ``inputs`` has) through both
+    instances, beside the wide instance on ``inputs`` (the
+    m = 66 row's), each checked against the plain version and timed as a
+    CUDA graph of 200 launches.  Then the wide instance as the dispatch
+    takes it on dense seeded systems (QUADFORM_DENSE_F of them, one
+    indefinite) at QUADFORM_DENSE_ORDERS: the main path's m = 130 (five
+    panels, every one past the first with 4 x 4 trailing tiles; the
+    recorded lanes there have few measurements, so their S is mostly
+    sig2 I), S packed in shared memory, and S in the workspace."""
+    from rvio_tpu_torch.ops.checks import quadform_case, spd_systems
+    S, r = spd_systems(np.random.default_rng(64), len(inputs[1]), 64)
+    cases = [("m = 64, warp instance", quadform_case(dev, S, r), "narrow"),
+             ("m = 64, wide instance", quadform_case(dev, S, r), "wide"),
+             ("m = 66, wide instance", quadform_case(dev, *inputs), "wide")]
+    for m in QUADFORM_DENSE_ORDERS:
+        S, r = spd_systems(np.random.default_rng(m), QUADFORM_DENSE_F, m)
+        bad = QUADFORM_DENSE_F // 2
+        S[bad] -= 2 * np.abs(np.linalg.eigvalsh(S[bad])).max() * np.eye(m)
+        cases.append((f"m = {m}, dense, lane {bad} indefinite, the "
+                      f"dispatch's instance",
+                      quadform_case(dev, S, r, nan_lanes=[bad]), "auto"))
+    for what, chk, route in cases:
+        def run(chk=chk, route=route):
+            return chk.kernel(*chk.args, route=route)
+
+        err = chk.compare(run(), chk.run_plain())
+        torch.cuda.synchronize()
+        us = device_ms(run, reps=200) * 1e3
+        print(f"kernel batched_quadform seam, {what}: {us:.2f} us/launch on "
+              f"the device, err {err:.3e}", flush=True)
+
+
 def wide_window_phase(dev, kernels, records) -> None:
     """Windows past the narrow filter kernels (WIDE_LENGTHS): the graphed
     sequence scan at each length over WIDE_FRAMES frames on the card
@@ -2497,9 +2580,16 @@ def wide_window_phase(dev, kernels, records) -> None:
             (ekf_tail_case(dev, C, b, P, sig2, tol=EKF_TAIL_FRAME_TOL,
                            what=f"window {length}'s last update"),
              f", n {nn}, the last update")]
+        routes = {"jac_project": _k3_routes(length),
+                  "batched_quadform": _k4_routes(2 * length)}
         for chk, label in checks:
+            extra = {}
+            if chk.name in routes and routes[chk.name][1]:
+                extra = other_route(chk, *routes[chk.name], f"{tag}{label}")
             _kernel_row(records, chk, f"{tag}{label}", f"{chk.name}{tag}",
-                        launches[chk.name], window=length)
+                        launches[chk.name], window=length, **extra)
+        if length == WIDE_B_LENGTH:
+            quadform_seam(dev, calls["batched_quadform"][0][:2])
         if nn == 96:
             joseph_stack_row(dev, records, 16, launches["ekf_tail"])
         if length == WIDE_B_LENGTH:

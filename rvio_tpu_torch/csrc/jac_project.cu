@@ -38,11 +38,13 @@
 //
 // The row count is a compile-time bound (LMAX = 16 measurements, 32 rows,
 // for L <= 16; LMAX = 64 for 16 < L <= 64), so the row loops unroll and a
-// column lives in registers (the L <= 64 instance keeps its 128-row column
-// in local memory: kept correct, not fast; RVIOConfig() has L = 15); rows
-// past 2L are zero and change no sum.  Past L = 64,
-// jac_project_wide_kernel does the same work with its rows in loops.  The
-// reflections sum in another order than the plain version: rounding only.
+// column lives in registers; rows past 2L are zero and change no sum.  The
+// LMAX = 64 instance keeps its 128-row column in local memory (kept
+// correct, not fast), and the wrapper's dispatch (ops/jac_project.py
+// `kernel_route`) sends every L past 16 to jac_project_wide_kernel below (compact-WY reflection over a grid of
+// column tiles), which chip_smoke.py times against it at L = 17, 20 and
+// 33; RVIOConfig() has L = 15.  Both sum the reflections in another order
+// than the plain version: rounding only.
 //
 // The depth guard `eps` is the caller's: 1e-6 for this f32 kernel (the
 // TPU kernel's guard; reflector norms square the perspective rows, so
@@ -57,7 +59,7 @@
 
 namespace {
 
-constexpr int NT = 128;          // threads of a block, one block a feature
+constexpr int NT = 128;          // threads of a block
 constexpr int NCT = NT - 32;     // column lanes (warps 1-3)
 
 __device__ __forceinline__ float safe_z(float z, float eps) {
@@ -215,18 +217,42 @@ __device__ __forceinline__ void left_rows(const float* __restrict__ Rcl,
   }
 }
 
-// Any L (the instance for L > 64): the same work as jac_project_kernel,
-// with the rows in loops rather than unrolled.  Dynamic shared memory holds
-// the left factors (2L float4), the residual rows (2L), the reflectors
-// (3 x 2L) and Hf (2L x 3), which warp 0 builds a measurement a lane and
-// reflects in place, one round of warp sums a reflector.  Each column lane
-// then builds its output column straight into its place in Hx (or r) in
-// device memory, the column it stores anyway, and applies Q^T there: for
-// each reflector a dot product over the 2L rows and an axpy, then the rank
-// check and the residual mask.  The lane's own loads and stores of its
-// column need no barrier; neighbouring lanes touch neighbouring addresses.
-// 62 us a launch at L = 65 over 100 features, the column passes through
-// L1 (NVIDIA H100 80GB HBM3, 700 W; scripts/profile_torch_step.py).
+// Q^T c = c - V (T^T (V^T c)): u = T^T w for w = V^T c, T upper triangular
+// by rows in t[0..5] = (t00, t01, t02, t11, t12, t22).
+__device__ __forceinline__ void wy_coefficients(const float* t,
+                                                const float (&w)[3],
+                                                float (&u)[3]) {
+  u[0] = t[0] * w[0];
+  u[1] = fmaf(t[1], w[0], t[3] * w[1]);
+  u[2] = fmaf(t[2], w[0], fmaf(t[4], w[1], t[5] * w[2]));
+}
+
+// Any L past the L <= 16 instance (the wrapper's dispatch): compact-WY
+// reflection, each output entry formed in registers and stored once.  A
+// grid of F x column tiles, WY_PAIRS pairs of output columns a tile and
+// WY_GROUP lanes of warps 1-3 a pair (each a quarter of the rows), so
+// F = 100 features at L = 65 (M = 64) run 800 blocks.  In every block all
+// threads first build Hf (2L x 3), the left factors Hp_l R_cb Rrel_l and
+// (tile 0) the residual rows into shared memory, a measurement a thread;
+// a barrier; then warp 0 forms the three reflectors v_k, beta_k as
+// jac_project_kernel does (one round of warp sums a reflector) and the
+// triangular T of Q = H_0 H_1 H_2 = I - V T V^T from beta_k and V^T V,
+// while warps 1-3 store the zeros that need no reflector (the columns
+// outside the chain, the masked rows past 2 t_eff); a barrier; each lane
+// then forms its pair's entries on the fly (from the left factors by
+// broadcast reads and its subH columns s3) in two passes over its rows:
+// the first sums w = V^T c (the pair's lanes add their parts by
+// shuffles), the second stores c - V T^T w with the rank check applied, a
+// float2 a row, the pair's neighbours on neighbouring addresses.  Tile 0's
+// warp 0 projects r the same way, its rows over the lanes.  A feature with
+// fewer than two measurements stores zeros and nothing else.  11.2 us a
+// launch at L = 65 over 100 features (the design before it, a column lane
+// reflecting its column in place in Hx, took 73.3), 5.7-6.7 at L = 17-33
+// against the L <= 64 instance's 10.8-13.0 (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py).
+constexpr int WY_GROUP = 4;                 // lanes a column pair
+constexpr int WY_PAIRS = NCT / WY_GROUP;    // column pairs a block
+
 __global__ void __launch_bounds__(NT)
 jac_project_wide_kernel(
     const float* __restrict__ z, const float* __restrict__ Rcl,
@@ -239,16 +265,35 @@ jac_project_wide_kernel(
     float* __restrict__ r_out, float* __restrict__ hx_out,
     float* __restrict__ hfn_out, int L, int M, float eps) {
   extern __shared__ __align__(16) float dsh[];
-  __shared__ float scal[4];               // beta_0..2, ||Hf[:, rho]||
-  const int f = blockIdx.x;
+  // beta_0..2, ||Hf[:, rho]||, then T by rows (t00, t01, t02, t11, t12, t22)
+  __shared__ float scal[10];
+  const int f = blockIdx.x, tile = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R2 = 2 * L, XC = 6 * M;
+  const int stride = XC / 2;        // float2 a row of Hx
+  const int teff = static_cast<int>(min(teff_[f], (long long)L));
+  const int rend = 2 * teff;        // rows past it are masked
+  const bool rtile = tile == 0;
+  if (teff < 2) {
+    // step: fewer than two measurements: r, Hx and hfn are 0, stored by
+    // every thread of the block (the tile's pairs a row, float2 each)
+    const int np = min(WY_PAIRS, stride - tile * WY_PAIRS);
+    float2* hx = reinterpret_cast<float2*>(hx_out + (size_t)f * R2 * XC) +
+                 tile * WY_PAIRS;
+    for (int idx = tid; idx < R2 * np; idx += NT)
+      hx[(size_t)(idx / np) * stride + idx % np] = make_float2(0.f, 0.f);
+    if (rtile) {
+      for (int row = tid; row < R2; row += NT)
+        r_out[(size_t)f * R2 + row] = 0.f;
+      if (tid == 0) hfn_out[f] = 0.f;
+    }
+    return;
+  }
   float4* left = reinterpret_cast<float4*>(dsh);   // 2L
   float* res = dsh + 4 * R2;                        // 2L
   float* vsh = res + R2;                            // 3 x 2L
   float* hf = vsh + 3 * R2;                         // 2L x 3
   const float phi = phi_[f], psi = psi_[f], rho = rho_[f];
-  const int teff = static_cast<int>(min(teff_[f], (long long)L));
   const int c0 = static_cast<int>(c0_[f]);
   float Rb[9];
   load(Rbc, Rb);
@@ -256,23 +301,48 @@ jac_project_wide_kernel(
   sincosf(phi, &sp, &cp);
   sincosf(psi, &ss, &cs);
   const float epf[3] = {cp * ss, sp, cp * cs};
-  float s3[3] = {0.f, 0.f, 0.f};
-
+  // this lane's pair (column lanes: warps 1-3) and its quarter of the rows
+  const int g = (tid - 32) & (WY_GROUP - 1);
+  const int oc = 2 * (tile * WY_PAIRS + (tid - 32) / WY_GROUP);
+  // the pair's subH columns (oc even: both in chain column jj, -1 where
+  // they are zero)
+  float s3[2][3] = {};
   int jj = -1;
-  if (warp == 0) {
+  if (warp > 0 && oc < XC) {
+    SubIn in[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) sub_loads(Rrl, trl, f, L, c0, oc + q, in[q]);
+    jj = sub_column(oc, XC, c0, teff, Rb, epf, rho, tbc, in[0], s3[0]);
+    sub_column(oc + 1, XC, c0, teff, Rb, epf, rho, tbc, in[1], s3[1]);
+  }
+
+  // step: Hf, the left factors and the residual rows, a measurement a thread
+  {
     const float Ja[3][2] = {{-sp * ss, cp * cs}, {cp, 0.f},
                             {-sp * cs, -cp * ss}};
-    for (int l = lane; l < L; l += 32) {
+    for (int l = tid; l < L; l += NT) {
+      const size_t fl = (size_t)f * L + l;
       float A[2][3];
-      hf_rows(Rcl, tcl, (size_t)f * L + l, l < teff, l == 0, epf, rho, Ja,
-              eps, A);
+      hf_rows(Rcl, tcl, fl, l < teff, l == 0, epf, rho, Ja, eps, A);
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int c = 0; c < 3; ++c) hf[(2 * l + a) * 3 + c] = A[a][c];
+      left_rows(Rcl, tcl, Rrl, fl, Rb, epf, rho, eps, &left[l * 2]);
+      if (rtile) {
+        float rr[2];
+        res_rows(z, Rcr, tcr, fl, l < teff, epf, rho, eps, rr);
+        res[2 * l] = rr[0];
+        res[2 * l + 1] = rr[1];
+      }
     }
-    __syncwarp();
-    // the reflections of jac_project_kernel, a row of Hf at a time
+  }
+  __syncthreads();
+
+  float2* out = reinterpret_cast<float2*>(hx_out + (size_t)f * R2 * XC + oc);
+  if (warp == 0) {
+    // step: warp 0, the reflections of jac_project_kernel, a row of Hf at a
+    // time, then T
     float hfn = 0.f;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -315,78 +385,109 @@ jac_project_wide_kernel(
       }
       __syncwarp();
     }
+    // T from beta_k and g = (v0.v1, v0.v2, v1.v2) (LAPACK's larft order)
+    float gv[3] = {0.f, 0.f, 0.f};
+    for (int row = lane; row < R2; row += 32) {
+      const float v0 = vsh[row], v1 = vsh[R2 + row], v2 = vsh[2 * R2 + row];
+      gv[0] = fmaf(v0, v1, gv[0]);
+      gv[1] = fmaf(v0, v2, gv[1]);
+      gv[2] = fmaf(v1, v2, gv[2]);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) gv[i] = rvio::warp_sum(gv[i]);
     if (lane == 0) {
+      const float b0 = scal[0], b1 = scal[1], b2 = scal[2];
+      const float t01 = -b0 * b1 * gv[0];
       scal[3] = hfn;
-      hfn_out[f] = hfn;
+      scal[4] = b0;
+      scal[5] = t01;
+      scal[6] = -b2 * fmaf(b0, gv[1], t01 * gv[2]);
+      scal[7] = b1;
+      scal[8] = -b2 * b1 * gv[2];
+      scal[9] = b2;
+      if (rtile) hfn_out[f] = hfn;
     }
-  } else {
-    SubIn sub;
-    sub_loads(Rrl, trl, f, L, c0, tid - 32, sub);
-    if (warp < 3) {
-      for (int l = lane; l < L; l += 32) {
-        const size_t fl = (size_t)f * L + l;
-        if (warp == 1) {
-          float rr[2];
-          res_rows(z, Rcr, tcr, fl, l < teff, epf, rho, eps, rr);
-          res[2 * l] = rr[0];
-          res[2 * l + 1] = rr[1];
-        } else {
-          left_rows(Rcl, tcl, Rrl, fl, Rb, epf, rho, eps, &left[l * 2]);
-        }
-      }
-    }
-    jj = sub_column(tid - 32, XC, c0, teff, Rb, epf, rho, tbc, sub, s3);
-    asm volatile("bar.sync 1, %0;" ::"n"(NCT) : "memory");
+  } else if (oc < XC) {
+    // step: warps 1-3, the zeros that need no reflector: a column outside
+    // the chain, and the masked rows past 2 t_eff of the others
+    for (int row = g; row < R2; row += WY_GROUP)
+      if (jj < 0 || row >= rend)
+        out[(size_t)row * stride] = make_float2(0.f, 0.f);
   }
+  __syncthreads();                  // the reflectors are in
+  const int ncols = scal[3] < 1e-4f ? 2 : 3;
+
   if (warp == 0) {
-    __syncthreads();                // the reflectors are in
+    // step: r (tile 0): w = V^T r over the lanes, then r - V T^T w
+    if (!rtile) return;
+    float w[3] = {0.f, 0.f, 0.f}, u[3];
+    for (int row = lane; row < R2; row += 32)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        w[k] = fmaf(vsh[k * R2 + row], res[row], w[k]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w[k] = rvio::warp_sum(w[k]);
+    wy_coefficients(scal + 4, w, u);
+    for (int row = lane; row < R2; row += 32) {
+      float v = res[row];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v = fmaf(-u[k], vsh[k * R2 + row], v);
+      r_out[(size_t)f * R2 + row] = row >= ncols && row < rend ? v : 0.f;
+    }
     return;
   }
 
-  for (int base = 0; base <= XC; base += NCT) {
-    const int oc = base + tid - 32;
-    if (base > 0) {
-      SubIn sub;
-      sub_loads(Rrl, trl, f, L, c0, oc, sub);
-      jj = sub_column(oc, XC, c0, teff, Rb, epf, rho, tbc, sub, s3);
-    }
-    const bool live = jj >= 0;
-    float* out = jj > XC ? r_out + (size_t)f * R2
-                         : hx_out + (size_t)f * R2 * XC + oc;
-    const size_t stride = jj > XC ? 1 : XC;
-    // the column, built in place before the reflectors are in
-    if (live) {
-      if (jj > XC) {
-        for (int row = 0; row < R2; ++row) out[row] = res[row];
-      } else {
-        for (int i = 0; i < L; ++i)
+  const bool live = jj >= 0;
+  if (!__any_sync(0xffffffffu, live)) return;
+  // step: pass 1, the lane's part of w = V^T c for both columns over its
+  // rows of c's entries (measurements jj < i < t_eff), summed over the pair
+  float w[2][3] = {}, u[2][3];
+  const int r0 = __reduce_min_sync(0xffffffffu, live ? 2 * (jj + 1) : R2) &
+                 ~(WY_GROUP - 1);
+#pragma unroll 2
+  for (int row = r0 + g; row < rend; row += WY_GROUP) {
+    const bool on = live && row >= 2 * (jj + 1);
+    const float4 lf = left[row];
+    float c[2];
 #pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            const float4 lf = left[i * 2 + a];
-            const float v = lf.x * s3[0] + lf.y * s3[1] + lf.z * s3[2];
-            out[(2 * i + a) * stride] = jj < i && i < teff ? v : 0.f;
-          }
+    for (int q = 0; q < 2; ++q)
+      c[q] = on ? lf.x * s3[q][0] + lf.y * s3[q][1] + lf.z * s3[q][2] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float v = vsh[k * R2 + row];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) w[q][k] = fmaf(v, c[q], w[q][k]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int o = 1; o < WY_GROUP; o <<= 1)
+        w[q][k] += __shfl_xor_sync(0xffffffffu, w[q][k], o);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) wy_coefficients(scal + 4, w[q], u[q]);
+  // step: pass 2, c - V T^T w on the lane's rows before 2 t_eff, masked
+  // below Ncols, each row stored once
+  if (!live) return;
+#pragma unroll 2
+  for (int row = g; row < rend; row += WY_GROUP) {
+    float val[2] = {0.f, 0.f};
+    if (row >= ncols) {
+      const bool on = row >= 2 * (jj + 1);
+      const float4 lf = left[row];
+      const float v[3] = {vsh[row], vsh[R2 + row], vsh[2 * R2 + row]};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float x = on ? lf.x * s3[q][0] + lf.y * s3[q][1] + lf.z * s3[q][2]
+                     : 0.f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) x = fmaf(-u[q][k], v[k], x);
+        val[q] = x;
       }
     }
-    if (base == 0) __syncthreads();  // the reflectors are in
-    if (oc > XC) continue;
-    const int ncols = scal[3] < 1e-4f ? 2 : 3;
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float* v = vsh + k * R2;
-        float w = 0.f;
-        for (int row = 0; row < R2; ++row)
-          w = fmaf(v[row], out[row * stride], w);
-        const float bw = scal[k] * w;
-        for (int row = 0; row < R2; ++row)
-          out[row * stride] = fmaf(-bw, v[row], out[row * stride]);
-      }
-      for (int row = 0; row < min(ncols, R2); ++row) out[row * stride] = 0.f;
-      for (int row = 2 * teff; row < R2; ++row) out[row * stride] = 0.f;
-    } else {
-      for (int row = 0; row < R2; ++row) out[row * stride] = 0.f;
-    }
+    out[(size_t)row * stride] = make_float2(val[0], val[1]);
   }
 }
 
@@ -606,16 +707,22 @@ int launch(const float* z, const float* Rcl, const float* tcl,
 
 extern "C" {
 
-int rvio_jac_project(const float* z, const float* Rcl, const float* tcl,
-                     const float* Rrl, const float* trl, const float* Rcr,
-                     const float* tcr, const float* phi, const float* psi,
-                     const float* rho, const long long* teff,
-                     const long long* c0, const float* Rbc, const float* tbc,
-                     float* r_out, float* hx_out, float* hfn_out, int F,
-                     int L, int M, float eps, cudaStream_t stream) {
+// r, Hx and hfn of F features by `route` (the wrapper's dispatch,
+// ops/jac_project.py `kernel_route`): 0 the compiled row bounds (L <= 64),
+// 1 the wide kernel (any L >= 2).
+int rvio_jac_project_route(const float* z, const float* Rcl, const float* tcl,
+                           const float* Rrl, const float* trl,
+                           const float* Rcr, const float* tcr,
+                           const float* phi, const float* psi,
+                           const float* rho, const long long* teff,
+                           const long long* c0, const float* Rbc,
+                           const float* tbc, float* r_out, float* hx_out,
+                           float* hfn_out, int F, int L, int M, float eps,
+                           int route, cudaStream_t stream) {
+  if (L < 2 || M < 1 || route < 0 || route > 1 || (route == 0 && L > 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (F == 0) return 0;
-  if (L < 2 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (L <= 64)
+  if (route == 0)
     return (L <= 16 ? launch<16> : launch<64>)(
         z, Rcl, tcl, Rrl, trl, Rcr, tcr, phi, psi, rho, teff, c0, Rbc, tbc,
         r_out, hx_out, hfn_out, F, L, M, eps, stream);
@@ -630,7 +737,8 @@ int rvio_jac_project(const float* z, const float* Rcl, const float* tcl,
       return static_cast<int>(e);
     }
   }
-  jac_project_wide_kernel<<<F, NT, smem, stream>>>(
+  const dim3 grid(F, (3 * M + WY_PAIRS - 1) / WY_PAIRS);   // tiles of pairs
+  jac_project_wide_kernel<<<grid, NT, smem, stream>>>(
       z, Rcl, tcl, Rrl, trl, Rcr, tcr, phi, psi, rho, teff, c0, Rbc, tbc,
       r_out, hx_out, hfn_out, L, M, eps);
   return static_cast<int>(cudaGetLastError());

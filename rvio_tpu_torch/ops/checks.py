@@ -331,6 +331,15 @@ def _quadform_library(S, r):
     return torch.sum(r * torch.cholesky_solve(r[..., None], L)[..., 0], -1)
 
 
+def spd_systems(rng, F: int, m: int):
+    """F seeded symmetric positive definite systems of order m (A A^T / m
+    + 1e-2 I for a normal A: cond(S) at most about 400) and right-hand
+    sides."""
+    A = rng.normal(size=(F, m, m)) / np.sqrt(m)
+    return A @ np.transpose(A, (0, 2, 1)) + 1e-2 * np.eye(m), \
+        rng.normal(size=(F, m))
+
+
 def _quadform_case(cfg, dev, rng, bad_lane=7) -> KernelCheck:
     F, m = cfg.tracker.max_update_features, 2 * cfg.tracker.max_tracking_length
     A = rng.normal(size=(F, m, m))

@@ -25,10 +25,18 @@ holds Hf and r with a measurement a lane and forms the reflectors by
 warp sums, while 96 lanes each own an output column of Hx, which they
 build in registers from the left factors, reflect and store at its
 absolute clone column; one barrier a feature.  The row count is a
-compile-time bound (32 rows for L <= 16, 128 for L <= 64); a longer
-window (L > 64) runs the wide instance, which loops over the rows, keeps
-Hf and the reflectors in shared memory and reflects each output column in
-place in Hx.  Any L >= 2 is taken.
+compile-time bound (32 rows for L <= 16, 128 for L <= 64).  A longer
+window (L > 16 under the dispatch) runs the wide kernel: compact-WY
+reflection (Q = I - V T V^T, T from the betas and V^T V) over a grid of
+features x column tiles, each tile forming the reflectors again and four
+lanes a pair of output columns, each entry formed in registers twice
+(once for V^T c, once for the store) and stored once; a feature with
+fewer than two measurements only stores zeros.  On the card (NVIDIA H100
+80GB HBM3, 700 W; chip_smoke.py, F = 100 lanes of a recorded update): 11.2
+us a launch at L = 65, where the design before it took 73.3, and 6.1,
+5.7 and 6.7 us at L = 17, 20 and 33 against the 128-row instance's 12.5,
+10.8 and 13.0 on the same inputs.  Any L >= 2 is taken; ``route`` asks
+for one kernel (tests, chip_smoke.py's timings).
 
 Depth guard: the kernel clamps |h_z| at ``KERNEL_EPS`` = 1e-6 (as the TPU
 kernel does: f32 reflector norms square the perspective rows, and 1e-12
@@ -48,7 +56,16 @@ from rvio_tpu_torch.ops.lm_triangulate import (EPS_DEPTH, chain_point, hproj,
                                                jang, project, unit_from_angles)
 
 _LIB = "jac_project"
-_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_float]
+# rvio_jac_project_route: 17 arrays, F, L, M, eps, the route
+_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_float]
+         + [ctypes.c_int])
+# "narrow": the compiled row bounds (L <= ROW_BOUND_MAX_L); "wide": the
+# wide kernel (any L)
+ROUTES = {"narrow": 0, "wide": 1}
+ROW_BOUND_MAX_L = 64
+# the longest window the dispatch gives the narrow kernel; past it the
+# wide one (chip_smoke.py times both at L = 17, 20, 33)
+NARROW_MAX_L = 16
 
 KERNEL_EPS = 1e-6
 
@@ -143,8 +160,15 @@ def depth_guard(dtype: torch.dtype) -> float:
     return KERNEL_EPS if dtype == torch.float32 else EPS_DEPTH
 
 
+def kernel_route(L: int) -> str:
+    """The kernel the dispatch gives length L: "narrow" (the compiled row
+    bounds) up to NARROW_MAX_L, "wide" past it."""
+    return "narrow" if L <= NARROW_MAX_L else "wide"
+
+
 def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
-                phi, psi, rho, t_eff, c0, R_bc, t_bc, M: int):
+                phi, psi, rho, t_eff, c0, R_bc, t_bc, M: int, *,
+                route: str = "auto"):
     """Projected residual and clone Jacobian of every update feature.
 
     z (F, L, 2); the linearization chains ``*_lin`` (camera Rc/tc and
@@ -155,8 +179,9 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     clone window.  The depth guard is :func:`depth_guard` of z's dtype.
 
     Returns (r (F, 2L), Hx (F, 2L, 6M), hfn (F,)) with the masks of the
-    module docstring applied.  A CUDA tensor runs the kernel (f32 only);
-    a CPU tensor the plain version.
+    module docstring applied.  A CUDA tensor runs the kernel (f32 only;
+    ``route`` "narrow" (L <= 64) or "wide" asks for one kernel, "auto"
+    takes :func:`kernel_route` of L); a CPU tensor the plain version.
     """
     if not _lib.uses_kernel(z, "jac_project"):
         return jac_project_plain(z, Rc_lin, tc_lin, Rrel_lin, trel_lin,
@@ -183,15 +208,20 @@ def jac_project(z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res,
     _lib.check(name, "t_bc", t_bc, (3,), f32, dev)
     if L < 2:
         raise ValueError(f"{name}: the kernel takes L >= 2, got {L}")
+    if route == "auto":
+        route = kernel_route(L)
+    if route not in ROUTES or (route == "narrow" and L > ROW_BOUND_MAX_L):
+        raise ValueError(f"{name}: no route {route!r} at L = {L}")
     r = torch.empty(F, 2 * L, dtype=f32, device=dev)
     Hx = torch.empty(F, 2 * L, 6 * M, dtype=f32, device=dev)
     hfn = torch.empty(F, dtype=f32, device=dev)
     if F == 0:                  # nothing to launch
         return r, Hx, hfn
-    fn = _lib.function(_LIB, "rvio_jac_project", _ARGS)
+    fn = _lib.function(_LIB, "rvio_jac_project_route", _ARGS)
     _lib.call(_LIB, fn, *(_lib.ptr(t) for t in (
         z, Rc_lin, tc_lin, Rrel_lin, trel_lin, Rc_res, tc_res, phi, psi, rho,
-        te, c0i, R_bc, t_bc, r, Hx, hfn)), F, L, M, KERNEL_EPS, device=dev)
+        te, c0i, R_bc, t_bc, r, Hx, hfn)), F, L, M, KERNEL_EPS,
+        ROUTES[route], device=dev)
     _lib.launched(jac_project)
     return r, Hx, hfn
 

@@ -318,13 +318,16 @@ def _k4_call(chk, text):
     S, r = chk.args
     F, m = S.shape[0], S.shape[-1]
     D = torch.empty(F, device=S.device)
-    if "rvio_spd_quadform_ws" not in text:   # 451d70c: no workspace
+    if "rvio_spd_quadform_ws" in text:       # 31d6c2d, 8edaf6f: no route
+        return Call("rvio_spd_quadform_ws", k4._ARGS[:-1], [S, r], [D],
+                    [None], [F, m], 1)
+    if "rvio_spd_quadform_route" not in text:   # 451d70c: no workspace
         return Call("rvio_spd_quadform",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2, [S, r], [D],
                     [], [F, m], 1)
     # no workspace: the split takes the instances up to m = 64
-    return Call("rvio_spd_quadform_ws", k4._ARGS, [S, r], [D], [None],
-                [F, m], 1)
+    return Call("rvio_spd_quadform_route", k4._ARGS, [S, r], [D], [None],
+                [F, m, k4.ROUTES[k4.instance(m)]], 1)
 
 
 def _k8_call(chk, text):
@@ -394,8 +397,11 @@ def _k3_call(chk, text):
     outs = [torch.empty((F, 2 * L), device=dev),
             torch.empty((F, 2 * L, 6 * M), device=dev),
             torch.empty(F, device=dev)]
-    return Call("rvio_jac_project", k3._ARGS, arrays, outs, [],
-                [F, L, M, k3.KERNEL_EPS], 3)
+    if "rvio_jac_project_route" not in text:   # before the wide kernel
+        return Call("rvio_jac_project", k3._ARGS[:-1], arrays, outs, [],
+                    [F, L, M, k3.KERNEL_EPS], 3)
+    return Call("rvio_jac_project_route", k3._ARGS, arrays, outs, [],
+                [F, L, M, k3.KERNEL_EPS, k3.ROUTES[k3.kernel_route(L)]], 3)
 
 
 def _k9_call(chk, text):

@@ -824,34 +824,29 @@ def test_propagate_block_refuses_long_blocks(cuda):
 
 def _spd_stack(rng, F, m, bad=None):
     """F symmetric positive definite m x m systems (cond(S) at most about
-    400), lane ``bad`` made indefinite, and right-hand sides."""
-    A = rng.normal(size=(F, m, m)) / np.sqrt(m)
-    S = A @ np.transpose(A, (0, 2, 1)) + 1e-2 * np.eye(m)
+    400; ops/checks.py ``spd_systems``), lane ``bad`` made indefinite, and
+    right-hand sides."""
+    from rvio_tpu_torch.ops.checks import spd_systems
+    S, r = spd_systems(rng, F, m)
     if bad is not None:
         S[bad] -= 2 * np.abs(np.linalg.eigvalsh(S[bad])).max() * np.eye(m)
-    return S, rng.normal(size=(F, m))
+    return S, r
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 30, 32, 33, 40, 64, 65,
-                               66, 130, 340])
-def test_batched_quadform_orders(cuda, m):
-    """K4 at every padded order it takes (8, 16, 32 with a row a lane; 64
-    with two; the wide instance past 64, its triangle in shared memory up
-    to about 330 and in a workspace at 340), at F = 1, 3, 100 and 257
-    features (not all multiples of
-    the four warps a block): within the check's rtol 2e-3 of the plain
-    version, and with three or more features one indefinite lane, NaN in
-    both and only it."""
+def _quadform_against_plain(cuda, m, counts=(1, 3, 100, 257),
+                            route="auto"):
+    """K4 by ``route`` at order m for F features of ``counts``: within the
+    check's rtol 2e-3 of the plain version, one launch a call, and with
+    three or more features one indefinite lane, NaN in both and only it."""
     from rvio_tpu_torch.ops.spd_solve import (batched_quadform,
                                               batched_quadform_plain)
     rng = np.random.default_rng(m)
-    for F in (1, 3, 100, 257):
+    for F in counts:
         bad = F // 2 if F >= 3 else None
         S, r = (torch.as_tensor(np.asarray(x, np.float32), device=cuda)
                 for x in _spd_stack(rng, F, m, bad))
         before = batched_quadform.launches
-        got = batched_quadform(S, r)
+        got = batched_quadform(S, r, route=route)
         torch.cuda.synchronize()
         assert batched_quadform.launches == before + 1
         want = batched_quadform_plain(S, r)
@@ -862,6 +857,48 @@ def test_batched_quadform_orders(cuda, m):
             assert bool(nan[bad])
         rel = ((got - want).abs() / want.abs())[~nan].max()
         assert float(rel) <= 2e-3, (F, float(rel))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 30, 32, 33, 40, 64, 65,
+                               66, 96, 97, 128, 129, 130, 160, 161, 224,
+                               225, 308, 309, 340])
+def test_batched_quadform_orders(cuda, m):
+    """K4 at every padded order the dispatch gives it (8, 16, 32 with a
+    row a lane; up to 63 with two; the wide instance from 64 at its panel
+    edges, S in shared memory as a square up to 224, then as the packed
+    triangle, and in a workspace from 309 on the H100), at F = 1, 3, 100
+    and 257 features (not all multiples of the four warps a block): within
+    the check's rtol 2e-3 of the plain version, and with three or more
+    features one indefinite lane, NaN in both and only it."""
+    _quadform_against_plain(cuda, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["narrow", "wide"])
+@pytest.mark.parametrize("m", [1, 2, 31, 32, 33, 34, 40, 62, 64])
+def test_batched_quadform_both_instances(cuda, m, route):
+    """Both K4 instances asked for at every order the warp instances take
+    (the wide one a single partial panel up to 32, two past it), either
+    side of the dispatch's seam at 64: the same checks, for the seam's
+    timing in chip_smoke.py."""
+    _quadform_against_plain(cuda, m, counts=(1, 3, 100), route=route)
+
+
+@pytest.mark.gpu
+def test_batched_quadform_workspace_past_308(cuda):
+    """The wide instance keeps S, its panel and r in a block's shared memory
+    up to m = 308 on the H100 (232448 bytes a block may opt in to: S as a
+    square of stride m | 1 up to 224, then packed) and in the workspace the
+    wrapper allocates past it; the warp instances refuse orders past 64."""
+    from rvio_tpu_torch.ops.spd_solve import batched_quadform, workspace_floats
+    props = torch.cuda.get_device_properties(cuda)
+    if getattr(props, "shared_memory_per_block_optin", 232448) == 232448:
+        for m in (65, 130, 224, 225, 308, 309, 340, 600):
+            assert (workspace_floats(m, cuda) > 0) == (m >= 309), m
+    with pytest.raises(ValueError):
+        batched_quadform(torch.eye(65, device=cuda)[None].contiguous(),
+                         torch.ones(1, 65, device=cuda), route="narrow")
 
 
 @pytest.mark.gpu
@@ -1361,13 +1398,13 @@ def test_clahe_luts_graph_replays(cuda):
 
 # ---- K3: per-feature Jacobians and the nullspace projection ----
 
-def _jac_against_plain(cuda, inputs):
-    """K3 on ``inputs`` (ops/checks.jac_inputs) against its plain version
-    at the check's tolerances, one launch (none for F = 0)."""
+def _jac_against_plain(cuda, inputs, route="auto"):
+    """K3 by ``route`` on ``inputs`` (ops/checks.jac_inputs) against its
+    plain version at the check's tolerances, one launch (none for F = 0)."""
     from rvio_tpu_torch.ops.checks import jac_case
     chk = jac_case(cuda, inputs)
     before = chk.kernel.launches
-    got = chk.run_kernel()
+    got = chk.kernel(*chk.args, route=route)
     torch.cuda.synchronize()
     F = inputs[0].shape[0]
     assert chk.kernel.launches == before + (F > 0)
@@ -1377,12 +1414,12 @@ def _jac_against_plain(cuda, inputs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [2, 15, 16, 17, 64, 65, 100])
+@pytest.mark.parametrize("L", [2, 15, 16, 17, 33, 64, 65, 100, 128])
 @pytest.mark.parametrize("F", [0, 1, 100, 200])
 def test_jac_project_lengths_and_counts(cuda, L, F):
-    """K3 at both compiled row bounds (L <= 16: 32 rows, L <= 64: 128),
-    at their edges and past them (the wide instance, any L), for F
-    features with t_eff = 2 and t_eff = L in turn
+    """K3 by the route the length takes (L <= 16: 32 rows in registers;
+    past 16 the wide kernel, any L), at the edges of both and past them,
+    for F features with t_eff = 2 and t_eff = L in turn
     and c0 at 0 and at M - t_eff + 1 in turn (a window of M = L - 1
     clones, as RVIOConfig() has it)."""
     from rvio_tpu_torch.config import RVIOConfig
@@ -1392,6 +1429,23 @@ def test_jac_project_lengths_and_counts(cuda, L, F):
     c0 = np.where(np.arange(F) % 4 < 2, 0, M - t_eff + 1)
     _jac_against_plain(cuda, jac_inputs(RVIOConfig(), np.random.default_rng(L),
                                         F, L, M, t_eff, c0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["narrow", "wide"])
+@pytest.mark.parametrize("L", [2, 15, 16, 17, 20, 33, 64])
+def test_jac_project_both_routes(cuda, L, route):
+    """Both K3 kernels at the lengths the dispatch splits (the compiled row
+    bounds, 32 and 128 rows, and the wide kernel asked for), as
+    test_jac_project_lengths_and_counts holds the dispatched one: 100
+    features, t_eff = 2 and L, c0 at both ends of the window."""
+    from rvio_tpu_torch.config import RVIOConfig
+    from rvio_tpu_torch.ops.checks import jac_inputs
+    F, M = 100, max(L - 1, 2)
+    t_eff = np.where(np.arange(F) % 2 == 0, 2, L)
+    c0 = np.where(np.arange(F) % 4 < 2, 0, M - t_eff + 1)
+    _jac_against_plain(cuda, jac_inputs(RVIOConfig(), np.random.default_rng(L),
+                                        F, L, M, t_eff, c0), route=route)
 
 
 @pytest.mark.gpu
