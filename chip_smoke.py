@@ -59,8 +59,8 @@ set to 0 just before it and read just after:
   the poses of the CLAHE-on run above (same seed, so the same draws);
 - graph against eager (the one-dispatch frame): the feature path over the
   workload's first 200 frames through the eager frame loop and through the graphed
-  sequence scan with 1, 8 and 32 frames a graph (capture seconds, graph
-  pool bytes, frames/s), every output of every frame bitwise or within
+  sequence scan with 1, 8 and 32 frames a graph (capture seconds, reserved
+  growth bytes, frames/s), every output of every frame bitwise or within
   1e-6 m; images -> poses with CLAHE on over the first GRAPH_IMG_FRAMES
   frames eagerly, then graphed through the fused chunk scan, the
   front-end and back-end chunk scans, and ``ImagePipeline``, each against
@@ -74,7 +74,7 @@ set to 0 just before it and read just after:
   resumed against the uninterrupted run;
 - the segment-batched filter, this slice's main path:
   ``make_batched_sequence_scan`` over 16 copies of the feature workload
-  (frames/s, ms a batched frame, capture seconds and graph pool bytes),
+  (frames/s, ms a batched frame, capture seconds and reserved growth bytes),
   every filter kernel once a batched frame, every row bitwise the same,
   row 0 within the card-vs-CPU limits of the graphed single scan; K1-K5
   on frame 100 of 16 distinct segments of the workload (segment_plan,
@@ -1359,7 +1359,7 @@ def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
         first_wall, _ = timed(run)
         g_wall, g_out = min((timed(run) for _ in range(2)),
                             key=lambda r: r[0])
-        caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+        caps = [(c["frames"], round(c["seconds"], 4), c["reserved_growth_bytes"])
                 for c in run.frame_scan.captures]
         differ = {}
         for k, v in e_out.items():
@@ -1369,7 +1369,7 @@ def graph_vs_eager_phase(dev, sim, sim_f, kernels) -> None:
         print(f"graph vs eager, feature path, U {U}: graphed {T / g_wall:.1f} "
               f"frames/s ({g_wall * 1e3 / T:.3f} ms/frame) against eager "
               f"{T / e_wall:.1f}; first run {first_wall:.3f} s, captures "
-              f"{caps} (frames, s, graph pool bytes); every output of every "
+              f"{caps} (frames, s, reserved growth bytes); every output of every "
               f"frame "
               f"{'bitwise equal' if not differ else f'equal but {differ}'}",
               flush=True)
@@ -1491,13 +1491,13 @@ def batched_phase(dev, sim, kernels) -> dict:
     p0, p1 = (x.double().cpu().numpy() for x in (out["p_Gk"][0], one["p_Gk"]))
     dp = float(np.abs(p0 - p1).max())
     dq = rotation_gap(out["q_kG"][0].cpu().numpy(), one["q_kG"].cpu().numpy())
-    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+    caps = [(c["frames"], round(c["seconds"], 4), c["reserved_growth_bytes"])
             for c in run.frame_scan.captures]
     print(f"batched filter, B {BATCH} copies of the feature workload: "
           f"{BATCH * T} frames in {wall:.3f} s = {BATCH * T / wall:.1f} "
           f"frames/s, {wall * 1e3 / T:.3f} ms a batched frame ({T} of them; "
-          f"first run {first_wall:.3f} s), captures {caps} (frames, s, graph "
-          f"pool bytes); launches {dict((k, want[k]) for k in FILTER_KERNELS)}"
+          f"first run {first_wall:.3f} s), captures {caps} (frames, s, reserved "
+          f"growth bytes); launches {dict((k, want[k]) for k in FILTER_KERNELS)}"
           f" (one a batched frame); rows "
           f"{'bitwise equal' if not differ else f'differ in {differ}'}; row "
           f"0 against the graphed single scan: max position gap {dp:.3e} m "
@@ -1665,7 +1665,7 @@ def warm_split_phase(dev, kernels):
     boots = ["static" if d is None else "fallback" if "rejected" in d
              else f"bootstrap sigma_v {d['sigma_v']:.3f}"
              for d in info["bootstrap_diags"]]
-    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+    caps = [(c["frames"], round(c["seconds"], 4), c["reserved_growth_bytes"])
             for c in info["scan"].frame_scan.captures]
     print(f"warm split, f32, {S} segments of {Bl} frames after a warm-up "
           f"of {W} (the small config): unsplit ATE {ate_full:.4f} m "
@@ -1677,7 +1677,7 @@ def warm_split_phase(dev, kernels):
           f"{WARM_NGOOD_MIN}), repaired segments {info['repaired_segments']},"
           f" starts {boots}; {S * (W + Bl)} segment-frames in {wall:.2f} s "
           f"(bootstrap on the host included), captures {caps} (frames, s, "
-          f"graph pool bytes)", flush=True)
+          f"reserved growth bytes)", flush=True)
     if not (ate_split <= ate_full + WARM_ATE_MARGIN_M
             and dev_max < WARM_MAX_DEV_M
             and min(ng_ok) > WARM_NGOOD_MIN and min(ng_body) > WARM_NGOOD_MIN
@@ -1693,12 +1693,12 @@ def warm_split_phase(dev, kernels):
     if S - 1 not in info2["repaired_segments"] or info2["repair_scan"] is None:
         raise AssertionError(f"the stripped segment was not repaired: "
                              f"{info2['repaired_segments']}")
-    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+    caps = [(c["frames"], round(c["seconds"], 4), c["reserved_growth_bytes"])
             for c in info2["repair_scan"].frame_scan.captures]
     print(f"warm split, segment {S - 1}'s body stripped of its features: "
           f"repaired segments {info2['repaired_segments']} in {wall2:.2f} s; "
-          f"the repair's B = 1 scan captures {caps} (frames, s, graph pool "
-          f"bytes)", flush=True)
+          f"the repair's B = 1 scan captures {caps} (frames, s, reserved "
+          f"growth bytes)", flush=True)
     return dict(state0=state0, bundles=bundles, stitched=stitched,
                 info=info, gt=gt, full=full, ate_full=ate_full)
 
@@ -1792,7 +1792,7 @@ def set_replay_phase(dev, sims, seqs, kernels) -> dict:
         if not (np.isfinite(r.positions).all()
                 and r.positions.shape == (len(r.timestamps), 3)):
             raise AssertionError("non-finite or misshapen set trajectory")
-    caps = [(c["frames"], round(c["seconds"], 4), c["pool_bytes"])
+    caps = [(c["frames"], round(c["seconds"], 4), c["reserved_growth_bytes"])
             for c in scans[-1].frame_scan.captures]
     print(f"set replay, {SET_B} sequences ({n_frames} tracked frames, "
           f"{L} batched frames): {sum(n_frames)} frames in {wall:.3f} s = "
@@ -1804,7 +1804,7 @@ def set_replay_phase(dev, sims, seqs, kernels) -> dict:
           f"(limit {SET_GAP_POS_M}), max attitude gap "
           f"{[f'{x:.3e}' for x in dqs]} rad, slot-frames agreeing "
           f"{[round(x, 5) for x in agree]} (limit {SET_ACTIVE_AGREE}); "
-          f"captures {caps} (frames, s, graph pool bytes); kernel launches "
+          f"captures {caps} (frames, s, reserved growth bytes); kernel launches "
           f"a batched frame {dict((k, round(v / L, 3)) for k, v in launches.items() if v)}",
           flush=True)
     if not max(ates) < ATE_LIMIT_M:

@@ -184,7 +184,8 @@ def batched_path(cfg, sim, dev, B: int) -> dict:
             "ms_per_batched_frame": min(times) / n * 1e3,
             "first_run_s": first_s,
             "capture_s": sum(c["seconds"] for c in caps),
-            "pool_bytes": max((c["pool_bytes"] for c in caps), default=0)}
+            "reserved_growth_bytes": max(
+                (c["reserved_growth_bytes"] for c in caps), default=0)}
 
 
 def image_rates(cfg, sim, dev, idx0) -> dict:
@@ -371,7 +372,7 @@ def main() -> int:
         "batched_fps": bat["fps"], "batch": bat["batch"],
         "batched_ms_per_frame": bat["ms_per_batched_frame"],
         "batched_capture_s": bat["capture_s"],
-        "batched_pool_bytes": bat["pool_bytes"],
+        "batched_reserved_growth_bytes": bat["reserved_growth_bytes"],
         "frontend_fps": img["frontend_fps"],
         "frontend_inscan_ms": img["frontend_inscan_ms"],
         "pipeline_fps": img["pipeline_fps"],

@@ -17,6 +17,7 @@ Usage:
   python -m rvio_tpu_torch.run --set /data/V1_01_easy /data/V2_01_easy \
       --output out/                              # a set in lockstep, one card
   python -m rvio_tpu_torch.run --sweep 5 --noise # an N-seed synthetic sweep
+  python -m rvio_tpu_torch.run --set A B --profile trace.json  # + a trace
 """
 
 from __future__ import annotations
@@ -81,8 +82,19 @@ def run(argv=None):
                     help="dataset replay: resume a prior run from its "
                          "checkpoint (same sequence); continues the exact "
                          "trajectory")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="write a Chrome trace of the run (torch.profiler: "
+                         "host, card and the program's spans) to PATH")
     args = ap.parse_args(argv)
+    if args.profile:
+        from rvio_tpu_torch.utils.profiling import device_trace
+        with device_trace(args.profile):
+            return _run(ap, args)
+    return _run(ap, args)
 
+
+def _run(ap, args):
+    """:func:`run` after its arguments are parsed."""
     if args.info:
         from rvio_tpu_torch.dataio.rosbag import bag_info
         info = bag_info(args.info)

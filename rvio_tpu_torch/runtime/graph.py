@@ -51,6 +51,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from rvio_tpu_torch.ops import _lib
+from rvio_tpu_torch.utils.profiling import span
 
 # device index -> (stream, memory pool, the graph that holds the pool, its
 # buffer): the stream and pool every graph of the device shares
@@ -134,10 +135,18 @@ class FrameScan:
     leaves alone); :meth:`load` and :meth:`run` are its halves on the
     static buffers.  ``unroll`` frames go into one graph.
 
-    ``captures`` lists each capture: frames in the graph, seconds, and the
-    graph's working memory in the device's pool (the peak of the bytes
-    allocated during the capture over those allocated before it; graphs
-    replayed one at a time share it).
+    ``captures`` lists each capture: frames in the graph, seconds, and
+    ``reserved_growth_bytes``, the growth of the caching allocator's
+    reserved bytes across it: the whole segments the device's shared pool
+    had to add for the graph's working memory, 0 where the pool, which
+    graphs replayed one at a time share, already held enough (so not the
+    graph's working memory itself, which no reading of the pool gives
+    without resetting the process's peak statistics).  A capture leaves
+    the process's peak memory statistics alone.
+
+    Spans (utils/profiling.py): ``frame_scan.warm`` (the eager first
+    frame), ``frame_scan.capture`` (one capture) and ``frame_scan.replay``
+    (one ``graph.replay()`` on the host), on a CUDA device only.
     """
 
     def __init__(self, body: Callable, device: torch.device,
@@ -200,7 +209,8 @@ class FrameScan:
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             if not self._warm:
-                self._frame()
+                with span("frame_scan.warm"):
+                    self._frame()
                 self._warm = True
                 T -= 1
             while T > 0:
@@ -271,18 +281,19 @@ class FrameScan:
         if got is None:
             got = self._graphs[u] = self._capture(u)
         graph, counts = got
-        graph.replay()
+        with span("frame_scan.replay"):
+            graph.replay()
         for wrapper, n in counts.items():
             wrapper.launches += n
 
     def _capture(self, u: int):
         stream, pool = device_stream(self.device)
-        torch.cuda.reset_peak_memory_stats(self.device)
-        allocated = torch.cuda.memory_allocated(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
-            with _lib.tally() as counts:
+            with span("frame_scan.capture", frames=u), \
+                    _lib.tally() as counts:
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
                                       capture_error_mode="global"):
                     for _ in range(u):
@@ -295,8 +306,8 @@ class FrameScan:
             raise
         self.captures.append(dict(
             frames=u, seconds=time.perf_counter() - t0,
-            pool_bytes=torch.cuda.max_memory_allocated(self.device)
-            - allocated))
+            reserved_growth_bytes=torch.cuda.memory_reserved(self.device)
+            - reserved))
         return graph, dict(counts)
 
 

@@ -35,6 +35,8 @@ from rvio_tpu_torch.runtime.graph import FrameScan, tree_leaves, tree_map
 from rvio_tpu_torch.state import FilterState, augment_window, compose_state
 from rvio_tpu_torch.state.filter_state import (add_segment_axis,
                                                drop_segment_axis)
+from rvio_tpu_torch.utils import profiling
+from rvio_tpu_torch.utils.profiling import span
 
 # Frames in one graph of the sequence scan: on the feature path at
 # RVIOConfig() on an H100, 1 and 8 tie within the spread of runs and 32 is
@@ -190,7 +192,11 @@ def _segment_scan(body, device: torch.device, dtype, unroll: int,
     (its outputs are still written), and the outputs gain ``ok``.
     ``frame_scan`` is the FrameScan class (default: runtime/graph.py's
     ``FrameScan``; its ``EagerFrameScan`` for a body with a collective no
-    graph may capture)."""
+    graph may capture).  Spans (utils/profiling.py):
+    ``sequence_scan.pack`` (the input rows) and ``sequence_scan.split``
+    (the outputs and the carry copied out); the count
+    ``sequence_scan.poses`` adds B·T a call, and the call ends with the
+    mark ``sequence_scan.call``."""
     layout = {}      # "B"; "in", "out": (shape, dtype) of each packed leaf
 
     def frame_body(states, frame):
@@ -218,15 +224,21 @@ def _segment_scan(body, device: torch.device, dtype, unroll: int,
             raise TypeError("ok is the masked scan's argument, and it needs it")
         if T == 0:
             return states, {}
-        leaves = tree_leaves(bundles) + ([ok] if masked else [])
-        layout["B"] = B
-        layout["in"] = tuple((tuple(x.shape[2:]), x.dtype) for x in leaves)
-        rows = torch.cat([x.transpose(0, 1).reshape(T, B, -1).to(dtype)
-                          for x in leaves], dim=2).reshape(T, -1)
+        with span("sequence_scan.pack"):
+            leaves = tree_leaves(bundles) + ([ok] if masked else [])
+            layout["B"] = B
+            layout["in"] = tuple((tuple(x.shape[2:]), x.dtype)
+                                 for x in leaves)
+            rows = torch.cat([x.transpose(0, 1).reshape(T, B, -1).to(dtype)
+                              for x in leaves], dim=2).reshape(T, -1)
         scan.load(states)
         out = scan.run({"row": rows}, static=(B, layout["in"]))
-        return (tree_map(torch.clone, scan.carry),
-                _split(out["row"].reshape(T, B, -1), layout["out"]))
+        with span("sequence_scan.split"):
+            got = (tree_map(torch.clone, scan.carry),
+                   _split(out["row"].reshape(T, B, -1), layout["out"]))
+        profiling.add("sequence_scan.poses", B * T)
+        profiling.mark("sequence_scan.call")
+        return got
 
     run.frame_scan = scan
     return run

@@ -283,7 +283,7 @@ def _profile_batched_image(a) -> int:
           f"{B * T / wall:.1f} frames/s end to end "
           f"({', '.join(f'{B * T / w:.1f}' for w in walls)}); "
           f"{loop_ms:.3f} ms a batched frame; captures "
-          f"{[(c['frames'], round(c['seconds'], 4), c['pool_bytes']) for c in scan.frame_scan.captures]}",
+          f"{[(c['frames'], round(c['seconds'], 4), c['reserved_growth_bytes']) for c in scan.frame_scan.captures]}",
           flush=True)
     if a.graph:
         _replays_alone(scan.frame_scan, T)

@@ -1997,6 +1997,32 @@ def test_capture_that_syncs_raises(cuda):
     assert torch.equal(out["y"][:, 0].cpu(), torch.tensor([0.0, 4, 8, 12]))
 
 
+@pytest.mark.gpu
+def test_capture_keeps_the_peak_memory(cuda):
+    """A capture leaves the process's peak memory statistics alone (a
+    peak set before it, above anything the capture allocates, is still
+    the peak after it), records the growth of the reserved bytes, and
+    the frame loop's spans count the warm frame, the capture and each
+    replay."""
+    from rvio_tpu_torch.runtime.graph import FrameScan
+    from rvio_tpu_torch.utils import profiling
+    big = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    del big
+    before = torch.cuda.max_memory_allocated(cuda)
+    n0 = {k: profiling.count(f"frame_scan.{k}")
+          for k in ("warm", "capture", "replay")}
+    scan = FrameScan(lambda c, f: (c + f["x"].sum(), {"y": c * 2}), cuda)
+    scan.load(torch.zeros(3, device=cuda))
+    scan.run({"x": torch.ones(4, 2, device=cuda)})
+    torch.cuda.synchronize()
+    assert [c["frames"] for c in scan.captures] == [1]
+    assert torch.cuda.max_memory_allocated(cuda) >= before >= 64 << 20
+    assert scan.captures[0]["reserved_growth_bytes"] >= 0
+    assert {k: profiling.count(f"frame_scan.{k}") - n
+            for k, n in n0.items()} == {"warm": 1, "capture": 1,
+                                         "replay": 3}
+
+
 # ---- the segment-batched filter ----
 
 BATCH_NAMES = ["propagate_block", "lm_triangulate", "jac_project",

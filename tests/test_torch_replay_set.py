@@ -7,9 +7,12 @@ that file: 160x120, N = 32) held in memory, replayed in lockstep; each
 sequence's result equals its own ``run_euroc_sequence_scan`` with the same
 seed (timestamps exactly, positions and attitudes to 1e-12, n_good and the
 tracker's counters equal), the shorter one riding ``ok = False`` padding
-for the rest of the batch.  Then the CLI on two ASL folders of the same
-basename: one output folder each, the second renamed.
+for the rest of the batch; its spans fill every ``replay.*`` total.  Then
+the CLI on two ASL folders of the same basename: one output folder each,
+the second renamed.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from rvio_tpu_torch.dataio.png import write_png_gray
 from rvio_tpu_torch.dataio.rosbag import BagSequence
 from rvio_tpu_torch.dataio.synthetic import render_frame, simulate_sequence
 from rvio_tpu_torch.runtime import run_euroc_sequence_scan, run_sequence_set
+from rvio_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -54,17 +58,23 @@ def _mem_seq(cfg, duration, seed):
 
 @pytest.fixture(scope="module")
 def set_run():
+    """The set replay, the single replays, and the set replay's sequences,
+    span totals and wall time."""
     cfg = _cfg(tconfig, True)
     seqs = [_mem_seq(cfg, 6.0, 5)[0], _mem_seq(cfg, 4.0, 9)[0]]
+    profiling.reset()
+    t0 = time.perf_counter()
     batch = run_sequence_set(cfg, seqs, dtype=F64, device="cpu",
                              chunk_size=8)
+    wall = time.perf_counter() - t0
+    spans = profiling.totals()
     singles = [run_euroc_sequence_scan(cfg, s, dtype=F64, device="cpu",
                                        chunk_size=8) for s in seqs]
-    return batch, singles
+    return batch, singles, (seqs, spans, wall)
 
 
 def test_set_replay_matches_single_replays(set_run):
-    batch, singles = set_run
+    batch, singles, _ = set_run
     assert len(batch) == 2
     assert len(singles[0].timestamps) > len(singles[1].timestamps) + 10
     for res, single in zip(batch, singles):
@@ -84,12 +94,35 @@ def test_set_replay_matches_single_replays(set_run):
 
 
 def test_set_replay_results_are_whole(set_run):
-    batch, _ = set_run
+    batch, _, _ = set_run
     for res in batch:
         assert np.isfinite(res.positions).all()
         assert res.landmarks is not None and res.landmarks.shape[1] == 3
         assert res.backend_ms.shape == res.timestamps.shape
         assert res.decoder == "bag"
+
+
+def test_set_replay_fills_its_spans(set_run):
+    """Every ``replay.*`` span of a pass: one init, a chunk's assembly,
+    upload, scan and readback once each, rows once a chunk and once for
+    the results; ``replay.poses`` counts the rows returned, and the spans,
+    which never nest, sum to no more than the call's wall."""
+    batch, _, (seqs, spans, wall) = set_run
+    longest = max(len(s.cam_t) - int(np.searchsorted(s.cam_t,
+                                                     r.timestamps[0]))
+                  for s, r in zip(seqs, batch))
+    chunks = -(-longest // 8)
+    assert chunks >= 3
+    n = {k: spans[f"replay.{k}"]["n"] for k in
+         ("init", "assemble", "upload", "scan", "readback", "rows", "poses")}
+    assert n == {"init": 1, "assemble": chunks, "upload": chunks,
+                 "scan": chunks, "readback": chunks, "rows": chunks + 1,
+                 "poses": sum(len(r.timestamps) for r in batch)}
+    timed = [spans[f"replay.{k}"]["s"] for k in
+             ("init", "assemble", "upload", "scan", "readback", "rows")]
+    assert min(timed) > 0 and sum(timed) <= wall
+    assert spans["replay.poses"]["s"] == 0
+    assert not any(k.startswith("frame_scan.") for k in spans)
 
 
 def _write_asl(root, cfg, duration, seed):

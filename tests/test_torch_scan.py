@@ -13,7 +13,9 @@ replayed as a captured graph: tests/test_torch_cuda.py).
 - the chunk scan equals the per-frame ``ImagePipeline`` to 1e-12 m;
 - an ``ok`` False frame leaves both carries bitwise unchanged;
 - the sequence scan equals the eager per-frame step bitwise, a second run
-  of a scan equals its first, and a longer run reallocates its buffers.
+  of a scan equals its first, and a longer run reallocates its buffers;
+- utils/profiling.py's spans, counts and Chrome trace, and the batched
+  sequence scan's spans.
 """
 
 import jax
@@ -37,6 +39,7 @@ from rvio_tpu_torch.filter.propagation import pad_imu
 from rvio_tpu_torch.frontend import make_tracker
 from rvio_tpu_torch.runtime import (ImagePipeline, InitializationGate,
                                     SequenceDriver, make_backend_chunk_scan,
+                                    make_batched_sequence_scan,
                                     make_filter_step,
                                     make_frontend_chunk_scan,
                                     make_image_chunk_scan,
@@ -44,6 +47,9 @@ from rvio_tpu_torch.runtime import (ImagePipeline, InitializationGate,
 from rvio_tpu_torch.runtime.graph import tree_leaves
 from rvio_tpu_torch.runtime.image_driver import (_find_init_frame,
                                                  _imu_chunk_arrays)
+from rvio_tpu_torch.state import stack_states
+from rvio_tpu_torch.utils import profiling
+from rvio_tpu_torch.utils.profiling import device_trace, span
 from test_torch_tracker import _cfg as _image_cfg
 from test_torch_tracker import jax_draws
 
@@ -326,18 +332,70 @@ def test_not_ok_frame_keeps_the_carries(chunk_case):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """utils/profiling.py on the CPU: the stage timer's host clock, and a
-    torch.profiler trace written as a Chrome trace."""
+    """utils/profiling.py on the CPU: with no profiler running a span adds
+    its host time and one to the totals and records no profiler event;
+    counts add up and ``reset`` clears them; ``device_trace`` writes a
+    Chrome trace that holds a span with its arguments, and ``run.py
+    --profile`` writes one."""
     import json
 
-    from rvio_tpu_torch.utils.profiling import StageTimer, device_trace
-    timer = StageTimer("cpu")
+    from rvio_tpu_torch.run import main
+    profiling.reset()
     for _ in range(3):
-        with timer.stage("matmul"):
+        with span("matmul"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    assert timer.counts["matmul"] == 3 and timer.totals["matmul"] > 0
-    assert "matmul" in timer.report() and "x3" in timer.report()
+    profiling.add("frames", 5)
+    profiling.add("frames")
     path = tmp_path / "trace.json"
-    with device_trace(str(path)):
-        torch.ones(8) + 1
-    assert json.loads(path.read_text())["traceEvents"]
+    with device_trace(str(path)) as prof:
+        with span("chunk", pass_no=2, chunk=8):
+            torch.ones(8) + 1
+    got = profiling.totals()
+    assert got["matmul"]["n"] == 3 and got["matmul"]["s"] > 0
+    assert got["frames"] == {"s": 0.0, "n": 6} and got["chunk"]["n"] == 1
+    names = {e.name for e in prof.events()}
+    assert "chunk" in names and "matmul" not in names
+    events = json.loads(path.read_text())["traceEvents"]
+    chunk = [e for e in events if e.get("name") == "chunk"]
+    assert len(chunk) == 1
+    assert (chunk[0]["args"]["pass_no"], chunk[0]["args"]["chunk"]) == (2, 8)
+    profiling.reset()
+    assert profiling.totals() == {} and profiling.count("frames") == 0
+    cli = tmp_path / "cli.json"
+    assert main(["--sweep", "0", "--device", "cpu", "--output",
+                 str(tmp_path / "out"), "--profile", str(cli)]) == 0
+    assert json.loads(cli.read_text())["traceEvents"]
+
+
+def test_spans_nest_under_the_profiler():
+    """Under torch.profiler a span is a profiler range of its name, and a
+    span opened inside another is recorded inside it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("outer"):
+            with span("inner"):
+                torch.ones(4) + 1
+    ev = {e.name: e for e in prof.events()}
+    assert ev["inner"].cpu_parent.name == "outer"
+    assert ev["outer"].time_range.start <= ev["inner"].time_range.start
+    assert ev["inner"].time_range.end <= ev["outer"].time_range.end
+
+
+def test_batched_sequence_scan_fills_its_spans(feature_sim):
+    """A batched sequence scan on the CPU fills ``sequence_scan.pack`` and
+    ``.split`` once a call and counts B·T poses; no graph, so no
+    ``frame_scan.*`` span."""
+    cfg = (_feature_cfg(jconfig, "cholesky"),
+           _feature_cfg(tconfig, "cholesky"))
+    _, state0, arrays = _feature_inputs(cfg, feature_sim)
+    bundles = _port_bundles([np.stack([x[:4]] * 2) for x in arrays])
+    run = make_batched_sequence_scan(cfg[1], "cpu", F64)
+    profiling.reset()
+    _, out = run(stack_states([state0, state0]), bundles)
+    got = profiling.totals()
+    assert out["p_Gk"].shape == (2, 4, 3)
+    assert {k: v["n"] for k, v in got.items()} == {
+        "sequence_scan.pack": 1, "sequence_scan.split": 1,
+        "sequence_scan.poses": 8}
+    assert got["sequence_scan.pack"]["s"] > 0
+    assert got["sequence_scan.split"]["s"] > 0
