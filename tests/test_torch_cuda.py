@@ -45,10 +45,11 @@ repair pass; the batched tracker: K6, K8, K9 (B·N rows), K10, K11 and
 K13 at B = 1, 2 and 4 against their plain versions, K8's segments each
 with its own T bitwise against single launches, the batched wrappers
 refusing mismatched parts, and the set replay against the single
-replays; QR compression in graphed frames (single and B = 4, run in a
-child process) against the same frames run eagerly, windows of 16, 19,
-32 and 64 clones (K5's wide route once a frame; K4 and K3 past their
-narrow instances) against the CPU and a batched wide-window scan whose
+replays and, staged a chunk ahead, bitwise against one whole chunk; QR
+compression in graphed frames (single and B = 4, run in a child process)
+against the same frames run eagerly, windows of 16, 19, 32 and 64
+clones (K5's wide route once a frame; K4 and K3 past their narrow
+instances) against the CPU and a batched wide-window scan whose
 rows are bitwise equal, K5's wide route at n = 93 to 384 (B = 1, 4 and
 16, the wider ridge, NaN where a factorization fails) and where its
 rows spill (n = 516, 600, 2700), both K5 routes near the f64 chain on
@@ -2288,6 +2289,28 @@ def test_set_replay_on_the_card(cuda):
         np.testing.assert_array_equal(r.timestamps, one.timestamps)
         np.testing.assert_allclose(r.positions, one.positions, atol=5e-5)
         assert (r.active_slots == one.active_slots).mean() >= 0.99
+
+
+@pytest.mark.gpu
+def test_set_replay_staged_ahead_on_the_card(cuda):
+    """run_sequence_set on the card in chunks of 8, each assembled into a
+    page-locked buffer (two, reused in turn) and copied up while the card
+    runs the chunk before it, is bitwise the one chunk that covers the
+    set: a buffer rewritten while its copy is in flight, or rows held as
+    views of a reused buffer, would part them."""
+    from test_torch_replay_set import ONE_CHUNK, _cfg, _mem_seq
+    from rvio_tpu_torch import config as tconfig
+    from rvio_tpu_torch.runtime import run_sequence_set
+    cfg = _cfg(tconfig, True)
+    seqs = [_mem_seq(cfg, 6.0, 5)[0], _mem_seq(cfg, 4.0, 9)[0]]
+    staged = run_sequence_set(cfg, seqs, device=cuda, chunk_size=8)
+    whole = run_sequence_set(cfg, seqs, device=cuda, chunk_size=ONE_CHUNK)
+    assert max(len(r.timestamps) for r in staged) > 16     # three chunks
+    for a, b in zip(staged, whole, strict=True):
+        for name in ("timestamps", "positions", "quaternions",
+                     "active_slots", "landmarks"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                          err_msg=name)
 
 
 # ---- the mesh layer ---------------------------------------------------------

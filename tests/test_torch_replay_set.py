@@ -7,9 +7,10 @@ that file: 160x120, N = 32) held in memory, replayed in lockstep; each
 sequence's result equals its own ``run_euroc_sequence_scan`` with the same
 seed (timestamps exactly, positions and attitudes to 1e-12, n_good and the
 tracker's counters equal), the shorter one riding ``ok = False`` padding
-for the rest of the batch; its spans fill every ``replay.*`` total.  Then
-the CLI on two ASL folders of the same basename: one output folder each,
-the second renamed.
+for the rest of the batch; in chunks of 8, each staged while the one
+before it runs, the set replay is bitwise the one chunk that covers the
+set; both fill every ``replay.*`` total.  Then the CLI on two ASL folders
+of the same basename: one output folder each, the second renamed.
 """
 
 import time
@@ -28,6 +29,7 @@ from rvio_tpu_torch.utils import profiling
 torch.set_num_threads(1)
 F64 = torch.float64
 T0_NS = 1_400_000_000_000_000_000
+ONE_CHUNK = 10 ** 6     # a chunk size past every sequence's length
 
 
 def _cfg(mod, equalizer=False):
@@ -56,21 +58,28 @@ def _mem_seq(cfg, duration, seed):
                        cam_t=sim.frame_t, images=imgs), sim
 
 
-@pytest.fixture(scope="module")
-def set_run():
-    """The set replay, the single replays, and the set replay's sequences,
-    span totals and wall time."""
-    cfg = _cfg(tconfig, True)
-    seqs = [_mem_seq(cfg, 6.0, 5)[0], _mem_seq(cfg, 4.0, 9)[0]]
+def _set_pass(cfg, seqs, chunk_size):
+    """One set replay from cleared span totals: its results, the totals
+    and its wall time."""
     profiling.reset()
     t0 = time.perf_counter()
-    batch = run_sequence_set(cfg, seqs, dtype=F64, device="cpu",
-                             chunk_size=8)
+    res = run_sequence_set(cfg, seqs, dtype=F64, device="cpu",
+                           chunk_size=chunk_size)
     wall = time.perf_counter() - t0
-    spans = profiling.totals()
+    return res, profiling.totals(), wall
+
+
+@pytest.fixture(scope="module")
+def set_run():
+    """The set replay in chunks of 8, the single replays, the set replay's
+    sequences, and each chunk size's pass (8 and one chunk for the whole
+    set) with its span totals and wall time."""
+    cfg = _cfg(tconfig, True)
+    seqs = [_mem_seq(cfg, 6.0, 5)[0], _mem_seq(cfg, 4.0, 9)[0]]
+    passes = {size: _set_pass(cfg, seqs, size) for size in (8, ONE_CHUNK)}
     singles = [run_euroc_sequence_scan(cfg, s, dtype=F64, device="cpu",
                                        chunk_size=8) for s in seqs]
-    return batch, singles, (seqs, spans, wall)
+    return passes[8][0], singles, (seqs, passes)
 
 
 def test_set_replay_matches_single_replays(set_run):
@@ -102,22 +111,42 @@ def test_set_replay_results_are_whole(set_run):
         assert res.decoder == "bag"
 
 
-def test_set_replay_fills_its_spans(set_run):
+def test_set_replay_staged_ahead_is_one_chunk(set_run):
+    """Chunks of 8, each assembled and sent up while the chunk before it
+    runs (each of the two staging buffers reused), give bitwise the poses,
+    slots and landmarks of one chunk over the whole set, where nothing is
+    staged ahead."""
+    _, _, (_, passes) = set_run
+    for a, b in zip(passes[8][0], passes[ONE_CHUNK][0], strict=True):
+        for name in ("timestamps", "positions", "quaternions",
+                     "active_slots", "landmarks"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("chunk_size", [8, ONE_CHUNK],
+                         ids=["chunks_of_8", "one_chunk"])
+def test_set_replay_fills_its_spans(set_run, chunk_size):
     """Every ``replay.*`` span of a pass: one init, a chunk's assembly,
     upload, scan and readback once each, rows once a chunk and once for
-    the results; ``replay.poses`` counts the rows returned, and the spans,
-    which never nest, sum to no more than the call's wall."""
-    batch, _, (seqs, spans, wall) = set_run
+    the results; ``replay.ahead`` counts the chunks staged while the one
+    before ran (all but the first), ``replay.poses`` the rows returned,
+    and the spans, which never nest, sum to no more than the call's
+    wall."""
+    _, _, (seqs, passes) = set_run
+    batch, spans, wall = passes[chunk_size]
     longest = max(len(s.cam_t) - int(np.searchsorted(s.cam_t,
                                                      r.timestamps[0]))
                   for s, r in zip(seqs, batch))
-    chunks = -(-longest // 8)
-    assert chunks >= 3
+    chunks = -(-longest // chunk_size)
+    assert chunks >= 3 if chunk_size == 8 else chunks == 1
     n = {k: spans[f"replay.{k}"]["n"] for k in
          ("init", "assemble", "upload", "scan", "readback", "rows", "poses")}
     assert n == {"init": 1, "assemble": chunks, "upload": chunks,
                  "scan": chunks, "readback": chunks, "rows": chunks + 1,
                  "poses": sum(len(r.timestamps) for r in batch)}
+    ahead = spans.get("replay.ahead", {"s": 0, "n": 0})
+    assert ahead == {"s": 0, "n": chunks - 1}
     timed = [spans[f"replay.{k}"]["s"] for k in
              ("init", "assemble", "upload", "scan", "readback", "rows")]
     assert min(timed) > 0 and sum(timed) <= wall
